@@ -3,26 +3,52 @@
     python3 chip_smoke.py
 
 Phases, one line each on stdout:
-  1. build   both hand-written kernels (csrc/raster_tile.cu, csrc/flash_attention.cu)
-             with nvcc, one process per source, started together;
-  2. k2      the attention kernel against its plain PyTorch version at the
-             DINOv2-L shapes of the main path (bank batch 128, a frame of 4
-             proposals, and batch 8; H 16, n 905, d 64, bf16), a ragged
-             length and fp32;
-             kernel, plain and scaled_dot_product_attention times;
-  3. k1      the raster tile kernel against its plain version on a seeded
+  1. build   every hand-written kernel (csrc/raster_tile.cu,
+             csrc/flash_attention.cu) with nvcc, one process per source,
+             started together;
+  2. k2      the whole-K/V attention kernel against its plain PyTorch version
+             at the DINOv2-L shapes of the static path (bank batch 128, a
+             frame of 4 proposals, and batch 8; H 16, n 905, d 64, bf16), a
+             ragged length and fp32; kernel, plain and
+             scaled_dot_product_attention times;
+  3. k2_d72, k2_d256, k3, k4
+             the attention kernels at the video path's shapes against their
+             plain versions: K2 at the Hiera-L global blocks [1, 8, 4096, 72]
+             and SAM2 memory self-attention [2, 1, 4096, 256]; K3 (the
+             streaming regime, no mask) at [1, 1, 4096, 256] x 6,144 keys; K4
+             at the memory cross-attention [2, 1, 4096, 256] x 28,736 keys
+             with whole memory slots masked; kernel, plain and SDPA times
+             (SDPA with attn_mask for K4). Every attention check also shows
+             that its tolerance fails the plain version of a kernel that
+             drops keys (the last 64; for K4 the object pointers, or one
+             memory slot);
+  4. k1      the raster tile kernel against its plain version on a seeded
              16k-face coloured mesh, one 128-pose chunk at 420², tile 28,
              M 256: hit-mask mismatches, depth/rgb error, prologue, kernel and
              plain times;
-  4. main    the coarse-pose path at full width: DINOv2-L/14-reg truncated at
-             layer 22, bf16, seeded random weights in the JAX package's layout
-             carried over by dinov2_from_jax; TemplateBank.build_pack of the
-             mesh (600 views through the raster kernel, 600 crops through the
-             ViT in batches of 128, depth_stats); estimate_batch on 4
-             proposals cut from a rendered frame. Launch counts are zeroed
-             before the pack build, read after the frame, and must be > 0
-             for both kernels; then a torch.profiler breakdown of one ViT
-             batch and one frame;
+  5. main    the static coarse-pose path at full width: DINOv2-L/14-reg
+             truncated at layer 22, bf16, seeded random weights in the JAX
+             package's layout carried over by dinov2_from_jax;
+             TemplateBank.build_pack of the mesh (600 views through the raster
+             kernel, 600 crops through the ViT in batches of 128,
+             depth_stats); estimate_batch on 4 proposals cut from a rendered
+             frame. Launch counts are zeroed before the pack build, read after
+             the frame, and must be > 0 for K1 and K2; then a torch.profiler
+             breakdown of one ViT batch and one frame;
+  6. video   the video proposal path at full width through its CLI
+             (extract_proposals_ground_video --detector boxes): a seeded
+             10-frame 1280x720 video with 2 boxed objects, SAM2 Hiera-L at
+             1024², bf16, seeded random weights carried over by
+             sam2_video_from_jax, DINOv2-L layer 22 retrieval against a
+             seeded 46,000 x 1024 mesh bank. Launch counts are zeroed before
+             the CLI and read after it (K2 and K4 must be > 0); proposals and
+             tracks counted (> 0 proposals). Then, on the same path's
+             functions: ms per frame of SAM2 propagation and of retrieval,
+             kernel launches per frame (3 K2 in the trunk on every frame, 4
+             K2 + 4 K4 in memory attention on every frame that reads memory),
+             a torch.profiler breakdown and idle share of one frame, and the
+             mask IoU and low-res logit difference against the same
+             propagation with every attention call on its plain version;
 then the kernels JSON line, the card's name and power limit, and last the
 device JSON line. Exits non-zero, printing no result, without a GPU or
 without the rest of the repository beside it.
@@ -31,9 +57,11 @@ from __future__ import annotations
 
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -43,18 +71,37 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_FP32_FLOPS = 67e12
 
-# Tolerances. K2 against its plain version: bf16 outputs of O(1) size, the
-# online softmax rescales p in another order than the one-pass plain version
-# before p is rounded to bf16. K1 against its plain version: the same fp32
-# operations in the same order (kernel built without FMA contraction).
-K2_TOL = dict(atol=2e-2, rtol=2e-2)
+# Attention kernel checks draw keys and values N(0, 1) and queries
+# N(0, QUERY_STD²), so that with scale d^-0.5 the logits have std QUERY_STD
+# and each row's softmax holds a few keys: outputs of O(1), and a kernel that
+# dropped a key tile, a memory slot or the pointer tokens would move some
+# output by O(1).
+QUERY_STD = 3.0
+# Attention kernels against their plain versions in bf16: elementwise within
+# ops.attention.bf16_error_bound, 2^-7·(|ref| + Σ p|v| / l) (both round p and
+# the output to bf16, against different maxima). In fp32 the same function
+# summed in another order.
+ATTN_TOL = "2^-7·(|ref| + softmax(q·kᵀ·scale)·|v|)"
 K2_TOL_FP32 = dict(atol=1e-5, rtol=1e-5)
+DROPPED_KEYS = 64  # keys a wrong kernel drops in the tolerance's own check
+# K1 against its plain version: the same fp32 operations in the same order
+# (kernel built without FMA contraction).
 K1_ATOL = 1e-5
+# The video path's SAM2 masks with every attention call on the kernels vs on
+# the plain versions: the same bf16 arithmetic summed in another order, fed
+# back through 10 frames of memory; logits compared at the low resolution.
+VIDEO_IOU_MIN = 0.9
+VIDEO_LOGIT_ATOL = 1.0  # low-res mask logits of O(10); bf16 steps there are 0.03-0.06
 
 SEED = 0
 RES, TILE, MFACES, CHUNK = 420, 28, 256, 128
 N_VIEWS, BANK_BATCH, N_PROPOSALS = 600, 128, 4
 DINO_LAYER = 22
+# Video path: frames, frame size (H, W), objects, mesh bank rows (the
+# Objaverse-LVIS + GSO bank) and feature width (DINOv2-L).
+VIDEO_FRAMES, VIDEO_HW, VIDEO_OBJECTS, BANK_ROWS, BANK_DIM = 10, (720, 1280), 2, 46000, 1024
+MIN_MASK_PX = 400  # the CLI's default
+WORK_DIR = Path(__file__).resolve().parent / "freepose_tpu_torch" / "_build" / "smoke_video"
 
 
 def log(phase: str, **fields) -> None:
@@ -73,6 +120,52 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def reset_launches() -> None:
+    """Set every kernel wrapper's launch count to 0."""
+    from freepose_tpu_torch.ops.attention import flash_attention_k2, flash_attention_k3, flash_attention_stream
+    from freepose_tpu_torch.ops.rasterizer_cuda import raster_tile
+
+    raster_tile.launches = flash_attention_k3.launches = flash_attention_stream.launches = 0
+    flash_attention_k2.launches = 0
+    flash_attention_k2.launches_by_dim = {}
+
+
+def read_launches() -> dict:
+    """Every kernel wrapper's launch count, K2 also by head dim."""
+    from freepose_tpu_torch.ops.attention import flash_attention_k2, flash_attention_k3, flash_attention_stream
+    from freepose_tpu_torch.ops.rasterizer_cuda import raster_tile
+
+    return {"K1": raster_tile.launches, "K2": flash_attention_k2.launches, "K3": flash_attention_k3.launches,
+            "K4": flash_attention_stream.launches,
+            "K2_by_dim": {str(d): n for d, n in sorted(flash_attention_k2.launches_by_dim.items())}}
+
+
+def check_attention(out: torch.Tensor, ref: torch.Tensor, allowed: torch.Tensor, wrong: dict) -> dict:
+    """Hold a kernel's bf16 output against its plain version `ref`,
+    elementwise within `allowed` (bf16_error_bound), and show that the
+    tolerance separates: each entry of `wrong` (the plain version of a kernel
+    that drops keys) must break it. Returns the kernel's max abs error and
+    each tolerance ratio, max |x - ref| / allowed (at most 1 to pass)."""
+    def ratio(x):
+        return float(((x.float() - ref.float()).abs() / allowed).max())
+
+    res = {"max_abs_err": float((out.float() - ref.float()).abs().max()), "tol_ratio": ratio(out)}
+    if res["tol_ratio"] > 1.0:
+        raise AssertionError(f"kernel vs plain version beyond {ATTN_TOL}: {res}")
+    for name, w in wrong.items():
+        res[f"{name}_tol_ratio"] = r = ratio(w)
+        if r <= 1.0:
+            raise AssertionError(f"tolerance {ATTN_TOL} does not fail a kernel that {name}: ratio {r}")
+    return res
+
+
+def bound(flops: float, nbytes: float) -> tuple[float, str]:
+    """The least time in ms for `flops` bf16 tensor-core operations and
+    `nbytes` moved at the card's peak rates, and which of the two bounds it."""
+    bytes_ms, ops_ms = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_BF16_FLOPS * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
 def bumpy_torus(seed: int = SEED, n_u: int = 128, n_v: int = 64):
@@ -133,36 +226,45 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     logs = cuda_build.build(["raster_tile", "flash_attention"])
     secs = time.perf_counter() - t0
-    ptxas = {name: [ln.strip() for ln in out.splitlines() if "registers" in ln] for name, out in logs.items()}
+    ptxas = {name: [ln.strip() for ln in out.splitlines() if "registers" in ln or "spill" in ln or "entry" in ln]
+             for name, out in logs.items()}
     log("build", seconds=secs, ptxas=ptxas)
 
 
 def phase_k2(dev) -> dict:
     import torch.nn.functional as F
 
-    from freepose_tpu_torch.ops.attention import dense_attention, flash_attention
+    from freepose_tpu_torch.ops.attention import bf16_error_bound, dense_attention
+    from freepose_tpu_torch.ops.attention import flash_attention_k2 as flash_attention
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     scale = 64 ** -0.5
     heads, n, d = 16, 1 + 4 + (RES // 14) ** 2, 64
 
     def qkv(b, length, dtype):
-        return [torch.randn((b, heads, length, d), generator=gen, device=dev).to(dtype) for _ in range(3)]
+        q, k, v = (torch.randn((b, heads, length, d), generator=gen, device=dev) for _ in range(3))
+        return (q * QUERY_STD).to(dtype), k.to(dtype), v.to(dtype)
 
     checks = {}
-    for label, b, length, dtype, tol in (("bank", BANK_BATCH, n, torch.bfloat16, K2_TOL),
-                                         ("frame", N_PROPOSALS, n, torch.bfloat16, K2_TOL),
-                                         ("b8", 8, n, torch.bfloat16, K2_TOL),
-                                         ("ragged", 8, 37, torch.bfloat16, K2_TOL),
-                                         ("fp32", 2, 130, torch.float32, K2_TOL_FP32)):
+    for label, b, length, dtype in (("bank", BANK_BATCH, n, torch.bfloat16),
+                                    ("frame", N_PROPOSALS, n, torch.bfloat16),
+                                    ("b8", 8, n, torch.bfloat16),
+                                    ("ragged", 8, 37, torch.bfloat16),
+                                    ("fp32", 2, 130, torch.float32)):
         q, k, v = qkv(b, length, dtype)
         out = flash_attention(q, k, v, scale)
         ref = dense_attention(q, k, v, scale)
         torch.cuda.synchronize()
-        torch.testing.assert_close(out.float(), ref.float(), **tol)
-        checks[label] = float((out.float() - ref.float()).abs().max())
+        if dtype == torch.float32:
+            torch.testing.assert_close(out, ref, **K2_TOL_FP32)
+            checks[label] = {"max_abs_err": float((out - ref).abs().max())}
+        else:
+            kd, vd = k[:, :, :-DROPPED_KEYS], v[:, :, :-DROPPED_KEYS]
+            wrong = {} if label == "ragged" else {"drops_last_keys": dense_attention(q, kd, vd, scale)}
+            checks[label] = check_attention(out, ref, bf16_error_bound(q, k, v, scale, ref), wrong)
         if label == "bank":
             main = (q, k, v)
+        del out, ref
     q, k, v = main
     ms = cuda_ms(lambda: flash_attention(q, k, v, scale), reps=10)
     plain_ms = cuda_ms(lambda: dense_attention(q, k, v, scale), reps=3)
@@ -171,15 +273,116 @@ def phase_k2(dev) -> dict:
     nbytes = 4 * bh * n * d * q.element_size()
     flops = 4 * bh * n * n * d
     bytes_ms, ops_ms = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_BF16_FLOPS * 1e3
-    rec = dict(name="K2 flash_attention (whole-K/V attention)", route="cuda",
+    rec = dict(name="K2 flash_attention_k2 (whole-K/V attention), d 64", route="cuda",
                source="freepose_tpu_torch/csrc/flash_attention.cu",
-               replaces="freepose_tpu/ops/attention.py:75", max_abs_err=checks["bank"],
+               replaces="freepose_tpu/ops/attention.py:75", max_abs_err=checks["bank"]["max_abs_err"],
                ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
                bound_by="bytes" if bytes_ms >= ops_ms else "operations", library_ms=library_ms)
-    log("k2", shape=[BANK_BATCH, heads, n, d], dtype="bf16", max_abs_err=checks, tol=K2_TOL,
+    log("k2", shape=[BANK_BATCH, heads, n, d], dtype="bf16", checks=checks, tol=ATTN_TOL, tol_fp32=K2_TOL_FP32,
         ms=ms, plain_ms=plain_ms, sdpa_ms=library_ms, bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
         tflops=flops / ms / 1e9)
     return rec
+
+
+def phase_stream_kernels(dev) -> dict:
+    """K2 at the video path's head dims, K3 and K4, each against its plain
+    version and timed beside it and beside SDPA. Returns {kernel: record}."""
+    import torch.nn.functional as F
+
+    from freepose_tpu_torch.ops.attention import (bf16_error_bound, dense_attention, dense_attention_masked,
+                                                  flash_attention_k2, flash_attention_k3, flash_attention_stream)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+
+    def randn(*shape, std=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * std).to(torch.bfloat16)
+
+    # Memory cross-attention keys: 7 mask-memory slots of 64² tokens, then 16
+    # object pointers of 4 tokens. Object 0 has every slot and pointer;
+    # object 1 only its conditioning slot, slot 1 and 3 pointers, so whole
+    # slots (whole key tiles) are masked.
+    hw, n_slots, n_ptr_tok = 4096, 7, 16 * 4
+    nk_mem = n_slots * hw + n_ptr_tok
+    mask = torch.ones((2, nk_mem), dtype=torch.bool, device=dev)
+    mask[1, 2 * hw:n_slots * hw] = False
+    mask[1, n_slots * hw + 3 * 4:] = False
+    # What a wrong K4 could drop: every object pointer, or object 0's slot 1.
+    no_pointers, no_slot = mask.clone(), mask.clone()
+    no_pointers[:, n_slots * hw:] = False
+    no_slot[0, hw:2 * hw] = False
+    cases = {
+        "K2_d72": dict(q=(1, 8, hw, 72), nk=hw, kernel=flash_attention_k2, mask=None,
+                       name="K2 flash_attention_k2 (whole-K/V attention), d 72",
+                       source="freepose_tpu_torch/csrc/flash_attention.cu", replaces="freepose_tpu/ops/attention.py:75"),
+        "K2_d256": dict(q=(2, 1, hw, 256), nk=hw, kernel=flash_attention_k2, mask=None,
+                        name="K2 flash_attention_k2 (whole-K/V attention), d 256",
+                        source="freepose_tpu_torch/csrc/flash_attention.cu",
+                        replaces="freepose_tpu/ops/attention.py:75"),
+        "K3": dict(q=(1, 1, hw, 256), nk=6144, kernel=flash_attention_k3, mask=None,
+                   name="K3 flash_attention_k3 (streaming attention, no mask)",
+                   source="freepose_tpu_torch/csrc/flash_attention.cu", replaces="freepose_tpu/ops/attention.py:30"),
+        "K4": dict(q=(2, 1, hw, 256), nk=nk_mem, kernel=flash_attention_stream, mask=mask,
+                   name="K4 flash_attention_stream (streaming attention, per-batch key mask)",
+                   source="freepose_tpu_torch/csrc/flash_attention.cu",
+                   replaces="freepose_tpu/ops/attention.py:208"),
+    }
+    recs = {}
+    for label, c in cases.items():
+        b, h, n, d = c["q"]
+        q, k, v = randn(b, h, n, d, std=QUERY_STD), randn(b, h, c["nk"], d), randn(b, h, c["nk"], d)
+        scale = d ** -0.5
+        m = c["mask"]
+        if m is None:
+            def run():
+                return c["kernel"](q, k, v, scale)
+
+            def plain():
+                return dense_attention(q, k, v, scale)
+
+            def library():
+                return F.scaled_dot_product_attention(q, k, v, scale=scale)
+        else:
+            def run():
+                return c["kernel"](q, k, v, scale, kv_mask=m)
+
+            def plain():
+                return dense_attention_masked(q, k, v, scale, m)
+
+            sdpa_mask = m[:, None, None, :]
+
+            def library():
+                return F.scaled_dot_product_attention(q, k, v, attn_mask=sdpa_mask, scale=scale)
+        out, ref = run(), plain()
+        torch.cuda.synchronize()
+        if m is None:
+            wrong = {"drops_last_keys": dense_attention(q, k[:, :, :-DROPPED_KEYS], v[:, :, :-DROPPED_KEYS], scale)}
+        else:
+            wrong = {"drops_pointers": dense_attention_masked(q, k, v, scale, no_pointers),
+                     "drops_a_slot": dense_attention_masked(q, k, v, scale, no_slot)}
+        check = check_attention(out, ref, bf16_error_bound(q, k, v, scale, ref, m), wrong)
+        err = check["max_abs_err"]
+        del out, ref, wrong
+        ms = cuda_ms(run, reps=10)
+        plain_ms = cuda_ms(plain, reps=2)
+        library_ms = cuda_ms(library, reps=10)
+        extra = {}
+        if label == "K3":  # the other regime on the same inputs: what flash_attention's dispatch weighs
+            extra["k2_ms_same_inputs"] = cuda_ms(lambda: flash_attention_k2(q, k, v, scale), reps=10)
+        # Work these inputs need: the products over every valid key, each
+        # input and the output moved once.
+        valid_keys = h * (int(m.sum()) if m is not None else b * c["nk"])
+        flops = 4.0 * n * d * valid_keys
+        nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel()) + (m.numel() if m is not None else 0)
+        bound_ms, bound_by = bound(flops, nbytes)
+        recs[label] = dict(name=c["name"], route="cuda", source=c["source"], replaces=c["replaces"],
+                           max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                           library_ms=library_ms)
+        log(label.lower(), q=list(c["q"]), nk=c["nk"], masked_keys=int((~m).sum()) if m is not None else 0,
+            dtype="bf16", check=check, tol=ATTN_TOL, ms=ms, plain_ms=plain_ms, sdpa_ms=library_ms,
+            bound_ms=bound_ms, bound_by=bound_by, tflops=flops / ms / 1e9, **extra)
+        del q, k, v
+        torch.cuda.empty_cache()
+    return recs
 
 
 def phase_k1(dev, mesh) -> dict:
@@ -257,7 +460,16 @@ def profile_device_time(fn, label: str, top: int = 8) -> dict:
                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy_ms = sum(ms for _, ms, _ in kernels)
     kernels.sort(key=lambda r: -r[1])
+    by_class = {"port kernels": 0.0, "GEMM": 0.0, "other": 0.0}  # device ms
+    for name, ms, _ in kernels:
+        if "flash::" in name or "raster_tile" in name:
+            by_class["port kernels"] += ms
+        elif any(tag in name for tag in ("gemm", "gemv", "nvjet", "cutlass")):
+            by_class["GEMM"] += ms
+        else:
+            by_class["other"] += ms
     return {label: {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / wall_ms,
+                    "by_class_ms": by_class, "launches": sum(count for _, _, count in kernels),
                     "top": [[name[:60], ms, count] for name, ms, count in kernels[:top]]}}
 
 
@@ -287,7 +499,7 @@ def phase_main(dev, mesh) -> tuple[dict, dict]:
     import dataclasses
 
     from freepose_tpu_torch.models.dinov2 import VIT_L14_REG, DinoFeatureExtractor
-    from freepose_tpu_torch.ops.attention import dense_attention, flash_attention
+    from freepose_tpu_torch.ops.attention import dense_attention, flash_attention_fn, flash_attention_k2
     from freepose_tpu_torch.ops.rasterizer_cuda import raster_tile
     from freepose_tpu_torch.pipeline.pose_estimator import CoarsePoseEstimator
     from freepose_tpu_torch.pipeline.proposals import extract_proposals
@@ -307,12 +519,12 @@ def phase_main(dev, mesh) -> tuple[dict, dict]:
     estimator = CoarsePoseEstimator(feature_fn, bank)
 
     torch.cuda.synchronize()
-    raster_tile.launches = flash_attention.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     pack = bank.build_pack("smoke_torus", mesh)
     torch.cuda.synchronize()
     pack_s = time.perf_counter() - t0
-    pack_launches = {"K1": raster_tile.launches, "K2": flash_attention.launches}
+    pack_launches = {"K1": raster_tile.launches, "K2": flash_attention_k2.launches}
     t0 = time.perf_counter()
     bank.build_pack("smoke_torus", mesh)  # again, warm
     torch.cuda.synchronize()
@@ -328,7 +540,7 @@ def phase_main(dev, mesh) -> tuple[dict, dict]:
                                         boxes.float(), scales)
         torch.cuda.synchronize()
         frame_times.append(time.perf_counter() - t0)
-    launches = {"K1": raster_tile.launches, "K2": flash_attention.launches}
+    launches = read_launches()
 
     # What came out: pack and poses well formed.
     feats = pack.feats
@@ -354,7 +566,7 @@ def phase_main(dev, mesh) -> tuple[dict, dict]:
         blk.attn.attention_fn = dense_attention
     plain_feats = normalize_feats(feature_fn(props8).float())
     for blk in extractor.model.blocks:
-        blk.attn.attention_fn = flash_attention
+        blk.attn.attention_fn = flash_attention_fn
     cos_min = float((ref_feats * plain_feats).sum(-1).min())
     if cos_min < 0.99:
         raise AssertionError(f"ViT features with K2 vs plain attention: min patch cosine {cos_min}")
@@ -374,8 +586,178 @@ def phase_main(dev, mesh) -> tuple[dict, dict]:
                   kernel_vs_plain_min_patch_cos=cos_min,
                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, profile=profile)
     log("main", **result)
-    if min(launches.values()) <= 0:
+    if min(launches["K1"], launches["K2"]) <= 0:
         raise AssertionError(f"main path did not launch every kernel: {launches}")
+    return result, launches
+
+
+def synthetic_video(seed: int = SEED):
+    """Seeded VIDEO_FRAMES-frame uint8 video of VIDEO_HW (1280x720): a
+    blocky low-frequency background with pixel noise, a red ellipse drifting
+    right and a blue rectangle drifting down-left. Returns (frames
+    [T, H, W, 3], frame-0 boxes [2, 4] xyxy)."""
+    rng = np.random.default_rng(seed + 3)
+    h, w = VIDEO_HW
+    sy, sx = h / 720, w / 1280  # the layout is drawn for 1280x720
+    bg = np.kron(rng.random((9, 16, 3)), np.ones((h // 9, w // 16, 1))) * 120
+    yy, xx = np.mgrid[:h, :w]
+    frames = []
+    for t in range(VIDEO_FRAMES):
+        img = bg + rng.random((h, w, 3)) * 30
+        img[((xx - (380 + 12 * t) * sx) / (170 * sx)) ** 2 + ((yy - 360 * sy) / (120 * sy)) ** 2 <= 1] = [230, 70, 50]
+        img[int((250 + 6 * t) * sy):int((510 + 6 * t) * sy), int((820 - 8 * t) * sx):int((1120 - 8 * t) * sx)] = \
+            [50, 110, 235]
+        frames.append(img.clip(0, 255).astype(np.uint8))
+    boxes = np.array([[210 * sx, 240 * sy, 550 * sx, 480 * sy], [820 * sx, 250 * sy, 1120 * sx, 510 * sy]], np.float32)
+    return np.stack(frames), boxes
+
+
+def plain_attention_auto(q, k, v, scale, kv_mask=None):
+    """flash_attention_auto with every call on the plain version."""
+    from freepose_tpu_torch.ops.attention import dense_attention_masked
+
+    return dense_attention_masked(q, k, v, scale, kv_mask)
+
+
+def phase_video(dev) -> tuple[dict, dict]:
+    import contextlib
+    import io
+
+    from PIL import Image
+
+    from freepose_tpu_torch.datasets.video import load_frame_dir
+    from freepose_tpu_torch.ops import attention
+    from freepose_tpu_torch.scripts import extract_proposals_ground_video as cli
+    from freepose_tpu_torch.scripts.common import load_dino_extractor
+
+    shutil.rmtree(WORK_DIR, ignore_errors=True)
+    (WORK_DIR / "frames").mkdir(parents=True)
+    frames, boxes0 = synthetic_video()
+    for t, frame in enumerate(frames):
+        Image.fromarray(frame).save(WORK_DIR / "frames" / f"{t:05d}.png", compress_level=1)
+    np.save(WORK_DIR / "boxes.npy", boxes0)
+    bank = np.random.default_rng(SEED + 4).standard_normal((BANK_ROWS, BANK_DIM), np.float32)
+    np.save(WORK_DIR / "bank.npy", bank)
+    names = [f"mesh_{i:05d}" for i in range(BANK_ROWS)]
+    (WORK_DIR / "filelist.txt").write_text("\n".join(names) + "\n")
+    out_json = WORK_DIR / "proposals.json"
+    argv = ["--video-dir", str(WORK_DIR / "frames"), "--bank", str(WORK_DIR / "bank.npy"),
+            "--filelist", str(WORK_DIR / "filelist.txt"), "--out", str(out_json), "--detector", "boxes",
+            "--boxes", str(WORK_DIR / "boxes.npy"), "--layer", str(DINO_LAYER),
+            "--min-mask-px", str(MIN_MASK_PX), "--device", str(dev)]
+
+    # The path, once, through the CLI a user calls.
+    torch.cuda.synchronize()
+    reset_launches()
+    cli_out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(cli_out):
+        cli.main(argv)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches = read_launches()
+    props = json.loads(out_json.read_text())
+    tracks = sorted({p["track_id"] for p in props})
+    for p in props:
+        assert p["mesh"] in names and math.isfinite(p["score"]) and 0 <= p["image_id"] < VIDEO_FRAMES, p
+        assert p["bbox"][2] > 0 and p["bbox"][3] > 0 and p["track_id"] in range(VIDEO_OBJECTS), p
+
+    # The same functions, measured: propagation alone with launches per
+    # frame, then retrieval of each frame's masks.
+    frames = load_frame_dir(WORK_DIR / "frames")
+    predictor = cli.load_video_predictor(None, device=dev)
+    extractor = load_dino_extractor(None, device=dev)
+    bank_dev = torch.as_tensor(bank / np.maximum(np.linalg.norm(bank, axis=-1, keepdims=True), 1e-12), device=dev)
+    del bank
+
+    def prompted():
+        state = predictor.init_state(frames)
+        for i, box in enumerate(boxes0):
+            state = predictor.add_new_points_or_box(state, 0, obj_id=i, box=box)
+        return state
+
+    sam_ms, per_frame, masks_k = [], [], []
+    gen = predictor.propagate_in_video(prompted(), binarize=True)
+    while True:
+        before = read_launches()
+        t0 = time.perf_counter()
+        item = next(gen, None)
+        if item is None:
+            break
+        torch.cuda.synchronize()
+        sam_ms.append((time.perf_counter() - t0) * 1e3)
+        after = read_launches()
+        per_frame.append({k: after[k] - before[k] for k in ("K2", "K4")})
+        masks_k.append(item[3])
+    # Every frame: K2 in each global block of the trunk; every frame that
+    # reads memory (all but the prompted one, with one object group): K2 and
+    # K4 in each memory-attention layer. Hiera-L: 3; 4 layers.
+    hiera, layers = predictor.config.sam.hiera, predictor.config.mem.num_layers
+    n_global = sum(1 for i in hiera.global_attention_blocks if i < sum(hiera.blocks_per_stage))
+    expected = [{"K2": n_global, "K4": 0}] + [{"K2": n_global + layers, "K4": layers}] * (VIDEO_FRAMES - 1)
+    if per_frame != expected:
+        raise AssertionError(f"kernel launches per frame {per_frame}, expected {expected}")
+    ret_ms, n_scored = [], 0
+    for t in range(VIDEO_FRAMES):
+        t0 = time.perf_counter()
+        n_scored += len(cli.retrieve_frame(extractor, bank_dev, frames[t], masks_k[t], DINO_LAYER, MIN_MASK_PX))
+        torch.cuda.synchronize()
+        ret_ms.append((time.perf_counter() - t0) * 1e3)
+
+    gen = predictor.propagate_in_video(prompted(), binarize=True)
+    for _ in range(4):
+        next(gen)
+
+    def one_frame():
+        t, _, _, masks = next(gen)
+        cli.retrieve_frame(extractor, bank_dev, frames[t], masks, DINO_LAYER, MIN_MASK_PX)
+
+    profile = profile_device_time(one_frame, "video_frame", top=16)
+    gen.close()
+
+    # Kernels vs plain attention on the whole propagation: logits and masks.
+    def propagate(plain: bool):
+        kernel_auto = attention.flash_attention_auto
+        if plain:
+            attention.flash_attention_auto = plain_attention_auto
+        try:
+            return [(low, high > 0) for _, _, low, high in predictor.propagate_in_video(prompted())]
+        finally:
+            attention.flash_attention_auto = kernel_auto
+
+    runs = {}
+    for plain in (False, True):
+        before = read_launches()
+        runs[plain] = propagate(plain)
+        after = read_launches()
+        assert (after["K2"] > before["K2"]) != plain and (after["K4"] > before["K4"]) != plain, (before, after)
+    ious, logit_diff, logit_scale = [], 0.0, 0.0
+    for (low_k, high_k), (low_p, high_p) in zip(runs[False], runs[True]):
+        logit_diff = max(logit_diff, float(np.abs(low_k - low_p).max()))
+        logit_scale = max(logit_scale, float(np.abs(low_p).max()))
+        for o in range(VIDEO_OBJECTS):
+            union = int((high_k[o] | high_p[o]).sum())
+            ious.append(int((high_k[o] & high_p[o]).sum()) / union if union else 1.0)
+    mask_px = [[int(m.sum()) for m in masks] for masks in masks_k]
+
+    result = dict(frames=VIDEO_FRAMES, frame_hw=list(VIDEO_HW), objects=VIDEO_OBJECTS, bank_rows=BANK_ROWS,
+                  cli_s=cli_s, cli_last_line=cli_out.getvalue().strip().splitlines()[-1], launches=launches,
+                  proposals=len(props), tracks=len(tracks), meshes_chosen=sorted({p["mesh"] for p in props}),
+                  sam2_ms_per_frame=float(np.median(sam_ms[1:])), sam2_prompt_frame_ms=sam_ms[0],
+                  sam2_ms=sam_ms, retrieval_ms_per_frame=float(np.median(ret_ms)), retrieval_ms=ret_ms,
+                  masks_scored=n_scored, mask_px=mask_px, launches_per_frame=per_frame,
+                  iou_kernel_vs_plain_mean=float(np.mean(ious)), iou_kernel_vs_plain_min=float(np.min(ious)),
+                  low_res_logit_max_abs_diff=logit_diff, low_res_logit_max_abs=logit_scale,
+                  peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, profile=profile)
+    log("video", **result)
+    shutil.rmtree(WORK_DIR, ignore_errors=True)
+    if min(launches["K2"], launches["K4"]) <= 0:
+        raise AssertionError(f"video path did not launch every kernel: {launches}")
+    if not props or n_scored == 0:
+        raise AssertionError(f"video path retrieved no proposal: {len(props)} proposals, {n_scored} scored")
+    if np.mean(ious) < VIDEO_IOU_MIN or logit_diff > VIDEO_LOGIT_ATOL:
+        raise AssertionError(f"SAM2 masks, kernels vs plain attention: mean IoU {np.mean(ious)}, "
+                             f"low-res logits max abs diff {logit_diff}")
     return result, launches
 
 
@@ -393,13 +775,25 @@ def main() -> int:
 
     phase_build()
     k2 = phase_k2(dev)
+    streams = phase_stream_kernels(dev)
     mesh = bumpy_torus()
     k1 = phase_k1(dev, mesh)
-    _, launches = phase_main(dev, mesh)
-    k1["launches"], k2["launches"] = launches["K1"], launches["K2"]
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: rec[k] for k in keys} for rec in (k1, k2)]}))
+    _, static = phase_main(dev, mesh)
+    torch.cuda.empty_cache()
+    _, video = phase_video(dev)
+    # Launches on each main path's run (`launches_by_path`) and their sum.
+    paths = {"static": static, "video": video}
+    counts = {k1["name"]: lambda p: p["K1"], streams["K3"]["name"]: lambda p: p["K3"],
+              streams["K4"]["name"]: lambda p: p["K4"]}
+    for rec, d in ((k2, 64), (streams["K2_d72"], 72), (streams["K2_d256"], 256)):
+        counts[rec["name"]] = lambda p, d=d: p["K2_by_dim"].get(str(d), 0)
+    records = (k1, k2, streams["K2_d72"], streams["K2_d256"], streams["K3"], streams["K4"])
+    for rec in records:
+        rec["launches_by_path"] = {path: counts[rec["name"]](p) for path, p in paths.items()}
+        rec["launches"] = sum(rec["launches_by_path"].values())
+    keys = ("name", "route", "source", "replaces", "launches", "launches_by_path", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"kernels": [{k: rec[k] for k in keys} for rec in records]}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0])

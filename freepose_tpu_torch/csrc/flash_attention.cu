@@ -1,53 +1,91 @@
-// Attention kernel K2: softmax(q·kᵀ·scale)·v for the ViTs' self-attention.
+// Attention kernels K2, K3 and K4: softmax(q·kᵀ·scale)·v on the tensor cores.
 //
-// Replaces freepose_tpu/ops/attention.py:_flash_kernel_single, the whole-K/V
-// regime of flash_attention on the TPU (driven here by
-// freepose_tpu_torch/ops/attention.py:flash_attention).
+// One tile kernel, instantiated per head dim, stands in for three TPU kernels
+// of freepose_tpu/ops/attention.py. The wrappers in
+// freepose_tpu_torch/ops/attention.py call the one entry point below:
+//   * K2 flash_attention_k2 (replaces _flash_kernel_single, the whole-K/V
+//     regime): no key mask. Callers: DINOv2 self-attention (d = 64), the
+//     Hiera-L global-attention blocks of the SAM2 trunk (d = 72) and SAM2
+//     memory self-attention (d = 256).
+//   * K3 flash_attention_k3 (replaces _flash_kernel + _kernel_squeeze, the
+//     streaming regime for key sets beyond the TPU's whole-K/V budget): the
+//     same launch as K2. K/V stream through shared memory here in both
+//     regimes, so the two TPU kernels are one device program on Hopper.
+//   * K4 flash_attention_stream (replaces _stream_kernel): with a per-batch
+//     key mask shared by the heads of a batch element (block index i // h on
+//     the TPU). Caller: SAM2 memory cross-attention, 4096 queries against 7
+//     mask-memory slots x 4096 tokens + 16 object pointers x 4 tokens =
+//     28,736 keys at d = 256, with empty slots masked.
 //
-// Semantics kept from the TPU kernel: logits, running max and sum in fp32;
-// bf16 operands with fp32 accumulation; p rounded to v's dtype before the
-// P·V product; keys >= seq_len set to -1e30; output acc / max(l, 1e-30).
+// Semantics kept from the TPU kernels: bf16 operands with fp32
+// accumulation; logits, running max and sum in fp32; p rounded to bf16
+// before the P·V product; keys masked by the key mask set to -1e30 (a row
+// whose keys are all masked therefore averages V uniformly,
+// exp(-1e30 - -1e30) = 1); output acc / max(l, 1e-30). Keys past `nk` take
+// -inf instead, so they add nothing even to an all-masked row, which then
+// averages exactly the nk real keys, as the dense reference does.
 //
-// What bounds it on H100: at the DINOv2-L shape (n = 905, d = 64) the two
-// products are 4·n²·d = 210 MFLOP per (batch·head) against 4·n·d·2 = 463 KB
-// moved, ~450 FLOP/byte, above the card's bf16 balance (989 TFLOP/s over
-// 3.35 TB/s = 295): tensor-core throughput bounds it, and at d = 64 the
-// softmax's exponentials compete with the products for issue slots.
+// What bounds it on H100: the two products are 4·n·nk·d flop against
+// 2·(2·n + 2·nk)·d bytes per (batch·head): ~450 FLOP/byte at the DINOv2-L
+// shape (n = nk = 905, d = 64), ~2,000 at the Hiera-L global shape
+// (n = nk = 4096, d = 72), ~3,600 at the memory cross-attention shape. All
+// are above the card's bf16 balance (989 TFLOP/s over 3.35 TB/s = 295):
+// tensor-core throughput bounds it.
 //
-// Design. The TPU kernel keeps all of K and V resident per (batch·head); on
-// Hopper that does not fit (K and V at n = 912, d = 64 in bf16 take ~233 KB,
-// more than a block's 227 KB of shared memory). Instead, one block of 4 warps
-// per (batch·head, 64-query tile), each warp owning 16 query rows:
-//   * K/V stream through shared memory in 64-key tiles, double-buffered with
-//     cp.async so the next tile's copy overlaps this tile's products;
-//   * Q·Kᵀ and P·V run on the tensor cores as mma.sync m16n8k16 bf16 with
-//     fp32 accumulators; operands come from shared memory through ldmatrix
-//     (rows padded to 144 bytes, so the eight rows of an 8x8 matrix hit
-//     distinct banks), V through ldmatrix.trans;
-//   * the online softmax (running max and sum, rescaled fp32 accumulator)
-//     stays in registers, and P goes from the Q·Kᵀ accumulators straight into
-//     the A fragments of P·V: the m16n8 accumulator layout of two adjacent
-//     key tiles is the m16k16 A layout, so P never touches shared memory.
-// wgmma and TMA (Hopper's asynchronous warpgroup products and bulk copies)
-// are the next step.
+// Design. The TPU kernels keep all of K and V resident per (batch·head) or
+// stream them over a sequential grid axis with (max, sum, acc) in VMEM
+// scratch; on Hopper K and V do not fit a block's 227 KB of shared memory
+// (at n = 912, d = 64 in bf16 they take ~233 KB). Here one block of 4 warps
+// runs per (batch·head, 64-query tile); each warp owns 16 query rows.
+//   * K/V stream through shared memory in BK-key tiles, double-buffered with
+//     cp.async, so the next tile's copy overlaps this tile's products. The
+//     key mask is read per key tile from global memory (28.7 KB per batch
+//     element at the cross-attention shape, L2-resident).
+//   * Q·Kᵀ and P·V run as mma.sync m16n8k16 bf16 with fp32 accumulators,
+//     operands from shared memory through ldmatrix (V through .trans).
+//   * The head dim is padded in shared memory only, to DP = the next multiple
+//     of 16 (the mma k-step): d = 72 runs as 80 with zero columns, which add
+//     nothing to Q·Kᵀ and give zero output columns that are not stored. HBM
+//     rows keep their native d (a 72-wide bf16 row is 144 bytes, 16-byte
+//     aligned, so cp.async moves it in 9 chunks).
+//   * Shared rows are DP + 8 elements: an odd number of 16-byte chunks, so
+//     the eight rows of an ldmatrix 8x8 matrix hit distinct banks.
+//   * P goes from the Q·Kᵀ accumulators straight into the A fragments of
+//     P·V (the m16n8 accumulator layout of two adjacent key tiles is the
+//     m16k16 A layout), so P never touches shared memory.
+//   * Register budget. The O accumulator is 16 rows x DP fp32 per warp, DP/2
+//     registers per thread: 32 at d = 64, 40 at d = 72, 128 at d = 256. Up
+//     to d = 128 the warp's Q rows also live in registers (DP/4); at d = 256
+//     they would take 64 more, so Q is re-read from shared memory with
+//     ldmatrix for every key tile, and the key tile shrinks to 32 keys to
+//     halve the score and P registers.
+// wgmma and TMA are the next step.
 //
-// fp32 inputs (accepted for tests on the card) take a plain scalar kernel of
-// the same online-softmax structure.
+// fp32 inputs at d = 64 with no mask (accepted for tests on the card) take
+// a plain scalar kernel of the same online-softmax structure.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
-namespace {
+namespace flash {
 
-constexpr int BQ = 64;       // queries per block
-constexpr int BK = 64;       // keys per streamed tile
-constexpr int HD = 64;       // head dim
-constexpr int LD = 72;       // padded shared-memory row stride (elements)
-constexpr int THREADS = 128; // 4 warps x 16 query rows
-constexpr float NEG_INF = -1e30f;
+constexpr int BQ = 64;        // queries per block
+constexpr int THREADS = 128;  // 4 warps x 16 query rows
+constexpr float MASKED = -1e30f;
 
 using bf16 = __nv_bfloat16;
+
+template <int HD>
+struct Tile {
+  static_assert(HD % 8 == 0, "head dim must be a multiple of 8 (16-byte rows)");
+  static constexpr int DP = (HD + 15) / 16 * 16;  // padded to the mma k-step
+  static constexpr int LD = DP + 8;               // shared row stride (elements)
+  static constexpr bool Q_IN_REGS = DP <= 128;
+  static constexpr int BK = DP <= 128 ? 64 : 32;  // keys per streamed tile
+  static constexpr size_t SMEM = (size_t)(BQ + 4 * BK) * LD * sizeof(bf16);  // Q + 2 stages of K, V
+};
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -87,16 +125,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Rows [row0, row0 + 64) of a [rows, HD] bf16 matrix -> shared (stride LD),
-// 16 bytes per cp.async; rows >= limit are zero-filled.
-__device__ __forceinline__ void load_tile_async(bf16* s, const bf16* g, int row0, int limit) {
-  for (int i = threadIdx.x; i < 64 * (HD / 8); i += THREADS) {
-    const int r = i / (HD / 8), c = i % (HD / 8);
-    const bool ok = row0 + r < limit;
-    cp_async16(s + r * LD + c * 8, g + (long)(ok ? row0 + r : 0) * HD + c * 8, ok);
-  }
-}
-
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
@@ -106,79 +134,119 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-constexpr size_t BF16_SMEM = (size_t)(BQ + 4 * BK) * LD * sizeof(bf16);  // Q + 2 stages of K, V
+// Rows [row0, row0 + rows) of a [limit, HD] bf16 matrix -> shared (stride
+// LD), 16 bytes per cp.async; rows >= limit are zero-filled.
+template <int HD, int LD>
+__device__ __forceinline__ void load_tile_async(bf16* s, const bf16* g, int row0, int rows, int limit) {
+  constexpr int CHUNKS = HD / 8;
+  for (int i = threadIdx.x; i < rows * CHUNKS; i += THREADS) {
+    const int r = i / CHUNKS, c = i % CHUNKS;
+    const bool ok = row0 + r < limit;
+    cp_async16(s + r * LD + c * 8, g + (long)(ok ? row0 + r : 0) * HD + c * 8, ok);
+  }
+}
 
+// q [bh, n, HD], k/v [bh, nk, HD], o [bh, n, HD], all bf16 and contiguous.
+// mask: nullptr, or [bh / heads, nk] bytes (0 = masked key), shared by the
+// heads of one batch element.
+template <int HD>
 __global__ void __launch_bounds__(THREADS)
-flash_kernel_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-                  bf16* __restrict__ o, int n, int nk, float scale) {
+flash_tile_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+                  const uint8_t* __restrict__ mask, bf16* __restrict__ o, int heads, int n, int nk,
+                  float scale) {
+  using T = Tile<HD>;
+  constexpr int DP = T::DP, LD = T::LD, BK = T::BK;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + BQ * LD;       // [2][BK * LD]
-  bf16* Vs = Ks + 2 * BK * LD;   // [2][BK * LD]
+  bf16* Ks = Qs + BQ * LD;      // [2][BK * LD]
+  bf16* Vs = Ks + 2 * BK * LD;  // [2][BK * LD]
 
   const long bh = blockIdx.x;
   const int q0 = blockIdx.y * BQ;
   const bf16* kg = k + bh * nk * HD;
   const bf16* vg = v + bh * nk * HD;
+  const uint8_t* mrow = mask ? mask + (bh / heads) * (long)nk : nullptr;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;  // mma fragment row group / column pair
   const int r0 = warp * 16;
 
-  load_tile_async(Qs, q + bh * n * HD, q0, n);
-  load_tile_async(Ks, kg, 0, nk);
-  load_tile_async(Vs, vg, 0, nk);
+  if constexpr (DP != HD) {  // zero the padded columns once; cp.async never writes them
+    for (int r = threadIdx.x; r < BQ + 4 * BK; r += THREADS)
+      for (int c = HD; c < DP; c += 8) *reinterpret_cast<uint4*>(Qs + r * LD + c) = make_uint4(0, 0, 0, 0);
+  }
+  load_tile_async<HD, LD>(Qs, q + bh * n * HD, q0, BQ, n);
+  load_tile_async<HD, LD>(Ks, kg, 0, BK, nk);
+  load_tile_async<HD, LD>(Vs, vg, 0, BK, nk);
   cp_async_commit();
 
-  uint32_t qf[HD / 16][4];  // this warp's Q rows as A fragments
-  float acc[HD / 8][4];     // O accumulator, 16 rows x 64 dims
+  uint32_t qf[T::Q_IN_REGS ? DP / 16 : 1][4];  // this warp's Q rows as A fragments
+  float acc[DP / 8][4];                        // O accumulator, 16 rows x DP dims
 #pragma unroll
-  for (int j = 0; j < HD / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
-  float m_lo = NEG_INF, m_hi = NEG_INF, l_lo = 0.0f, l_hi = 0.0f;  // rows g and g + 8
+  for (int j = 0; j < DP / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
+  float m_lo = MASKED, m_hi = MASKED, l_lo = 0.0f, l_hi = 0.0f;  // rows g and g + 8
 
   const int n_tiles = (nk + BK - 1) / BK;
   for (int it = 0; it < n_tiles; ++it) {
     const int stage = it & 1;
     if (it + 1 < n_tiles) {
-      load_tile_async(Ks + (stage ^ 1) * BK * LD, kg, (it + 1) * BK, nk);
-      load_tile_async(Vs + (stage ^ 1) * BK * LD, vg, (it + 1) * BK, nk);
+      load_tile_async<HD, LD>(Ks + (stage ^ 1) * BK * LD, kg, (it + 1) * BK, BK, nk);
+      load_tile_async<HD, LD>(Vs + (stage ^ 1) * BK * LD, vg, (it + 1) * BK, BK, nk);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (it == 0) {
+    if constexpr (T::Q_IN_REGS) {
+      if (it == 0) {
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk)
-        ldmatrix_x4(qf[kk], Qs + (r0 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
+        for (int kk = 0; kk < DP / 16; ++kk)
+          ldmatrix_x4(qf[kk], Qs + (r0 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
+      }
     }
     const bf16* Kt = Ks + stage * BK * LD;
     const bf16* Vt = Vs + stage * BK * LD;
 
-    // S = Q·Kᵀ for 16 rows x 64 keys: eight 8-key accumulator tiles.
+    // S = Q·Kᵀ for 16 rows x BK keys: BK/8 accumulator tiles of 8 keys.
     float s[BK / 8][4];
 #pragma unroll
     for (int j = 0; j < BK / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      uint32_t a[4];
+      if constexpr (T::Q_IN_REGS) {
+        a[0] = qf[kk][0]; a[1] = qf[kk][1]; a[2] = qf[kk][2]; a[3] = qf[kk][3];
+      } else {
+        ldmatrix_x4(a, Qs + (r0 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
+      }
 #pragma unroll
       for (int j = 0; j < BK / 8; j += 2) {
         uint32_t b[4];  // keys j*8.. (b[0], b[1]) and (j+1)*8.. (b[2], b[3])
         ldmatrix_x4(b, Kt + (j * 8 + (lane & 7) + ((lane >> 4) << 3)) * LD + kk * 16 + ((lane >> 3) & 1) * 8);
-        mma_bf16(s[j], qf[kk], b[0], b[1]);
-        mma_bf16(s[j + 1], qf[kk], b[2], b[3]);
+        mma_bf16(s[j], a, b[0], b[1]);
+        mma_bf16(s[j + 1], a, b[2], b[3]);
       }
     }
 
-    // Online softmax on rows g (s[.][0..1]) and g + 8 (s[.][2..3]).
+    // Scale and mask, then the online softmax on rows g (s[.][0..1]) and
+    // g + 8 (s[.][2..3]); this thread holds keys key0 + j*8 + {0, 1}.
     const int key0 = it * BK + 2 * t;
-    float mx_lo = NEG_INF, mx_hi = NEG_INF;
+    float mx_lo = MASKED, mx_hi = MASKED;
 #pragma unroll
     for (int j = 0; j < BK / 8; ++j) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool ok = key0 + j * 8 + (e & 1) < nk;
-        s[j][e] = ok ? s[j][e] * scale : NEG_INF;
+      for (int e = 0; e < 2; ++e) {
+        const int key = key0 + j * 8 + e;
+        float fill = 0.0f;
+        bool ok = key < nk;
+        if (!ok) {
+          fill = -INFINITY;
+        } else if (mrow != nullptr && mrow[key] == 0) {
+          ok = false;
+          fill = MASKED;
+        }
+        s[j][e] = ok ? s[j][e] * scale : fill;
+        s[j][e + 2] = ok ? s[j][e + 2] * scale : fill;
       }
       mx_lo = fmaxf(mx_lo, fmaxf(s[j][0], s[j][1]));
       mx_hi = fmaxf(mx_hi, fmaxf(s[j][2], s[j][3]));
@@ -202,7 +270,7 @@ flash_kernel_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k, const 
     l_lo = a_lo * l_lo + sum_lo;  // per-thread partial sums; the quad adds them at the end
     l_hi = a_hi * l_hi + sum_hi;
 #pragma unroll
-    for (int j = 0; j < HD / 8; ++j) {
+    for (int j = 0; j < DP / 8; ++j) {
       acc[j][0] *= a_lo; acc[j][1] *= a_lo;
       acc[j][2] *= a_hi; acc[j][3] *= a_hi;
     }
@@ -211,7 +279,7 @@ flash_kernel_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k, const 
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
 #pragma unroll
-      for (int j = 0; j < HD / 8; j += 2) {
+      for (int j = 0; j < DP / 8; j += 2) {
         uint32_t b[4];  // dims j*8.. (b[0], b[1]) and (j+1)*8.. (b[2], b[3])
         ldmatrix_x4_trans(b, Vt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + j * 8 + (lane >> 4) * 8);
         mma_bf16(acc[j], pf[kk], b[0], b[1]);
@@ -226,7 +294,7 @@ flash_kernel_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k, const 
   const int row_lo = q0 + r0 + g, row_hi = row_lo + 8;
   bf16* og = o + bh * n * HD;
 #pragma unroll
-  for (int j = 0; j < HD / 8; ++j) {
+  for (int j = 0; j < HD / 8; ++j) {  // padded columns (j >= HD / 8) are not stored
     const int col = j * 8 + 2 * t;
     if (row_lo < n)
       *reinterpret_cast<__nv_bfloat162*>(og + (long)row_lo * HD + col) =
@@ -236,6 +304,43 @@ flash_kernel_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k, const 
           __floats2bfloat162_rn(acc[j][2] * inv_hi, acc[j][3] * inv_hi);
   }
 }
+
+// Launch the bf16 tile kernel for one head dim; returns a cudaError_t.
+template <int HD>
+inline int launch_tile(const void* q, const void* k, const void* v, const void* mask, void* o, int bh,
+                       int heads, int n, int nk, float scale, cudaStream_t stream) {
+  const size_t smem = Tile<HD>::SMEM;
+  cudaError_t err =
+      cudaFuncSetAttribute(flash_tile_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(bh, (n + BQ - 1) / BQ);
+  flash_tile_kernel<HD><<<grid, THREADS, smem, stream>>>((const bf16*)q, (const bf16*)k, (const bf16*)v,
+                                                        (const uint8_t*)mask, (bf16*)o, heads, n, nk, scale);
+  return (int)cudaGetLastError();
+}
+
+// Dispatch on the head dims the port's models use: 64 (DINOv2), 72 (Hiera-L
+// global blocks), 256 (SAM2 memory attention).
+inline int launch_tile_any(const void* q, const void* k, const void* v, const void* mask, void* o, int bh,
+                           int heads, int n, int nk, int d, float scale, cudaStream_t stream) {
+  if (n <= 0 || nk <= 0 || bh <= 0 || heads <= 0 || bh % heads != 0 || (n + BQ - 1) / BQ > 65535)
+    return (int)cudaErrorInvalidValue;
+  switch (d) {
+    case 64: return launch_tile<64>(q, k, v, mask, o, bh, heads, n, nk, scale, stream);
+    case 72: return launch_tile<72>(q, k, v, mask, o, bh, heads, n, nk, scale, stream);
+    case 256: return launch_tile<256>(q, k, v, mask, o, bh, heads, n, nk, scale, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace flash
+
+namespace {
+
+constexpr int BQ = flash::BQ;
+constexpr int BK = 64;
+constexpr int HD = 64;  // the fp32 kernel's head dim
+constexpr float NEG_INF = flash::MASKED;
 
 // fp32: one thread per query row, keys streamed through shared memory in
 // 64-key tiles with the same online softmax.
@@ -292,26 +397,19 @@ flash_kernel_f32(const float* __restrict__ q, const float* __restrict__ k, const
 
 }  // namespace
 
-// dtype: 0 = bf16, 1 = fp32. q [bh, n, d], k/v [bh, nk, d], o [bh, n, d],
-// all contiguous and 16-byte aligned; d must be 64.
-extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
-                                      int bh, int n, int nk, int d, float scale, int dtype,
+// q [bh, n, d], k/v [bh, nk, d], o [bh, n, d], all contiguous and 16-byte
+// aligned. dtype 0 = bf16 with d in {64, 72, 256}: mask nullptr (K2, K3) or
+// [bh / heads, nk] bytes, 0 = masked key (K4). dtype 1 = fp32 with d = 64
+// and no mask.
+extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, const void* mask, void* o,
+                                      int bh, int heads, int n, int nk, int d, float scale, int dtype,
                                       void* stream) {
-  if (d != HD || n <= 0 || nk <= 0 || bh <= 0 || (n + BQ - 1) / BQ > 65535)
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0) return flash::launch_tile_any(q, k, v, mask, o, bh, heads, n, nk, d, scale, s);
+  if (dtype != 1 || mask != nullptr || d != HD || n <= 0 || nk <= 0 || bh <= 0 || (n + BQ - 1) / BQ > 65535)
     return (int)cudaErrorInvalidValue;
   const dim3 grid(bh, (n + BQ - 1) / BQ);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) {
-    cudaError_t err = cudaFuncSetAttribute(flash_kernel_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)BF16_SMEM);
-    if (err != cudaSuccess) return (int)err;
-    flash_kernel_bf16<<<grid, THREADS, BF16_SMEM, s>>>((const bf16*)q, (const bf16*)k, (const bf16*)v,
-                                                       (bf16*)o, n, nk, scale);
-  } else if (dtype == 1) {
-    flash_kernel_f32<<<grid, BQ, 0, s>>>((const float*)q, (const float*)k, (const float*)v, (float*)o, n,
-                                         nk, scale);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
+  flash_kernel_f32<<<grid, BQ, 0, s>>>((const float*)q, (const float*)k, (const float*)v, (float*)o, n,
+                                       nk, scale);
   return (int)cudaGetLastError();
 }

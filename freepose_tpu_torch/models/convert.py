@@ -15,6 +15,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
+# Added to the SAM2 object-score head's output bias in random parameters, so
+# that random weights keep every tracked object present: a negative object
+# score blanks the object's masks, and retrieval then has nothing to score.
+OBJECT_SCORE_BIAS = 10.0
+
 
 def _f32(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x, dtype=np.float32))  # a writable, contiguous copy
@@ -87,3 +92,97 @@ def load_params(path: str | Path) -> dict:
         )
     with np.load(path) as z:
         return unflatten({k: z[k] for k in z.files})
+
+
+def _tree_leaves(tree: dict, prefix: tuple = ()):
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            yield from _tree_leaves(val, prefix + (key,))
+        else:
+            yield prefix + (key,), val
+
+
+def sam2_video_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """JAX Sam2VideoModel params (nested dicts of numpy arrays) ->
+    freepose_tpu_torch Sam2VideoModel state_dict (fp32; the model casts to
+    its compute dtypes on load). The port's modules carry the JAX names, so
+    the map is by leaf: Dense kernels [in, out] -> Linear weights [out, in];
+    HWIO conv kernels -> OIHW; the transposed-conv kernels of the decoder's
+    upscaler, which Flax applies unflipped, -> flipped [in, out, kh, kw];
+    LayerNorm scale -> weight; every other parameter keeps its name and
+    shape."""
+    siblings: dict[tuple, set] = {}
+    for path, _ in _tree_leaves(params):
+        siblings.setdefault(path[:-1], set()).add(path[-1])
+    sd: dict[str, torch.Tensor] = {}
+    for path, val in _tree_leaves(params):
+        parent, leaf = path[:-1], path[-1]
+        arr = np.asarray(val, dtype=np.float32)
+        if leaf == "kernel":
+            leaf = "weight"
+            if arr.ndim == 2:
+                arr = arr.T
+            elif parent[-1].startswith("upscale"):
+                arr = arr[::-1, ::-1].transpose(2, 3, 0, 1)
+            else:
+                arr = arr.transpose(3, 2, 0, 1)
+        elif leaf == "scale" and siblings[parent] == {"scale", "bias"}:
+            leaf = "weight"
+        sd[".".join(parent + (leaf,))] = _f32(arr)
+    return sd
+
+
+def jax_param_shapes(model: torch.nn.Module) -> dict[tuple, tuple]:
+    """The JAX parameter tree's leaf paths and shapes for a port module whose
+    names follow the JAX tree (the inverse of `sam2_video_from_jax`)."""
+    shapes = {}
+    for mod_name, mod in model.named_modules():
+        prefix = tuple(mod_name.split(".")) if mod_name else ()
+        for name, p in mod.named_parameters(recurse=False):
+            shape = tuple(p.shape)
+            if name == "weight" and isinstance(mod, torch.nn.Linear):
+                name, shape = "kernel", shape[::-1]
+            elif name == "weight" and isinstance(mod, torch.nn.LayerNorm):
+                name = "scale"
+            elif name == "weight" and isinstance(mod, torch.nn.ConvTranspose2d):
+                name, shape = "kernel", (shape[2], shape[3], shape[0], shape[1])
+            elif name == "weight" and isinstance(mod, torch.nn.Conv2d):
+                name, shape = "kernel", (shape[2], shape[3], shape[1], shape[0])
+            shapes[prefix + (name,)] = shape
+    return shapes
+
+
+def random_jax_params(model: torch.nn.Module, seed: int = 0) -> dict:
+    """Seeded random parameters for a port module, in the JAX package's tree
+    layout (see `jax_param_shapes`): lecun-normal kernels, N(0, 0.02) biases
+    and embeddings, LayerNorm scales 1 + N(0, 0.02), the prompt encoder's
+    Fourier matrix N(0, 1), and OBJECT_SCORE_BIAS on the SAM2 object-score
+    head's output bias."""
+    rng = np.random.default_rng(seed)
+    tree: dict = {}
+    for path, shape in jax_param_shapes(model).items():
+        if path[-1] == "kernel":
+            val = rng.standard_normal(shape, np.float32) / np.float32(np.sqrt(np.prod(shape[:-1])))
+        elif path[-1] == "pe_matrix":
+            val = rng.standard_normal(shape, np.float32)
+        elif path[-1] == "scale" and path[-2].startswith(("ln", "norm", "upscale_ln")):
+            val = 1.0 + 0.02 * rng.standard_normal(shape, np.float32)
+        else:
+            val = 0.02 * rng.standard_normal(shape, np.float32)
+        if path[-3:] == ("obj_head", "proj_out", "bias"):
+            val = val + np.float32(OBJECT_SCORE_BIAS)
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = val.astype(np.float32)
+    return tree
+
+
+def random_sam2_video_params(cfg, seed: int = 0) -> dict:
+    """`random_jax_params` of a Sam2VideoModel at `cfg` (built on the meta
+    device: shapes only)."""
+    from freepose_tpu_torch.models.sam2.video import Sam2VideoModel
+
+    with torch.device("meta"):
+        model = Sam2VideoModel(cfg)
+    return random_jax_params(model, seed)

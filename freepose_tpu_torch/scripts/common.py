@@ -57,3 +57,78 @@ def load_dino_extractor(weights: str | None, model: str = "vitl", layer_default:
             cfg = dataclasses.replace(cfg, dtype=torch.bfloat16)
     params = load_params(weights) if weights else None
     return DinoFeatureExtractor(cfg, params=params, device=dev)
+
+
+def tiny_sam2_video_config():
+    """The tiny SAM2 video config of the JAX package's video tests (hidden
+    128, 64² frames, a 4x4 memory grid), the port's own copy."""
+    from freepose_tpu_torch.models.sam2.hiera import HieraConfig
+    from freepose_tpu_torch.models.sam2.mask_decoder import MaskDecoderConfig
+    from freepose_tpu_torch.models.sam2.memory import MemoryConfig
+    from freepose_tpu_torch.models.sam2.model import Sam2Config
+    from freepose_tpu_torch.models.sam2.prompt import PromptConfig
+    from freepose_tpu_torch.models.sam2.video import Sam2VideoConfig
+
+    d, grid, img = 128, 4, 64
+    return Sam2VideoConfig(
+        sam=Sam2Config(
+            hiera=HieraConfig(
+                embed_dim=8, blocks_per_stage=(1, 1, 1, 1), embed_dim_per_stage=(8, 16, 32, 64),
+                heads_per_stage=(1, 2, 4, 8), window_size_per_stage=(4, 4, 4, 4),
+                global_attention_blocks=(9,), window_pos_bg_size=(2, 2),
+            ),
+            prompt=PromptConfig(hidden_size=d, image_size=img, patch_size=16, mask_input_channels=16),
+            decoder=MaskDecoderConfig(hidden_size=d, num_heads=2, mlp_dim=32, iou_head_hidden=d),
+            fpn_dim=d,
+        ),
+        mem=MemoryConfig(hidden_size=d, num_layers=2, num_heads=1, downsample_rate=1, ff_hidden=32,
+                         rope_feat_size=grid, mem_dim=64, enc_hidden=d, fuser_intermediate=32),
+        image_size=img,
+        mem_grid=grid,
+    )
+
+
+def production_sam2_config(device=None):
+    """SAM2 Hiera-L image config at the production dtype. On the card: bf16
+    trunk, neck, prompt encoder and decoder, with the global-attention blocks
+    on kernel K2. On the CPU: fp32 and plain attention. Returns (config,
+    image_size)."""
+    import dataclasses
+
+    import torch
+
+    from freepose_tpu_torch.device import resolve_device
+    from freepose_tpu_torch.models.sam2.model import Sam2Config
+
+    cfg = Sam2Config()
+    if resolve_device(device).type == "cuda":
+        bf = torch.bfloat16
+        cfg = dataclasses.replace(
+            cfg, dtype=bf,
+            hiera=dataclasses.replace(cfg.hiera, dtype=bf, use_flash=True),
+            prompt=dataclasses.replace(cfg.prompt, dtype=bf),
+            decoder=dataclasses.replace(cfg.decoder, dtype=bf),
+        )
+    return cfg, 1024
+
+
+def production_sam2_video_config(device=None):
+    """SAM2 video-tracking config at the production dtype: on the card the
+    bf16 image model of `production_sam2_config` and bf16 memory attention
+    and encoder, with memory self-attention on kernel K2 and the masked
+    cross-attention on kernel K4; fp32 and plain attention on the CPU.
+    FREEPOSE_TINY_MODELS=1 swaps in `tiny_sam2_video_config`."""
+    import dataclasses
+
+    import torch
+
+    from freepose_tpu_torch.device import resolve_device
+    from freepose_tpu_torch.models.sam2.video import Sam2VideoConfig
+
+    if os.environ.get("FREEPOSE_TINY_MODELS"):
+        return tiny_sam2_video_config()
+    cfg, _ = production_sam2_config(device)
+    vcfg = Sam2VideoConfig(sam=cfg)
+    if resolve_device(device).type == "cuda":
+        vcfg = dataclasses.replace(vcfg, mem=dataclasses.replace(vcfg.mem, use_flash=True, dtype=torch.bfloat16))
+    return vcfg

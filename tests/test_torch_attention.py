@@ -1,8 +1,8 @@
-"""Attention K2 in the PyTorch port vs the JAX package.
+"""Attention K2, K3 and K4 in the PyTorch port vs the JAX package.
 
-On the CPU the port's `flash_attention` runs its plain version
-(`dense_attention`); it is held against the JAX Pallas kernel in interpret
-mode and against the dense XLA path on the same numpy inputs.
+On the CPU the port's wrappers run their plain versions (`dense_attention`,
+`dense_attention_masked`); they are held against the JAX Pallas kernels in
+interpret mode and against the dense XLA path on the same numpy inputs.
 
 Tolerances: fp32 atol 1e-5 (same arithmetic, summation order differs);
 bf16 atol 2e-2 (outputs of O(1) size rounded to bf16's 8-bit mantissa, and
@@ -17,14 +17,17 @@ import torch
 
 from freepose_tpu.ops.attention import dense_attention_masked as jax_dense
 from freepose_tpu.ops.attention import flash_attention as jax_flash
-from freepose_tpu_torch.ops.attention import dense_attention, flash_attention
+from freepose_tpu.ops.attention import flash_attention_stream as jax_stream
+from freepose_tpu_torch.ops.attention import (dense_attention, dense_attention_masked, flash_attention,
+                                              flash_attention_auto, flash_attention_k2, flash_attention_k3,
+                                              flash_attention_stream)
 
 SCALE = 64**-0.5
 
 
-def _qkv(n, b=2, h=3, d=64, seed=0):
+def _qkv(n, b=2, h=3, d=64, seed=0, nk=None):
     rng = np.random.default_rng(seed)
-    return [rng.normal(size=(b, h, n, d)).astype(np.float32) for _ in range(3)]
+    return [rng.normal(size=(b, h, length, d)).astype(np.float32) for length in (n, nk or n, nk or n)]
 
 
 @pytest.mark.parametrize("n", [16, 37, 130])
@@ -51,10 +54,12 @@ def test_plain_matches_jax_bf16(n):
 
 def test_cpu_tensor_runs_plain_version_without_launch():
     q, k, v = map(torch.as_tensor, _qkv(20, seed=2))
-    before = flash_attention.launches
+    before = (flash_attention_k2.launches, flash_attention_k3.launches, flash_attention_stream.launches)
     out = flash_attention(q, k, v, SCALE)
     torch.testing.assert_close(out, dense_attention(q, k, v, SCALE), rtol=0, atol=0)
-    assert flash_attention.launches == before
+    flash_attention(q, k, v, SCALE, single_budget=0)
+    flash_attention_auto(q, k, v, SCALE, kv_mask=torch.ones((2, 20), dtype=torch.bool))
+    assert (flash_attention_k2.launches, flash_attention_k3.launches, flash_attention_stream.launches) == before
 
 
 def test_wrapper_refuses_tensors_off_cpu_and_cuda():
@@ -62,3 +67,66 @@ def test_wrapper_refuses_tensors_off_cpu_and_cuda():
     with pytest.raises(ValueError):
         flash_attention(q, q, q, SCALE)
 
+
+
+def _bf16(*xs):
+    return [torch.as_tensor(x).to(torch.bfloat16) for x in xs], [jnp.asarray(x, jnp.bfloat16) for x in xs]
+
+
+@pytest.mark.parametrize("d", [72, 256])
+def test_k2_plain_matches_jax_at_sam2_head_dims(d):
+    """d = 72 (Hiera-L global blocks) and d = 256 (memory self-attention),
+    bf16, against the whole-K/V Pallas kernel; atol 2e-2 as for d = 64."""
+    q, k, v = _qkv(40, b=1, h=2, d=d, seed=3, nk=70)
+    ours_in, jax_in = _bf16(q, k, v)
+    ours = flash_attention(*ours_in, d**-0.5)
+    ref = np.asarray(jax_flash(*jax_in, d**-0.5, interpret=True).astype(jnp.float32))
+    np.testing.assert_allclose(ours.float().numpy(), ref, atol=2e-2)
+
+
+@pytest.mark.parametrize("dtype,tol", [(np.float32, 1e-5), (jnp.bfloat16, 2e-2)])
+def test_k3_plain_matches_jax_streaming_regime(dtype, tol):
+    """single_budget=0 selects the streaming regime on both sides (K3 and
+    `_flash_kernel`); 300 keys stream in 3 blocks of 112 on the JAX side."""
+    q, k, v = _qkv(50, b=1, h=2, d=256, seed=4, nk=300)
+    jq, jk, jv = (jnp.asarray(x, dtype) for x in (q, k, v))
+    ours = flash_attention(*(torch.as_tensor(np.array(x.astype(jnp.float32))).to(
+        torch.float32 if dtype == np.float32 else torch.bfloat16) for x in (jq, jk, jv)),
+        1 / 16, single_budget=0)
+    ref = np.asarray(jax_flash(jq, jk, jv, 1 / 16, block_k=128, single_budget=0, interpret=True).astype(jnp.float32))
+    np.testing.assert_allclose(ours.float().numpy(), ref, atol=tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(np.float32, 1e-5), (jnp.bfloat16, 2e-2)])
+def test_k4_plain_matches_jax_stream_with_empty_block_and_row(dtype, tol):
+    """Batch 0: keys 32..63 (one whole 32-key block) and a ragged run
+    masked; batch 1: every key masked, so every row averages V uniformly.
+    nk is a multiple of the JAX block, so no padded keys enter that mean."""
+    nk = 96
+    q, k, v = _qkv(24, b=2, h=2, d=72, seed=5, nk=nk)
+    mask = np.ones((2, nk), bool)
+    mask[0, 32:64] = False
+    mask[0, 70:75] = False
+    mask[1] = False
+    jq, jk, jv = (jnp.asarray(x, dtype) for x in (q, k, v))
+    tdtype = torch.float32 if dtype == np.float32 else torch.bfloat16
+    tq, tk, tv = (torch.as_tensor(np.array(x.astype(jnp.float32))).to(tdtype) for x in (jq, jk, jv))
+    ours = flash_attention_stream(tq, tk, tv, 72**-0.5, kv_mask=torch.as_tensor(mask))
+    ref = np.asarray(jax_stream(jq, jk, jv, 72**-0.5, kv_mask=jnp.asarray(mask), block_q=16, block_k=32,
+                                interpret=True).astype(jnp.float32))
+    np.testing.assert_allclose(ours.float().numpy(), ref, atol=tol)
+    ref_dense = np.asarray(jax_dense(jq, jk, jv, 72**-0.5, kv_mask=jnp.asarray(mask)).astype(jnp.float32))
+    np.testing.assert_allclose(dense_attention_masked(tq, tk, tv, 72**-0.5, torch.as_tensor(mask)).float().numpy(),
+                               ref_dense, atol=tol)
+    uniform = tv[1].float().mean(dim=1, keepdim=True).expand(-1, 24, -1).numpy()
+    np.testing.assert_allclose(ours[1].float().numpy(), uniform, atol=tol)
+
+
+def test_auto_routes_a_mask_to_k4_and_no_mask_to_flash_attention():
+    q, k, v = map(torch.as_tensor, _qkv(10, b=2, h=1, d=64, seed=6, nk=30))
+    mask = torch.ones((2, 30), dtype=torch.bool)
+    mask[1, :20] = False
+    torch.testing.assert_close(flash_attention_auto(q, k, v, SCALE, kv_mask=mask),
+                               dense_attention_masked(q, k, v, SCALE, mask), rtol=0, atol=0)
+    torch.testing.assert_close(flash_attention_auto(q, k, v, SCALE), dense_attention(q, k, v, SCALE),
+                               rtol=0, atol=0)

@@ -7,11 +7,16 @@ hence --noconftest):
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda_kernels.py
 
-Tolerances: K2 in bf16 atol/rtol 2e-2 (outputs of O(1) size rounded to
-bf16, and the kernel's online softmax rescales p in another order than the
-one-pass plain version before p is rounded); K2 in fp32 atol/rtol 1e-5. K1
-runs the plain version's fp32 operations in the same order (built without
-FMA contraction): hit masks identical, depth and rgb to atol 1e-6.
+Attention inputs: keys and values N(0, 1), queries N(0, 3²), so that the
+logits have std 3 and each row's softmax holds a few keys: outputs of O(1),
+which a dropped key tile, slot or pointer set moves by O(1). Tolerances: K2,
+K3 and K4 in bf16 elementwise within ops.attention.bf16_error_bound,
+2^-7·(|ref| + Σ p|v| / l) (both versions round p and their output to bf16,
+against different maxima); a row whose keys are all masked, which averages
+V exactly in fp32 before the bf16 rounding, to 1e-4 + 1e-2·|ref|; K2 in
+fp32 atol/rtol 1e-5.
+K1 runs the plain version's fp32 operations in the same order (built
+without FMA contraction): hit masks identical, depth and rgb to atol 1e-6.
 """
 import numpy as np
 import pytest
@@ -19,13 +24,16 @@ import torch
 
 from freepose_tpu_torch.geometry.rotation import template_poses
 from freepose_tpu_torch.io.mesh import TriMesh, pad_mesh
-from freepose_tpu_torch.ops.attention import dense_attention, flash_attention
+from freepose_tpu_torch.ops.attention import (bf16_error_bound, dense_attention, dense_attention_masked,
+                                              flash_attention, flash_attention_k2, flash_attention_k3,
+                                              flash_attention_stream)
 from freepose_tpu_torch.ops.rasterizer import RasterSettings, rasterize
 from freepose_tpu_torch.ops.rasterizer_cuda import _bin_and_pack, raster_tile, raster_tile_plain
 
 pytestmark = pytest.mark.cuda
 
 SCALE = 64**-0.5
+QUERY_STD = 3.0
 K = np.asarray([[100.0, 0, 32], [0, 100, 32], [0, 0, 1]], np.float32)
 
 
@@ -38,27 +46,107 @@ def cuda():
     return torch.device("cuda")
 
 
-def _qkv(n, b=2, h=4, d=64, seed=3):
+def _within_bound(x, ref, q, k, v, scale, mask=None) -> bool:
+    """x agrees with the plain bf16 output ref within bf16_error_bound."""
+    return bool(((x.float() - ref.float()).abs() <= bf16_error_bound(q, k, v, scale, ref, mask)).all())
+
+
+def _qkv(n, b=2, h=4, d=64, seed=3, nk=None):
     rng = np.random.default_rng(seed)
-    return [rng.normal(size=(b, h, n, d)).astype(np.float32) for _ in range(3)]
+    return [rng.normal(scale=std, size=(b, h, length, d)).astype(np.float32)
+            for std, length in ((QUERY_STD, n), (1.0, nk or n), (1.0, nk or n))]
 
 
-@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-5)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("n", [905, 37, 64])
-def test_k2_matches_plain(cuda, dtype, tol, n):
+def test_k2_matches_plain(cuda, dtype, n):
     q, k, v = (torch.as_tensor(x, device=cuda).to(dtype) for x in _qkv(n))
-    before = flash_attention.launches
+    before = flash_attention_k2.launches
     out = flash_attention(q, k, v, SCALE)
     torch.cuda.synchronize()
-    assert flash_attention.launches == before + 1
+    assert flash_attention_k2.launches == before + 1
     assert out.dtype == dtype and out.shape == q.shape
     ref = dense_attention(q, k, v, SCALE)
-    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)
+    else:
+        assert _within_bound(out, ref, q, k, v, SCALE)
+
+
+@pytest.mark.parametrize("d", [72, 256])
+@pytest.mark.parametrize("n,nk", [(4096, 4096), (37, 100), (130, 64)])
+def test_k2_head_dims_match_plain(cuda, d, n, nk):
+    """The Hiera-L global-block (d = 72) and memory self-attention (d = 256)
+    head dims, at their 4096-token shape and at ragged lengths."""
+    b, h = (1, 8) if d == 72 else (2, 1)
+    q, k, v = (torch.as_tensor(x, device=cuda).to(torch.bfloat16) for x in _qkv(n, b, h, d, nk=nk))
+    before = flash_attention_k2.launches
+    out = flash_attention_k2(q, k, v, d**-0.5)
+    torch.cuda.synchronize()
+    assert flash_attention_k2.launches == before + 1
+    ref = dense_attention(q, k, v, d**-0.5)
+    assert _within_bound(out, ref, q, k, v, d**-0.5)
+
+
+@pytest.mark.parametrize("d", [64, 72, 256])
+def test_k3_matches_plain(cuda, d):
+    """K3 through flash_attention's streaming regime (single_budget=0)."""
+    q, k, v = (torch.as_tensor(x, device=cuda).to(torch.bfloat16) for x in _qkv(300, 1, 2, d, nk=6144 + 7))
+    before = flash_attention_k3.launches
+    out = flash_attention(q, k, v, d**-0.5, single_budget=0)
+    torch.cuda.synchronize()
+    assert flash_attention_k3.launches == before + 1
+    assert _within_bound(out, dense_attention(q, k, v, d**-0.5), q, k, v, d**-0.5)
+
+
+def _slot_mask(b, nk, cuda):
+    """Batch 0: keys of whole 4096-key slots masked (whole key tiles empty)
+    and a ragged run; batch 1: every key masked (uniform mean of V)."""
+    mask = torch.ones((b, nk), dtype=torch.bool, device=cuda)
+    mask[0, 4096:3 * 4096] = False
+    mask[0, nk - 37:nk - 5] = False
+    mask[1] = False
+    return mask
+
+
+@pytest.mark.parametrize("d", [64, 72, 256])
+def test_k4_matches_plain(cuda, d):
+    nk = 3 * 4096 + 64 + 5
+    q, k, v = (torch.as_tensor(x, device=cuda).to(torch.bfloat16) for x in _qkv(200, 2, 2, d, nk=nk))
+    mask = _slot_mask(2, nk, cuda)
+    before = flash_attention_stream.launches
+    out = flash_attention_stream(q, k, v, d**-0.5, kv_mask=mask)
+    torch.cuda.synchronize()
+    assert flash_attention_stream.launches == before + 1
+    ref = dense_attention_masked(q, k, v, d**-0.5, mask)
+    assert _within_bound(out, ref, q, k, v, d**-0.5, mask)
+    uniform = v[1].float().mean(dim=1, keepdim=True).expand(-1, 200, -1)
+    torch.testing.assert_close(out[1].float(), uniform, atol=1e-4, rtol=1e-2)
+
+
+def test_k4_at_the_memory_cross_attention_shape(cuda):
+    """2 objects, 4096 queries, 7 x 4096 + 16 x 4 keys at d = 256; object 1
+    has only its conditioning slot and 3 pointers. The tolerance fails a
+    kernel that drops the pointer tokens or one memory slot."""
+    nk = 7 * 4096 + 64
+    q, k, v = (torch.as_tensor(x, device=cuda).to(torch.bfloat16) for x in _qkv(4096, 2, 1, 256, nk=nk))
+    mask = torch.ones((2, nk), dtype=torch.bool, device=cuda)
+    mask[1, 4096:7 * 4096] = False
+    mask[1, 7 * 4096 + 12:] = False
+    out = flash_attention_stream(q, k, v, 1 / 16, kv_mask=mask)
+    ref = dense_attention_masked(q, k, v, 1 / 16, mask)
+    torch.cuda.synchronize()
+    assert _within_bound(out, ref, q, k, v, 1 / 16, mask)
+    no_pointers, no_slot = mask.clone(), mask.clone()
+    no_pointers[:, 7 * 4096:] = False
+    no_slot[0, 4096:2 * 4096] = False
+    for wrong in (no_pointers, no_slot):
+        assert not _within_bound(dense_attention_masked(q, k, v, 1 / 16, wrong), ref, q, k, v, 1 / 16, mask)
 
 
 def test_k2_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
     q = torch.zeros((1, 2, 8, 64), device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError):  # head dim other than 64
+    with pytest.raises(ValueError):  # head dim other than 64, 72, 256
         flash_attention(q[..., :32].contiguous(), q[..., :32].contiguous(), q[..., :32].contiguous(), SCALE)
     with pytest.raises(ValueError):  # not contiguous
         flash_attention(q.transpose(1, 2), q.transpose(1, 2), q.transpose(1, 2), SCALE)
@@ -66,6 +154,12 @@ def test_k2_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
         flash_attention(q, q.cpu(), q, SCALE)
     with pytest.raises(TypeError):  # fp16 is not a K2 dtype
         flash_attention(q.half(), q.half(), q.half(), SCALE)
+    with pytest.raises(ValueError):  # fp32 runs at d = 64 only
+        flash_attention_k2(*(torch.zeros((1, 1, 8, 72), device=cuda),) * 3, SCALE)
+    with pytest.raises(TypeError):  # the streaming kernel is bf16 only
+        flash_attention_stream(q.float(), q.float(), q.float(), SCALE, kv_mask=torch.ones((1, 8), device=cuda))
+    with pytest.raises(ValueError):  # a mask per batch element, not per (batch, head)
+        flash_attention_stream(q, q, q, SCALE, kv_mask=torch.ones((2, 8), dtype=torch.bool, device=cuda))
 
 
 def _cube():

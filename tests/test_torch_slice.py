@@ -16,6 +16,7 @@ the JAX package; an entry point asked for no device, on a machine without a
 GPU, raises instead of running on the host.
 """
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -235,19 +236,36 @@ def test_clis_match_jax(workspace, monkeypatch):
         assert o.time > 0
 
 
+VIDEO_SLICE_MODULES = [
+    "freepose_tpu_torch.ops.sampling", "freepose_tpu_torch.datasets.video",
+    *(f"freepose_tpu_torch.models.sam2.{m}" for m in ("hiera", "prompt", "mask_decoder", "model", "memory",
+                                                      "video", "predictor", "convert")),
+    "freepose_tpu_torch.scripts.extract_proposals_ground_video",
+]
+
+
 def test_port_imports_neither_jax_nor_the_jax_package():
     code = (
         "import importlib, pkgutil, sys\n"
         "import freepose_tpu_torch as pkg\n"
         "mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, 'freepose_tpu_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'freepose_tpu', 'scripts'))\n"
+        "importlib.import_module('chip_smoke')\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'freepose_tpu', 'scripts', 'tests'))\n"
         "assert not bad, bad\n"
-        "print(len(mods))\n"
+        "print(' '.join(mods))\n"
     )
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.strip()) >= 30  # every module of the slice was imported
+    mods = r.stdout.split()
+    assert len(mods) >= 40 and set(VIDEO_SLICE_MODULES) <= set(mods)  # every module of both slices
+    # No import of JAX, the JAX package or the tests anywhere in the sources,
+    # not even inside a function that this import did not run.
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|freepose_tpu|scripts|tests)\b", re.M)
+    sources = [p for p in sorted((REPO / "freepose_tpu_torch").rglob("*.py")) if "_build" not in p.parts]
+    for path in [REPO / "chip_smoke.py", *sources]:
+        assert not pattern.search(path.read_text()), path
 
 
 def test_entry_points_raise_without_a_gpu_unless_asked_for_the_cpu(workspace):
