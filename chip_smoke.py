@@ -22,11 +22,17 @@ Phases, one line each on stdout:
              that its tolerance fails the plain version of a kernel that
              drops keys (the last 64; for K4 the object pointers, or one
              memory slot);
-  4. k1      the raster tile kernel against its plain version on a seeded
+  4. k5      the biased fp32 attention kernel against its plain version at
+             the ZoeD_N shape [1, 16, 577, 64] and [2, 16, 577, 64] (the bias
+             [16, 577, 577] shared across the batch), each with and without a
+             key mask; the tolerance must fail the plain version without the
+             bias and with the next head's; kernel, plain and SDPA (attn_mask
+             = the bias) times;
+  5. k1      the raster tile kernel against its plain version on a seeded
              16k-face coloured mesh, one 128-pose chunk at 420², tile 28,
              M 256: hit-mask mismatches, depth/rgb error, prologue, kernel and
              plain times;
-  5. main    the static coarse-pose path at full width: DINOv2-L/14-reg
+  6. main    the static coarse-pose path at full width: DINOv2-L/14-reg
              truncated at layer 22, bf16, seeded random weights in the JAX
              package's layout carried over by dinov2_from_jax;
              TemplateBank.build_pack of the mesh (600 views through the raster
@@ -35,7 +41,7 @@ Phases, one line each on stdout:
              frame. Launch counts are zeroed before the pack build, read after
              the frame, and must be > 0 for K1 and K2; then a torch.profiler
              breakdown of one ViT batch and one frame;
-  6. video   the video proposal path at full width through its CLI
+  7. video   the video proposal path at full width through its CLI
              (extract_proposals_ground_video --detector boxes): a seeded
              10-frame 1280x720 video with 2 boxed objects, SAM2 Hiera-L at
              1024², bf16, seeded random weights carried over by
@@ -49,6 +55,19 @@ Phases, one line each on stdout:
              a torch.profiler breakdown and idle share of one frame, and the
              mask IoU and low-res logit difference against the same
              propagation with every attention call on its plain version;
+  8. scale   the metric scale path at full width through its CLI
+             (compute_scale_video) on the video phase's frames and proposal
+             JSON: CLIP ViT-bigG/14 (seeded random weights drawn on the
+             card), ZoeD_N from a .npz of seeded random parameters in the JAX
+             layout (carried over by zoedepth_from_jax), a seeded 2,201-name
+             prior, k = 11, all fp32. Launch counts are zeroed before the CLI
+             and read after it: K5 must launch 24 times per depth forward;
+             every proposal gets a finite scale > 0, one per track. Then, on
+             the same functions: ZoeD_N ms per frame, CLIP ms per proposal,
+             seconds to encode the prior, depth_scales ms per mask, a
+             torch.profiler breakdown of one depth forward, and one frame's
+             depth against the same forward with every biased attention on
+             its plain version; the video work directory is deleted after it;
 then the kernels JSON line, the card's name and power limit, and last the
 device JSON line. Exits non-zero, printing no result, without a GPU or
 without the rest of the repository beside it.
@@ -83,6 +102,17 @@ QUERY_STD = 3.0
 # summed in another order.
 ATTN_TOL = "2^-7·(|ref| + softmax(q·kᵀ·scale)·|v|)"
 K2_TOL_FP32 = dict(atol=1e-5, rtol=1e-5)
+# K5 against its plain version: the same fp32 function summed in another
+# order, |out - ref| <= atol + rtol·|ref| (K2's fp32 tolerance).
+K5_TOL = dict(atol=1e-5, rtol=1e-5)
+K5_SHAPE = (1, 16, 577, 64)  # ZoeD_N: 384² input, 24² patches + cls, 16 heads of 64
+# Scale path: one frame's ZoeD_N depth with K5 vs with every biased attention
+# on the plain version. fp32 sums in another order in each of 24 blocks,
+# carried through the DPT neck and the bins head: relative to the largest
+# depth.
+DEPTH_REL_TOL = 1e-4
+PRIOR_NAMES = 2201  # the LLM scale prior's object names (the reference's data/*.json)
+QUERY_K = 11
 DROPPED_KEYS = 64  # keys a wrong kernel drops in the tolerance's own check
 # K1 against its plain version: the same fp32 operations in the same order
 # (kernel built without FMA contraction).
@@ -124,21 +154,23 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
 
 def reset_launches() -> None:
     """Set every kernel wrapper's launch count to 0."""
-    from freepose_tpu_torch.ops.attention import flash_attention_k2, flash_attention_k3, flash_attention_stream
+    from freepose_tpu_torch.ops.attention import (flash_attention_bias, flash_attention_k2, flash_attention_k3,
+                                                  flash_attention_stream)
     from freepose_tpu_torch.ops.rasterizer_cuda import raster_tile
 
     raster_tile.launches = flash_attention_k3.launches = flash_attention_stream.launches = 0
-    flash_attention_k2.launches = 0
+    flash_attention_k2.launches = flash_attention_bias.launches = 0
     flash_attention_k2.launches_by_dim = {}
 
 
 def read_launches() -> dict:
     """Every kernel wrapper's launch count, K2 also by head dim."""
-    from freepose_tpu_torch.ops.attention import flash_attention_k2, flash_attention_k3, flash_attention_stream
+    from freepose_tpu_torch.ops.attention import (flash_attention_bias, flash_attention_k2, flash_attention_k3,
+                                                  flash_attention_stream)
     from freepose_tpu_torch.ops.rasterizer_cuda import raster_tile
 
     return {"K1": raster_tile.launches, "K2": flash_attention_k2.launches, "K3": flash_attention_k3.launches,
-            "K4": flash_attention_stream.launches,
+            "K4": flash_attention_stream.launches, "K5": flash_attention_bias.launches,
             "K2_by_dim": {str(d): n for d, n in sorted(flash_attention_k2.launches_by_dim.items())}}
 
 
@@ -161,10 +193,11 @@ def check_attention(out: torch.Tensor, ref: torch.Tensor, allowed: torch.Tensor,
     return res
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
-    """The least time in ms for `flops` bf16 tensor-core operations and
-    `nbytes` moved at the card's peak rates, and which of the two bounds it."""
-    bytes_ms, ops_ms = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_BF16_FLOPS * 1e3
+def bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
+    """The least time in ms for `flops` operations at `peak_flops` (default:
+    bf16 on the tensor cores) and `nbytes` moved at the card's peak rates,
+    and which of the two bounds it."""
+    bytes_ms, ops_ms = nbytes / PEAK_BYTES_PER_S * 1e3, flops / peak_flops * 1e3
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
@@ -383,6 +416,63 @@ def phase_stream_kernels(dev) -> dict:
         del q, k, v
         torch.cuda.empty_cache()
     return recs
+
+
+def phase_k5(dev) -> dict:
+    """K5 against its plain version at the ZoeD_N shape, batch 1 and 2 (the
+    bias read at bh % heads), with and without a key mask; the tolerance
+    must fail the plain version without the bias and with the next head's.
+    Kernel, plain and SDPA times at the main path's [1, 16, 577, 64]."""
+    import torch.nn.functional as F
+
+    from freepose_tpu_torch.ops.attention import dense_attention_bias, flash_attention_bias
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    h, n, d = K5_SHAPE[1:]
+    scale = d ** -0.5
+    bias = torch.randn((h, n, n), generator=gen, device=dev)
+
+    def ratio(x, ref):  # error over the allowed error; at most 1 to pass
+        return float(((x - ref).abs() / (K5_TOL["atol"] + K5_TOL["rtol"] * ref.abs())).max())
+
+    checks, main = {}, None
+    for b in (1, 2):
+        q = torch.randn((b, h, n, d), generator=gen, device=dev) * QUERY_STD
+        k, v = (torch.randn((b, h, n, d), generator=gen, device=dev) for _ in range(2))
+        mask = torch.ones((b, n), dtype=torch.bool, device=dev)
+        mask[0, 100:181] = False
+        mask[b - 1, 300:413] = False
+        for m in (None, mask):
+            label = f"b{b}" + ("_masked" if m is not None else "")
+            out = flash_attention_bias(q, k, v, scale, bias, kv_mask=m)
+            ref = dense_attention_bias(q, k, v, scale, bias, m)
+            torch.cuda.synchronize()
+            res = {"max_abs_err": float((out - ref).abs().max()), "tol_ratio": ratio(out, ref)}
+            for name, wrong in (("no_bias", None), ("next_head_bias", bias.roll(1, dims=0))):
+                res[f"{name}_tol_ratio"] = ratio(dense_attention_bias(q, k, v, scale, wrong, m), ref)
+            checks[label] = res
+            if res["tol_ratio"] > 1.0:
+                raise AssertionError(f"K5 vs plain version beyond {K5_TOL}: {label} {res}")
+            if min(res["no_bias_tol_ratio"], res["next_head_bias_tol_ratio"]) <= 1.0:
+                raise AssertionError(f"K5 tolerance {K5_TOL} does not fail a wrong bias: {label} {res}")
+        if b == K5_SHAPE[0]:
+            main = (q, k, v)
+    q, k, v = main
+    ms = cuda_ms(lambda: flash_attention_bias(q, k, v, scale, bias), reps=20)
+    plain_ms = cuda_ms(lambda: dense_attention_bias(q, k, v, scale, bias), reps=10)
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias[None], scale=scale), reps=20)
+    flops = 4.0 * q.shape[0] * h * n * n * d
+    nbytes = 4 * (4 * q.numel() + bias.numel())  # q, k, v and o, and the bias, once each, fp32
+    bound_ms, bound_by = bound(flops, nbytes, PEAK_FP32_FLOPS)
+    rec = dict(name="K5 flash_attention_bias (fp32 attention with a per-head logit bias)", route="cuda",
+               source="freepose_tpu_torch/csrc/flash_attention.cu", replaces="freepose_tpu/ops/attention.py:317",
+               max_abs_err=checks["b1"]["max_abs_err"], ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+               bound_by=bound_by, library_ms=library_ms)
+    log("k5", shape=list(K5_SHAPE), bias=[h, n, n], dtype="fp32", checks=checks, tol=K5_TOL, ms=ms,
+        plain_ms=plain_ms, sdpa_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, tflops=flops / ms / 1e9)
+    del q, k, v, bias, main
+    torch.cuda.empty_cache()
+    return rec
 
 
 def phase_k1(dev, mesh) -> dict:
@@ -750,7 +840,6 @@ def phase_video(dev) -> tuple[dict, dict]:
                   low_res_logit_max_abs_diff=logit_diff, low_res_logit_max_abs=logit_scale,
                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, profile=profile)
     log("video", **result)
-    shutil.rmtree(WORK_DIR, ignore_errors=True)
     if min(launches["K2"], launches["K4"]) <= 0:
         raise AssertionError(f"video path did not launch every kernel: {launches}")
     if not props or n_scored == 0:
@@ -758,6 +847,157 @@ def phase_video(dev) -> tuple[dict, dict]:
     if np.mean(ious) < VIDEO_IOU_MIN or logit_diff > VIDEO_LOGIT_ATOL:
         raise AssertionError(f"SAM2 masks, kernels vs plain attention: mean IoU {np.mean(ious)}, "
                              f"low-res logits max abs diff {logit_diff}")
+    return result, launches
+
+
+def plain_attention_bias_auto(q, k, v, scale, bias):
+    """flash_attention_bias_auto with every call on the plain version."""
+    from freepose_tpu_torch.ops.attention import dense_attention_bias
+
+    return dense_attention_bias(q, k, v, scale, bias)
+
+
+def phase_scale(dev) -> tuple[dict, dict]:
+    """compute_scale_video through its CLI on the video phase's frames and
+    proposal JSON: CLIP ViT-bigG/14 (random weights drawn on the card),
+    ZoeD_N from a .npz of seeded random parameters in the JAX layout, a
+    seeded 2,201-name prior, k = 11; all fp32."""
+    import contextlib
+    import gc
+    import io
+
+    from freepose_tpu_torch.datasets.video import load_frame_dir
+    from freepose_tpu_torch.geometry.camera import default_video_intrinsics
+    from freepose_tpu_torch.io.proposals_json import proposal_bbox_xyxy, proposal_mask
+    from freepose_tpu_torch.models import zoedepth
+    from freepose_tpu_torch.models.convert import random_zoedepth_params, save_params
+    from freepose_tpu_torch.ops import attention
+    from freepose_tpu_torch.pipeline.proposals import extract_proposals
+    from freepose_tpu_torch.pipeline.scale_estimator import ClipPriorScaleEstimator, depth_scales
+    from freepose_tpu_torch.scripts import compute_scale_video as cli
+    from freepose_tpu_torch.scripts.compute_scale import load_clip, make_tokenizer
+
+    rng = np.random.default_rng(SEED + 6)
+    prior = {f"object {i:04d}": float(s) for i, s in enumerate(rng.uniform(0.02, 0.5, PRIOR_NAMES))}
+    (WORK_DIR / "prior.json").write_text(json.dumps(prior))
+    t0 = time.perf_counter()
+    save_params(random_zoedepth_params(zoedepth.DepthConfig(), seed=SEED + 7), WORK_DIR / "zoed_n.npz")
+    weights_s = time.perf_counter() - t0
+    weights_gb = (WORK_DIR / "zoed_n.npz").stat().st_size / 1e9
+    argv = ["--video-dir", str(WORK_DIR / "frames"), "--proposals", str(WORK_DIR / "proposals.json"),
+            "--scale-file", str(WORK_DIR / "prior.json"), "--query-k", str(QUERY_K),
+            "--depth-weights", str(WORK_DIR / "zoed_n.npz"), "--out", str(WORK_DIR / "scaled.json"),
+            "--device", str(dev)]
+
+    # The path, once, through the CLI a user calls; depth forwards counted.
+    forwards = []
+    predict = zoedepth.MetricDepthEstimator.predict
+
+    def counted_predict(self, *args, **kwargs):
+        forwards.append(1)
+        return predict(self, *args, **kwargs)
+
+    torch.cuda.synchronize()
+    reset_launches()
+    cli_out = io.StringIO()
+    zoedepth.MetricDepthEstimator.predict = counted_predict
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(cli_out):
+            cli.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        zoedepth.MetricDepthEstimator.predict = predict
+    cli_s = time.perf_counter() - t0
+    launches = read_launches()
+    props = json.loads((WORK_DIR / "proposals.json").read_text())
+    scaled = json.loads((WORK_DIR / "scaled.json").read_text())
+    per_track: dict = {}
+    for p in scaled:
+        per_track.setdefault(p["track_id"], set()).add(p["scale"])
+    scales = {str(t): sorted(s) for t, s in per_track.items()}
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # The same functions, measured.
+    frames = load_frame_dir(WORK_DIR / "frames")
+    h, w = frames.shape[1:3]
+    k = default_video_intrinsics(w, h, device=dev)
+    t0 = time.perf_counter()
+    depth_est = zoedepth.MetricDepthEstimator.from_weights(str(WORK_DIR / "zoed_n.npz"), device=dev)
+    depth_load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    clip = load_clip(None, device=dev)
+    torch.cuda.synchronize()
+    clip_init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    est = ClipPriorScaleEstimator(clip, make_tokenizer(None, clip.config), scale_file=WORK_DIR / "prior.json",
+                                  query_k=QUERY_K)
+    torch.cuda.synchronize()
+    prior_encode_s = time.perf_counter() - t0
+
+    def timed(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        out = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(out))
+
+    depth_ms = timed(lambda: depth_est.predict(frames[0]), reps=5)
+    p0 = props[0]
+    mask = torch.as_tensor(proposal_mask(p0), device=dev)
+    box = torch.as_tensor(proposal_bbox_xyxy(p0).astype(np.float32), device=dev)
+    prop = extract_proposals(torch.as_tensor(frames[p0["image_id"]], device=dev), mask[None], box[None],
+                             target_size=clip.config.image_size, bbox_extend=0.0)
+    clip_ms = timed(lambda: est.estimate(prop), reps=5)
+    depth0 = torch.as_tensor(depth_est.predict(frames[p0["image_id"]]), device=dev)
+    depth_scales_ms = timed(lambda: depth_scales(depth0, k, mask[None]), reps=5)
+    profile = profile_device_time(lambda: depth_est.predict(frames[0]), "depth_forward", top=12)
+    del clip, est
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # One frame's depth with K5 vs with every biased attention on the plain version.
+    depths, per_forward = {}, {}
+    kernel_auto = attention.flash_attention_bias_auto
+    for plain in (False, True):
+        before = read_launches()["K5"]
+        if plain:
+            attention.flash_attention_bias_auto = plain_attention_bias_auto
+        try:
+            depths[plain] = depth_est.predict(frames[0])
+        finally:
+            attention.flash_attention_bias_auto = kernel_auto
+        per_forward[plain] = read_launches()["K5"] - before
+    depth_diff = float(np.abs(depths[False] - depths[True]).max())
+    depth_max = float(np.abs(depths[True]).max())
+
+    result = dict(frames=len(frames), proposals=len(props), prior_names=PRIOR_NAMES, query_k=QUERY_K,
+                  cli_s=cli_s, cli_last_line=cli_out.getvalue().strip().splitlines()[-1], depth_forwards=len(forwards),
+                  launches=launches, scales_by_track=scales, depth_weights_gb=weights_gb, depth_weights_write_s=weights_s,
+                  depth_load_s=depth_load_s, clip_init_s=clip_init_s, prior_encode_s=prior_encode_s,
+                  zoed_ms_per_frame=depth_ms, clip_ms_per_proposal=clip_ms, depth_scales_ms_per_mask=depth_scales_ms,
+                  depth_kernel_vs_plain_max_abs_diff=depth_diff, depth_max=depth_max, depth_rel_tol=DEPTH_REL_TOL,
+                  depth_min=float(depths[False].min()), k5_launches_per_forward_kernel_plain=[per_forward[False],
+                                                                                           per_forward[True]],
+                  peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, profile=profile)
+    log("scale", **result)
+    n_blocks = zoedepth.DepthConfig().beit.num_layers
+    if not forwards or launches["K5"] < n_blocks * len(forwards) or launches["K5"] <= 0:
+        raise AssertionError(f"scale path: {launches['K5']} K5 launches for {len(forwards)} depth forwards")
+    if len(scaled) != len(props) or not all(math.isfinite(p["scale"]) and p["scale"] > 0 for p in scaled):
+        raise AssertionError(f"scale path: scales not finite and > 0: {scales}")
+    if any(len(s) != 1 for s in per_track.values()):
+        raise AssertionError(f"scale path: a track with more than one scale: {scales}")
+    if per_forward != {False: n_blocks, True: 0}:
+        raise AssertionError(f"K5 launches per forward, kernel and plain: {per_forward}")
+    if not depth_diff <= DEPTH_REL_TOL * depth_max:
+        raise AssertionError(f"ZoeD_N depth with K5 vs plain attention: max abs diff {depth_diff} "
+                             f"(largest depth {depth_max})")
     return result, launches
 
 
@@ -776,18 +1016,24 @@ def main() -> int:
     phase_build()
     k2 = phase_k2(dev)
     streams = phase_stream_kernels(dev)
+    k5 = phase_k5(dev)
     mesh = bumpy_torus()
     k1 = phase_k1(dev, mesh)
     _, static = phase_main(dev, mesh)
     torch.cuda.empty_cache()
-    _, video = phase_video(dev)
+    try:
+        _, video = phase_video(dev)
+        torch.cuda.empty_cache()
+        _, scale = phase_scale(dev)
+    finally:
+        shutil.rmtree(WORK_DIR, ignore_errors=True)
     # Launches on each main path's run (`launches_by_path`) and their sum.
-    paths = {"static": static, "video": video}
+    paths = {"static": static, "video": video, "scale": scale}
     counts = {k1["name"]: lambda p: p["K1"], streams["K3"]["name"]: lambda p: p["K3"],
-              streams["K4"]["name"]: lambda p: p["K4"]}
+              streams["K4"]["name"]: lambda p: p["K4"], k5["name"]: lambda p: p["K5"]}
     for rec, d in ((k2, 64), (streams["K2_d72"], 72), (streams["K2_d256"], 256)):
         counts[rec["name"]] = lambda p, d=d: p["K2_by_dim"].get(str(d), 0)
-    records = (k1, k2, streams["K2_d72"], streams["K2_d256"], streams["K3"], streams["K4"])
+    records = (k1, k2, streams["K2_d72"], streams["K2_d256"], streams["K3"], streams["K4"], k5)
     for rec in records:
         rec["launches_by_path"] = {path: counts[rec["name"]](p) for path, p in paths.items()}
         rec["launches"] = sum(rec["launches_by_path"].values())

@@ -1,4 +1,5 @@
-// Attention kernels K2, K3 and K4: softmax(q·kᵀ·scale)·v on the tensor cores.
+// Attention kernels K2, K3, K4 (softmax(q·kᵀ·scale)·v on the tensor cores)
+// and K5 (fp32, with an additive logit bias; its note is further down).
 //
 // One tile kernel, instantiated per head dim, stands in for three TPU kernels
 // of freepose_tpu/ops/attention.py. The wrappers in
@@ -63,6 +64,38 @@
 //
 // fp32 inputs at d = 64 with no mask (accepted for tests on the card) take
 // a plain scalar kernel of the same online-softmax structure.
+//
+// K5 flash_attention_bias (replaces _stream_bias_kernel): fp32 attention
+// with an additive per-head logit bias [heads, n, nk] shared across the
+// batch (block index i % h on the TPU) and an optional per-batch key mask
+// in K4's layout. Caller: the 24 blocks of the BEiT-L/16 trunk of ZoeD_N,
+// relative-position bias at [1, 16, 577, 64] (384² input, 24² patches +
+// cls), bias [16, 577, 577], all fp32 as the production depth model is.
+// Semantics of the TPU kernel: logits = q·kᵀ·scale + bias in fp32, then
+// masked keys -1e30; keys past nk add nothing (-inf here; the TPU pads them
+// with a masked zero row); running max, sum and accumulator in fp32; output
+// acc / max(l, 1e-30).
+//
+// What bounds it on H100: 4·n·nk·d fp32 operations (1.36 GFLOP per launch,
+// 20 µs at 67 TFLOP/s on the CUDA cores) against q, k, v, o and the bias
+// moved once (30.8 MB, 9.2 µs at 3.35 TB/s): fp32 operations. Tensor cores
+// would take TF32, which keeps ~3 decimal digits and changes the fp32
+// numerics the JAX model has; a 3xTF32 split is later work.
+//
+// Design (simple, on the CUDA cores): TPR = 4 adjacent threads per query
+// row, each holding 16 of its 64 dims of q and of the accumulator in
+// registers; BQB = 32 rows per block of 128 threads, so the ZoeD_N shape
+// runs 16 x 19 = 304 blocks. (One thread per row, the first version, gave
+// 160 blocks of 2 warps and ran slower than the plain version.) Keys stream
+// through shared memory in BKB = 32-key tiles of K and V; a logit is the
+// sum of the row's 4 partial dots over two xor-shuffles, so the 4 threads
+// hold identical logits, maxima and sums. The bias is the one large input
+// (21.3 MB at the ZoeD_N shape, more than q, k, v and o together): each key
+// tile stages its [BQB, BKB] bias tile through shared memory with coalesced
+// row loads (a bias row is contiguous over keys; a thread reading its own
+// row from global memory would stride 2.3 KB between lanes). Ragged edges
+// are masked in the kernel (577 is no multiple of any tile): the bias is
+// read in place, never padded.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -333,6 +366,119 @@ inline int launch_tile_any(const void* q, const void* k, const void* v, const vo
   }
 }
 
+constexpr int TPR = 4;               // K5: threads per query row
+constexpr int BQB = 32;              // K5: query rows per block
+constexpr int KTHREADS = BQB * TPR;  // K5: threads per block
+constexpr int BKB = 32;              // K5: keys per streamed tile
+constexpr int HDB = 64;              // K5: head dim
+constexpr int C4 = HDB / 4 / TPR;    // K5: float4 chunks of a row per thread
+
+// K5. q [bh, n, HDB], k/v [bh, nk, HDB], o [bh, n, HDB], fp32 contiguous;
+// bias [heads, n, nk] fp32, read at bh % heads; mask nullptr or
+// [bh / heads, nk] bytes (0 = masked key).
+__global__ void __launch_bounds__(KTHREADS)
+flash_bias_kernel_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                      const float* __restrict__ bias, const uint8_t* __restrict__ mask, float* __restrict__ o,
+                      int heads, int n, int nk, float scale) {
+  __shared__ __align__(16) float Ks[BKB][HDB];
+  __shared__ __align__(16) float Vs[BKB][HDB];
+  __shared__ float S[BQB][BKB + 1];  // the bias tile (odd stride: the 8 rows of a warp hit 8 banks)
+  const long bh = blockIdx.x;
+  const int q0 = blockIdx.y * BQB;
+  // The TPR threads of a row are adjacent lanes; thread `part` owns the
+  // float4 chunks part, part + TPR, ... of the row (so a quad reads 64
+  // contiguous bytes of a K or V row, and the quads of a warp the same ones).
+  const int t = threadIdx.x, r = t / TPR, part = t % TPR, row = q0 + r;
+  const float* kg = k + bh * nk * HDB;
+  const float* vg = v + bh * nk * HDB;
+  const float* bg = bias + (bh % heads) * (long)n * nk;
+  const uint8_t* mrow = mask ? mask + (bh / heads) * (long)nk : nullptr;
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+
+  float qr[4 * C4], acc[4 * C4];
+#pragma unroll
+  for (int i = 0; i < C4; ++i) {
+    const float4 x = row < n ? reinterpret_cast<const float4*>(q + (bh * n + row) * HDB)[part + i * TPR] : zero;
+    qr[4 * i] = x.x; qr[4 * i + 1] = x.y; qr[4 * i + 2] = x.z; qr[4 * i + 3] = x.w;
+    acc[4 * i] = acc[4 * i + 1] = acc[4 * i + 2] = acc[4 * i + 3] = 0.0f;
+  }
+  float m = MASKED, l = 0.0f;
+
+  for (int k0 = 0; k0 < nk; k0 += BKB) {
+    __syncthreads();  // every thread is done with the previous tile
+    for (int i = t; i < BKB * HDB / 4; i += KTHREADS) {
+      const int kj = i / (HDB / 4), c4 = i % (HDB / 4);
+      const bool ok = k0 + kj < nk;
+      reinterpret_cast<float4*>(Ks[kj])[c4] = ok ? reinterpret_cast<const float4*>(kg + (long)(k0 + kj) * HDB)[c4] : zero;
+      reinterpret_cast<float4*>(Vs[kj])[c4] = ok ? reinterpret_cast<const float4*>(vg + (long)(k0 + kj) * HDB)[c4] : zero;
+    }
+    for (int i = t; i < BQB * BKB; i += KTHREADS) {  // a warp reads 32 consecutive keys of one bias row
+      const int br = i / BKB, c = i % BKB;
+      const int qi = q0 + br, key = k0 + c;
+      S[br][c] = (qi < n && key < nk) ? bg[(long)qi * nk + key] : 0.0f;
+    }
+    __syncthreads();
+
+    // Logits of this row for the tile: partial dots over the thread's 16
+    // dims, summed over the row's TPR lanes, so all of them hold the same s.
+    float s[BKB];
+    float mx = MASKED;
+#pragma unroll
+    for (int j = 0; j < BKB; ++j) {
+      const float4* kr = reinterpret_cast<const float4*>(Ks[j]);
+      float d0 = 0.0f, d1 = 0.0f, d2 = 0.0f, d3 = 0.0f;
+#pragma unroll
+      for (int i = 0; i < C4; ++i) {
+        const float4 kk = kr[part + i * TPR];
+        d0 += qr[4 * i] * kk.x;
+        d1 += qr[4 * i + 1] * kk.y;
+        d2 += qr[4 * i + 2] * kk.z;
+        d3 += qr[4 * i + 3] * kk.w;
+      }
+      float d = (d0 + d1) + (d2 + d3);
+      d += __shfl_xor_sync(0xffffffffu, d, 1);
+      d += __shfl_xor_sync(0xffffffffu, d, 2);
+      const int key = k0 + j;
+      float x;
+      if (key >= nk) {
+        x = -INFINITY;
+      } else if (mrow != nullptr && mrow[key] == 0) {
+        x = MASKED;
+      } else {
+        x = d * scale + S[r][j];
+      }
+      s[j] = x;
+      mx = fmaxf(mx, x);
+    }
+    const float mn = fmaxf(m, mx);
+    const float alpha = expf(m - mn);
+    m = mn;
+    l *= alpha;
+#pragma unroll
+    for (int c = 0; c < 4 * C4; ++c) acc[c] *= alpha;
+#pragma unroll
+    for (int j = 0; j < BKB; ++j) {
+      const float p = expf(s[j] - mn);
+      l += p;
+      const float4* vr = reinterpret_cast<const float4*>(Vs[j]);
+#pragma unroll
+      for (int i = 0; i < C4; ++i) {
+        const float4 vv = vr[part + i * TPR];
+        acc[4 * i] += p * vv.x;
+        acc[4 * i + 1] += p * vv.y;
+        acc[4 * i + 2] += p * vv.z;
+        acc[4 * i + 3] += p * vv.w;
+      }
+    }
+  }
+  if (row >= n) return;
+  const float inv = 1.0f / fmaxf(l, 1e-30f);
+  float4* og = reinterpret_cast<float4*>(o + (bh * n + row) * HDB);
+#pragma unroll
+  for (int i = 0; i < C4; ++i)
+    og[part + i * TPR] = make_float4(acc[4 * i] * inv, acc[4 * i + 1] * inv, acc[4 * i + 2] * inv, acc[4 * i + 3] * inv);
+}
+
 }  // namespace flash
 
 namespace {
@@ -411,5 +557,22 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   const dim3 grid(bh, (n + BQ - 1) / BQ);
   flash_kernel_f32<<<grid, BQ, 0, s>>>((const float*)q, (const float*)k, (const float*)v, (float*)o, n,
                                        nk, scale);
+  return (int)cudaGetLastError();
+}
+
+// K5: q [bh, n, d], k/v [bh, nk, d], o [bh, n, d], fp32 with d = 64,
+// contiguous and 16-byte aligned; bias [heads, n, nk] fp32 contiguous,
+// shared across the batch; mask nullptr or [bh / heads, nk] bytes, 0 =
+// masked key.
+extern "C" int flash_attention_bias_launch(const void* q, const void* k, const void* v, const void* bias,
+                                           const void* mask, void* o, int bh, int heads, int n, int nk, int d,
+                                           float scale, void* stream) {
+  if (d != flash::HDB || n <= 0 || nk <= 0 || bh <= 0 || heads <= 0 || bh % heads != 0 ||
+      (n + flash::BQB - 1) / flash::BQB > 65535)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(bh, (n + flash::BQB - 1) / flash::BQB);
+  flash::flash_bias_kernel_f32<<<grid, flash::KTHREADS, 0, (cudaStream_t)stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)bias, (const uint8_t*)mask, (float*)o,
+      heads, n, nk, scale);
   return (int)cudaGetLastError();
 }

@@ -1,4 +1,4 @@
-"""Pinhole camera math used by the coarse-pose path."""
+"""Pinhole camera math used by the coarse-pose and scale paths."""
 from __future__ import annotations
 
 import torch
@@ -27,3 +27,17 @@ def backproject_depth(depth: torch.Tensor, k: torch.Tensor) -> tuple[torch.Tenso
     pts = torch.stack([x, y, z], dim=-1).reshape(depth.shape[:-2] + (h * w, 3))
     valid = depth.reshape(depth.shape[:-2] + (h * w,)) > 0
     return pts, valid
+
+
+def masked_minmax(values: torch.Tensor, mask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Min and max of `values` where mask; with no valid entry (+max, -max)
+    of the dtype, as in the JAX package."""
+    big = torch.finfo(values.dtype).max
+    return torch.where(mask, values, big).min(), torch.where(mask, values, -big).max()
+
+
+def default_video_intrinsics(w: int, h: int, dtype=torch.float32, device=None) -> torch.Tensor:
+    """Synthetic K for uncalibrated video: f = the image diagonal, principal
+    point at the centre."""
+    f = float(torch.sqrt(torch.tensor(w * w + h * h, dtype=dtype)))
+    return torch.tensor([[f, 0.0, w / 2.0], [0.0, f, h / 2.0], [0.0, 0.0, 1.0]], dtype=dtype, device=device)

@@ -4,9 +4,12 @@
 of numpy arrays; the scanned blocks stacked [L, ...] under blocks/block/...)
 onto the port's DinoV2 state_dict: Flax Dense kernels [in, out] become torch
 Linear weights [out, in], the HWIO patch-embedding kernel becomes OIHW, and
-LayerNorm scale/bias become weight/bias. `load_params` reads the flat
-'/'-joined .npz that the JAX CLIs' `save_params` writes, so both packages take
-the same --weights files. Pure numpy + torch; no JAX needed.
+LayerNorm scale/bias become weight/bias. The SAM2, ZoeDepth and CLIP modules
+carry the JAX names, so `state_dict_from_jax` maps their trees leaf by leaf
+(`zoedepth_from_jax` and `clip_from_jax` first unstack the scanned blocks).
+`load_params` reads the flat '/'-joined .npz that the JAX CLIs' `save_params`
+writes, so both packages take the same --weights files. Pure numpy + torch;
+no JAX needed.
 """
 from __future__ import annotations
 
@@ -82,6 +85,12 @@ def unflatten(flat: dict) -> dict:
     return tree
 
 
+def save_params(params: dict, path: str | Path) -> None:
+    """Nested tree -> the flat '/'-joined .npz that `load_params` reads (the
+    JAX package's scripts.common.save_params format)."""
+    np.savez(Path(path), **{"/".join(p): np.asarray(v) for p, v in _tree_leaves(params)})
+
+
 def load_params(path: str | Path) -> dict:
     """Flat '/'-joined .npz of JAX-layout params -> nested tree."""
     path = Path(path)
@@ -102,15 +111,14 @@ def _tree_leaves(tree: dict, prefix: tuple = ()):
             yield prefix + (key,), val
 
 
-def sam2_video_from_jax(params: dict) -> dict[str, torch.Tensor]:
-    """JAX Sam2VideoModel params (nested dicts of numpy arrays) ->
-    freepose_tpu_torch Sam2VideoModel state_dict (fp32; the model casts to
-    its compute dtypes on load). The port's modules carry the JAX names, so
-    the map is by leaf: Dense kernels [in, out] -> Linear weights [out, in];
-    HWIO conv kernels -> OIHW; the transposed-conv kernels of the decoder's
-    upscaler, which Flax applies unflipped, -> flipped [in, out, kh, kw];
-    LayerNorm scale -> weight; every other parameter keeps its name and
-    shape."""
+def state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """A JAX parameter tree (nested dicts of numpy arrays) -> the state_dict
+    of a port module whose names follow the tree (fp32; the model casts to
+    its compute dtypes on load). The map is by leaf: Dense kernels [in, out]
+    -> Linear weights [out, in]; HWIO conv kernels -> OIHW; the
+    transposed-conv kernels of SAM2's upscaler, which Flax applies
+    unflipped, -> flipped [in, out, kh, kw]; LayerNorm scale -> weight;
+    every other parameter keeps its name and shape."""
     siblings: dict[tuple, set] = {}
     for path, _ in _tree_leaves(params):
         siblings.setdefault(path[:-1], set()).add(path[-1])
@@ -132,9 +140,67 @@ def sam2_video_from_jax(params: dict) -> dict[str, torch.Tensor]:
     return sd
 
 
+def sam2_video_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """JAX Sam2VideoModel params -> freepose_tpu_torch Sam2VideoModel
+    state_dict (`state_dict_from_jax`)."""
+    return state_dict_from_jax(params)
+
+
+def unstack_scanned(tree: dict, outer: str, inner: str) -> dict:
+    """Replace every scanned stack {outer: {inner: subtree of [L, ...]
+    leaves}} (a Flax nn.scan) by {outer: {"0": layer 0, ..., "L-1": ...}},
+    the paths of an nn.ModuleList named `outer`."""
+    out = {}
+    for key, val in tree.items():
+        if not isinstance(val, dict):
+            out[key] = val
+        elif key == outer and set(val) == {inner}:
+            n_layers = len(next(v for _, v in _tree_leaves(val[inner])))
+            out[key] = {str(i): _index_tree(val[inner], i) for i in range(n_layers)}
+        else:
+            out[key] = unstack_scanned(val, outer, inner)
+    return out
+
+
+def stack_scanned(tree: dict, outer: str, inner: str) -> dict:
+    """The inverse of `unstack_scanned`."""
+    out = {}
+    for key, val in tree.items():
+        if not isinstance(val, dict):
+            out[key] = val
+        elif key == outer and set(val) == {str(i) for i in range(len(val))}:
+            out[key] = {inner: _stack_trees([val[str(i)] for i in range(len(val))])}
+        else:
+            out[key] = stack_scanned(val, outer, inner)
+    return out
+
+
+def _index_tree(tree: dict, i: int) -> dict:
+    return {k: _index_tree(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+
+
+def _stack_trees(trees: list[dict]) -> dict:
+    return {k: _stack_trees([t[k] for t in trees]) if isinstance(v, dict) else np.stack([t[k] for t in trees])
+            for k, v in trees[0].items()}
+
+
+def zoedepth_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """JAX ZoeDepthModel params (the BEiT blocks scanned: backbone/blocks/
+    block/* stacked [L, ...]) -> freepose_tpu_torch ZoeDepthModel
+    state_dict. The reassemble stage's resize{i}_w is torch's
+    ConvTranspose2d layout in both trees and is not flipped."""
+    return state_dict_from_jax(unstack_scanned(params, "blocks", "block"))
+
+
+def clip_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """JAX Clip params (visual|text/layers/layer/* stacked [L, ...]) ->
+    freepose_tpu_torch Clip state_dict."""
+    return state_dict_from_jax(unstack_scanned(params, "layers", "layer"))
+
+
 def jax_param_shapes(model: torch.nn.Module) -> dict[tuple, tuple]:
     """The JAX parameter tree's leaf paths and shapes for a port module whose
-    names follow the JAX tree (the inverse of `sam2_video_from_jax`)."""
+    names follow the JAX tree (the inverse of `state_dict_from_jax`)."""
     shapes = {}
     for mod_name, mod in model.named_modules():
         prefix = tuple(mod_name.split(".")) if mod_name else ()
@@ -174,7 +240,7 @@ def random_jax_params(model: torch.nn.Module, seed: int = 0) -> dict:
         node = tree
         for key in path[:-1]:
             node = node.setdefault(key, {})
-        node[path[-1]] = val.astype(np.float32)
+        node[path[-1]] = val.astype(np.float32, copy=False)
     return tree
 
 
@@ -186,3 +252,13 @@ def random_sam2_video_params(cfg, seed: int = 0) -> dict:
     with torch.device("meta"):
         model = Sam2VideoModel(cfg)
     return random_jax_params(model, seed)
+
+
+def random_zoedepth_params(cfg, seed: int = 0) -> dict:
+    """`random_jax_params` of a ZoeDepthModel at `cfg`, with the BEiT blocks
+    stacked as the JAX tree scans them (backbone/blocks/block/*)."""
+    from freepose_tpu_torch.models.zoedepth import ZoeDepthModel
+
+    with torch.device("meta"):
+        model = ZoeDepthModel(cfg)
+    return stack_scanned(random_jax_params(model, seed), "blocks", "block")

@@ -1,10 +1,10 @@
-"""Flax-style layers for the SAM2 port: NHWC data, the JAX package's dtypes.
+"""Flax-style layers for the port's models: NHWC data, the JAX package's dtypes.
 
 Each layer casts its input to its own dtype first, as a Flax layer with
 `dtype=` set computes in that dtype. Weights are in torch's layouts (Linear
-[out, in], Conv OIHW, ConvTranspose [in, out, kh, kw]);
-models/convert.py:sam2_video_from_jax maps the JAX tree onto them. Module
-and parameter names follow the JAX tree, so that mapping is by name.
+[out, in], Conv OIHW, ConvTranspose [in, out, kh, kw]); the converters of
+models/convert.py map the JAX trees onto them. Module and parameter names
+follow the JAX tree, so that mapping is by name.
 """
 from __future__ import annotations
 
@@ -14,8 +14,8 @@ from torch import nn
 
 
 class Dense(nn.Linear):
-    def __init__(self, n_in: int, n_out: int, dtype: torch.dtype = torch.float32):
-        super().__init__(n_in, n_out, dtype=dtype)
+    def __init__(self, n_in: int, n_out: int, dtype: torch.dtype = torch.float32, bias: bool = True):
+        super().__init__(n_in, n_out, bias=bias, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.linear(x.to(self.weight.dtype), self.weight, self.bias)

@@ -20,7 +20,7 @@ import math
 import torch
 from torch import nn
 
-from freepose_tpu_torch.models.sam2.layers import Conv, Dense, LayerNorm, gelu
+from freepose_tpu_torch.models.layers import Conv, Dense, LayerNorm, gelu
 
 
 @dataclasses.dataclass(frozen=True)

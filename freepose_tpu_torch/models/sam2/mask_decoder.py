@@ -14,7 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from freepose_tpu_torch.models.sam2.layers import ConvTranspose, Dense, LayerNorm, gelu
+from freepose_tpu_torch.models.layers import ConvTranspose, Dense, LayerNorm, gelu
 
 
 @dataclasses.dataclass(frozen=True)

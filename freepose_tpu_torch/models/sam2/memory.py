@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from freepose_tpu_torch.models.sam2.layers import Conv, Dense, LayerNorm, gelu
+from freepose_tpu_torch.models.layers import Conv, Dense, LayerNorm, gelu
 
 
 @dataclasses.dataclass(frozen=True)

@@ -11,7 +11,7 @@ import torch
 from torch import nn
 
 from freepose_tpu_torch.models.sam2.hiera import HIERA_L, FpnNeck, Hiera, HieraConfig
-from freepose_tpu_torch.models.sam2.layers import Conv
+from freepose_tpu_torch.models.layers import Conv
 from freepose_tpu_torch.models.sam2.mask_decoder import MaskDecoder, MaskDecoderConfig
 from freepose_tpu_torch.models.sam2.prompt import PromptConfig, PromptEncoder
 

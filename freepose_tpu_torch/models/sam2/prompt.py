@@ -12,7 +12,7 @@ import math
 import torch
 from torch import nn
 
-from freepose_tpu_torch.models.sam2.layers import Conv, LayerNorm, gelu
+from freepose_tpu_torch.models.layers import Conv, LayerNorm, gelu
 
 
 @dataclasses.dataclass(frozen=True)

@@ -22,7 +22,7 @@ import torch
 from torch import nn
 
 from freepose_tpu_torch.models.sam2.hiera import sine_position_encoding
-from freepose_tpu_torch.models.sam2.layers import Conv, Dense
+from freepose_tpu_torch.models.layers import Conv, Dense
 from freepose_tpu_torch.models.sam2.mask_decoder import FeedForwardN
 from freepose_tpu_torch.models.sam2.memory import MemoryAttention, MemoryConfig, MemoryEncoder, sine_1d_pe
 from freepose_tpu_torch.models.sam2.model import Sam2Config, Sam2ImageModel

@@ -1,9 +1,9 @@
-"""Attention on the card: CUDA kernels K2, K3, K4 and their plain versions.
+"""Attention on the card: CUDA kernels K2 to K5 and their plain versions.
 
 Counterpart of freepose_tpu.ops.attention. Every kernel computes
-softmax(q·kᵀ·scale)·v with bf16 operands, fp32 logits, max, sum and
-accumulator, `p` cast to v's dtype before the P·V product, and the output
-acc / max(l, 1e-30):
+softmax(q·kᵀ·scale)·v with operands in their dtype (bf16 for K2 to K4, fp32
+for K5), fp32 logits, max, sum and accumulator, `p` cast to v's dtype
+before the P·V product, and the output acc / max(l, 1e-30):
 
 - K2 `flash_attention_k2`, the whole-K/V regime (`_flash_kernel_single` on
   the TPU): DINOv2 (d = 64), the Hiera-L global blocks (d = 72) and SAM2
@@ -14,8 +14,13 @@ acc / max(l, 1e-30):
   mask shared by the heads (`_stream_kernel`): SAM2 memory cross-attention
   over ~28.7k keys with empty slots masked.
 
-All three launch the one tile kernel of csrc/flash_attention.cu, whose key
-mask pointer is null for K2 and K3.
+- K5 `flash_attention_bias` (`_stream_bias_kernel`): fp32 attention with an
+  additive per-head logit bias [H, N, Nk] shared across the batch, and an
+  optional key mask: the relative-position bias of the BEiT trunk of ZoeD_N.
+
+K2, K3 and K4 launch the one tile kernel of csrc/flash_attention.cu, whose
+key mask pointer is null for K2 and K3; K5 is a scalar fp32 kernel of the
+same library.
 
 Each wrapper launches its kernel for CUDA tensors (or raises on what the
 kernel does not take) and runs the plain version for CPU tensors; nothing
@@ -48,7 +53,17 @@ def dense_attention_masked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sc
     """Plain version of K4: `dense_attention` with an optional per-batch key
     mask kv_mask [B, Nk] (False = masked key, logit -1e30). A row whose keys
     are all masked averages V uniformly, as the TPU kernel does."""
+    return dense_attention_bias(q, k, v, scale, None, kv_mask)
+
+
+def dense_attention_bias(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+                         bias: torch.Tensor | None, kv_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain version of K5: fp32 logits q·kᵀ·scale, plus bias[h] (bias
+    [H, N, Nk], shared across the batch, added in fp32), then the key mask
+    at -1e30, then the softmax of `dense_attention_masked`."""
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if bias is not None:
+        logits = logits + bias.float()[None]
     if kv_mask is not None:
         logits = torch.where(kv_mask.to(torch.bool)[:, None, None, :], logits,
                              torch.full((), NEG_INF, device=logits.device))
@@ -97,6 +112,18 @@ def _check_qkv(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dty
         raise ValueError(f"{name}: empty query or key set")
 
 
+def _mask_bytes(name: str, kv_mask: torch.Tensor | None, b: int, nk: int,
+                device: torch.device) -> torch.Tensor | None:
+    """kv_mask [B, Nk] on the kernel's device -> contiguous uint8 (0 =
+    masked key), the kernels' layout; raises on another shape or device."""
+    if kv_mask is None:
+        return None
+    if kv_mask.device != device or tuple(kv_mask.shape) != (b, nk):
+        raise ValueError(f"{name}: kv_mask must be [{b}, {nk}] on {device}, got "
+                         f"{tuple(kv_mask.shape)} on {kv_mask.device}")
+    return kv_mask.to(torch.uint8).contiguous()
+
+
 def _launch(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
             kv_mask: torch.Tensor | None, dtypes) -> torch.Tensor:
     """Launch csrc/flash_attention.cu's entry point: the tile kernel for bf16
@@ -106,13 +133,8 @@ def _launch(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale:
     _check_qkv(name, q, k, v, dtypes)
     b, h, n, d = q.shape
     nk = k.shape[2]
-    mask_ptr = None
-    if kv_mask is not None:
-        if kv_mask.device != q.device or tuple(kv_mask.shape) != (b, nk):
-            raise ValueError(f"{name}: kv_mask must be [{b}, {nk}] on {q.device}, got "
-                             f"{tuple(kv_mask.shape)} on {kv_mask.device}")
-        kv_mask = kv_mask.to(torch.uint8).contiguous()
-        mask_ptr = kv_mask.data_ptr()
+    kv_mask = _mask_bytes(name, kv_mask, b, nk, q.device)
+    mask_ptr = None if kv_mask is None else kv_mask.data_ptr()
     fn = cuda_build.load("flash_attention").flash_attention_launch
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -210,6 +232,53 @@ def flash_attention_auto(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scal
     if kv_mask is not None:
         return flash_attention_stream(q, k, v, scale, kv_mask=kv_mask)
     return flash_attention(q, k, v, scale)
+
+
+def flash_attention_bias(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, bias: torch.Tensor,
+                         kv_mask: torch.Tensor | None = None, block_q: int = 256, block_k: int = 512,
+                         interpret: bool = False) -> torch.Tensor:
+    """K5 wrapper. q [B, H, N, 64], k/v [B, H, Nk, 64] fp32 contiguous; bias
+    [H, N, Nk] fp32 contiguous, shared across the batch; kv_mask [B, Nk]
+    bool (False = masked key). CPU tensors run `dense_attention_bias`.
+    block_q, block_k and interpret are TPU tiling knobs and change nothing
+    here."""
+    from freepose_tpu_torch.ops import cuda_build
+
+    name = "flash_attention_bias"
+    if _on_cpu(q, k, v, bias):
+        return dense_attention_bias(q, k, v, scale, bias, kv_mask)
+    _check_qkv(name, q, k, v, (torch.float32,))
+    b, h, n, d = q.shape
+    nk = k.shape[2]
+    if bias.device != q.device or bias.dtype != torch.float32 or tuple(bias.shape) != (h, n, nk):
+        raise ValueError(f"{name}: bias must be fp32 [{h}, {n}, {nk}] on {q.device}, got {bias.dtype} "
+                         f"{tuple(bias.shape)} on {bias.device}")
+    if not bias.is_contiguous() or bias.data_ptr() % 16:
+        raise ValueError(f"{name} takes a contiguous, 16-byte aligned bias")
+    kv_mask = _mask_bytes(name, kv_mask, b, nk, q.device)
+    fn = cuda_build.load("flash_attention").flash_attention_bias_launch
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+                    None if kv_mask is None else kv_mask.data_ptr(), out.data_ptr(), b * h, h, n, nk, d,
+                    float(scale), stream)
+    cuda_build.check(status, name)
+    flash_attention_bias.launches += 1
+    return out
+
+
+flash_attention_bias.launches = 0
+
+
+def flash_attention_bias_auto(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+                              bias: torch.Tensor) -> torch.Tensor:
+    """Biased attention of the BEiT blocks: K5 on the card, its plain
+    version on the CPU. The JAX function runs the Pallas kernel on the TPU
+    and dense XLA elsewhere."""
+    return flash_attention_bias(q, k, v, scale, bias)
 
 
 def flash_attention_fn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:

@@ -1,0 +1,32 @@
+"""Exact top-k nearest-neighbour search over device-resident feature banks.
+
+Counterpart of freepose_tpu.ops.knn (none of it is a Pallas kernel there):
+a brute-force `queries @ bank.T` and top-k, exact where a KD-tree would be
+pointer-chasing. `topk_search_sharded` waits for the multi-GPU slice.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def topk_search(bank: torch.Tensor, queries: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """bank [M, D] (rows L2-normalised for cosine), queries [N, D] ->
+    (scores [N, k], indices [N, k]) by inner product in fp32."""
+    scores = torch.matmul(queries.float(), bank.float().T)
+    return torch.topk(scores, k, dim=-1)
+
+
+def fine_rerank_scores(fine_feats: torch.Tensor, query: torch.Tensor, topk: int) -> torch.Tensor:
+    """fine_feats [C, V, D] per-view features of C candidates, query [D] ->
+    [C], the mean of each candidate's top-`topk` per-view cosine scores."""
+    scores = torch.einsum("cvd,d->cv", fine_feats.float(), query.float())
+    return torch.topk(scores, topk, dim=-1).values.mean(dim=-1)
+
+
+def knn_median_lookup(bank: torch.Tensor, values: torch.Tensor, queries: torch.Tensor, k: int) -> torch.Tensor:
+    """For each query, the median of `values` over its k nearest bank rows
+    (the CLIP text-prior scale lookup, k = 11). An even k averages the two
+    middle values, as jnp.median does (torch.median would take the lower)."""
+    _, idx = topk_search(bank, queries, k)
+    neigh = torch.sort(values[idx], dim=-1).values  # [N, k]
+    return (neigh[:, (k - 1) // 2] + neigh[:, k // 2]) / 2.0

@@ -15,6 +15,16 @@ def add_device_arg(ap: argparse.ArgumentParser) -> None:
                     help="torch device (default: cuda; pass 'cpu' to run on the host)")
 
 
+def full_fp32() -> None:
+    """Run fp32 matrix products and convolutions in full fp32, as the JAX
+    models do: cuDNN's fp32 convolutions default to TF32 (about 3 decimal
+    digits), and ZoeDepth's DPT neck is mostly convolutions."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
 def add_shard_args(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--shard-index", type=int, default=None, help="worker index (defaults to env)")
     ap.add_argument("--shard-count", type=int, default=None, help="worker count (defaults to env)")

@@ -6,9 +6,9 @@ the mesh's 600-view template pack built from the template shards, z-lift,
 and write the BOP CSV (t in millimetres). The `time` column records real
 per-proposal seconds.
 
-Depth methods: "zoedepth" (scale carried in the proposal JSON) and
-"const-*". "depthmap" needs the scale estimator (connected components,
-erosion, kNN), which is not ported yet.
+Depth methods: "zoedepth" (scale carried in the proposal JSON, written by
+compute_scale), "depthmap" (per-mask pointcloud extents of the dataset's
+depth, pipeline/scale_estimator.depth_scales) and "const-*".
 
 Usage: python -m freepose_tpu_torch.scripts.dino_inference --dataset BOP_ROOT \
          --proposals props.json --wds-dir shards --filelist meshes.txt \
@@ -37,6 +37,7 @@ from freepose_tpu_torch.io.proposals_json import (
 )
 from freepose_tpu_torch.pipeline.pose_estimator import CoarsePoseEstimator
 from freepose_tpu_torch.pipeline.proposals import extract_proposals
+from freepose_tpu_torch.pipeline.scale_estimator import depth_scales
 from freepose_tpu_torch.pipeline.template_bank import TemplateBank
 from freepose_tpu_torch.scripts.common import (
     add_device_arg,
@@ -67,11 +68,6 @@ def main(argv: list[str] | None = None) -> None:
     add_shard_args(ap)
     add_device_arg(ap)
     args = ap.parse_args(argv)
-    if args.depth_method == "depthmap":
-        raise NotImplementedError(
-            "--depth-method depthmap needs pipeline/scale_estimator.depth_scales, which is "
-            "not ported yet (ROADMAP queue 1, item 7); use zoedepth or const-*"
-        )
 
     dataset = BOPDataset(args.dataset, args.split)
     props = load_proposals(args.proposals)
@@ -106,7 +102,13 @@ def main(argv: list[str] | None = None) -> None:
                 torch.as_tensor(boxes, device=dev), target_size=420, bbox_extend=args.bbox_extend,
             )
 
-        if args.depth_method.startswith("const-"):
+        if args.depth_method == "depthmap":
+            scales = depth_scales(
+                torch.as_tensor(entry["depth"], device=dev),
+                torch.as_tensor(entry["intrinsic"], dtype=torch.float32, device=dev),
+                torch.as_tensor(masks, device=dev), svd=True,
+            ).cpu().numpy()
+        elif args.depth_method.startswith("const-"):
             scales = np.full(len(scene_props), float(args.depth_method.split("-")[1]))
         else:  # zoedepth: scale carried in the proposal JSON (compute_scale)
             scales = np.asarray([max(p.get("scale", 0.1), 0.01) for p in scene_props])

@@ -1,4 +1,4 @@
-"""Attention K2, K3 and K4 in the PyTorch port vs the JAX package.
+"""Attention K2, K3, K4 and K5 in the PyTorch port vs the JAX package.
 
 On the CPU the port's wrappers run their plain versions (`dense_attention`,
 `dense_attention_masked`); they are held against the JAX Pallas kernels in
@@ -18,8 +18,9 @@ import torch
 from freepose_tpu.ops.attention import dense_attention_masked as jax_dense
 from freepose_tpu.ops.attention import flash_attention as jax_flash
 from freepose_tpu.ops.attention import flash_attention_stream as jax_stream
-from freepose_tpu_torch.ops.attention import (dense_attention, dense_attention_masked, flash_attention,
-                                              flash_attention_auto, flash_attention_k2, flash_attention_k3,
+from freepose_tpu_torch.ops.attention import (dense_attention, dense_attention_bias, dense_attention_masked,
+                                              flash_attention, flash_attention_auto, flash_attention_bias,
+                                              flash_attention_bias_auto, flash_attention_k2, flash_attention_k3,
                                               flash_attention_stream)
 
 SCALE = 64**-0.5
@@ -130,3 +131,57 @@ def test_auto_routes_a_mask_to_k4_and_no_mask_to_flash_attention():
                                dense_attention_masked(q, k, v, SCALE, mask), rtol=0, atol=0)
     torch.testing.assert_close(flash_attention_auto(q, k, v, SCALE), dense_attention(q, k, v, SCALE),
                                rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("n,nk,h", [(65, 65, 2), (100, 229, 3)])
+def test_k5_plain_matches_jax(n, nk, h):
+    """K5's wrapper on CPU tensors (its plain version) against the biased
+    streaming Pallas kernel in interpret mode and the dense reference, at
+    the JAX package's own shapes (d 32, batch 2); fp32 atol 2e-5 as there."""
+    from freepose_tpu.ops.attention import flash_attention_bias as jax_flash_bias
+
+    rng = np.random.default_rng(6)
+    q, k, v = (rng.normal(size=(2, h, length, 32)).astype(np.float32) for length in (n, nk, nk))
+    bias = rng.normal(size=(h, n, nk)).astype(np.float32)
+    scale = 32**-0.5
+    ours = flash_attention_bias(*map(torch.as_tensor, (q, k, v)), scale, torch.as_tensor(bias)).numpy()
+    ref = np.asarray(jax_flash_bias(*map(jnp.asarray, (q, k, v)), scale, jnp.asarray(bias), block_q=32, block_k=64,
+                                    interpret=True))
+    logits = np.einsum("bhnd,bhmd->bhnm", q, k) * scale + bias[None]
+    w = np.exp(logits - logits.max(-1, keepdims=True))
+    dense = np.einsum("bhnm,bhmd->bhnd", w / w.sum(-1, keepdims=True), v)
+    np.testing.assert_allclose(ours, ref, atol=2e-5)
+    np.testing.assert_allclose(ours, dense, atol=2e-5)
+
+
+def test_k5_plain_matches_jax_with_key_mask_at_ragged_n():
+    """Batch 2 (the bias shared across it, read at bh % heads), d 64, a
+    ragged N of 37 queries against 100 keys; batch 0 masks a ragged run of
+    keys, batch 1 a whole 32-key JAX block. No row is masked whole (there
+    the Pallas kernel also averages its padded keys). fp32 atol 2e-5."""
+    from freepose_tpu.ops.attention import flash_attention_bias as jax_flash_bias
+
+    q, k, v = _qkv(37, b=2, h=2, d=64, seed=8, nk=100)
+    bias = np.random.default_rng(9).normal(size=(2, 37, 100)).astype(np.float32)
+    mask = np.ones((2, 100), bool)
+    mask[0, 40:53] = False
+    mask[1, 32:64] = False
+    ours = flash_attention_bias(*map(torch.as_tensor, (q, k, v)), SCALE, torch.as_tensor(bias),
+                                kv_mask=torch.as_tensor(mask))
+    ref = np.asarray(jax_flash_bias(*map(jnp.asarray, (q, k, v)), SCALE, jnp.asarray(bias),
+                                    kv_mask=jnp.asarray(mask), block_q=16, block_k=32, interpret=True))
+    np.testing.assert_allclose(ours.numpy(), ref, atol=2e-5)
+    # The mask matters: without it the output moves by far more than the tolerance.
+    unmasked = flash_attention_bias(*map(torch.as_tensor, (q, k, v)), SCALE, torch.as_tensor(bias))
+    assert float((unmasked - ours).abs().max()) > 1e-2
+
+
+def test_k5_cpu_tensors_run_the_plain_version_without_launch():
+    q, k, v = map(torch.as_tensor, _qkv(20, b=2, h=2, seed=10, nk=30))
+    bias = torch.as_tensor(np.random.default_rng(11).normal(size=(2, 20, 30)).astype(np.float32))
+    before = flash_attention_bias.launches
+    out = flash_attention_bias_auto(q, k, v, SCALE, bias)
+    torch.testing.assert_close(out, dense_attention_bias(q, k, v, SCALE, bias), rtol=0, atol=0)
+    assert flash_attention_bias.launches == before
+    with pytest.raises(ValueError):  # neither CPU nor CUDA
+        flash_attention_bias(*(t.to("meta") for t in (q, k, v)), SCALE, bias.to("meta"))

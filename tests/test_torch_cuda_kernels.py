@@ -13,8 +13,8 @@ which a dropped key tile, slot or pointer set moves by O(1). Tolerances: K2,
 K3 and K4 in bf16 elementwise within ops.attention.bf16_error_bound,
 2^-7·(|ref| + Σ p|v| / l) (both versions round p and their output to bf16,
 against different maxima); a row whose keys are all masked, which averages
-V exactly in fp32 before the bf16 rounding, to 1e-4 + 1e-2·|ref|; K2 in
-fp32 atol/rtol 1e-5.
+V exactly in fp32 before the bf16 rounding, to 1e-4 + 1e-2·|ref|; K2 and
+K5 in fp32 atol/rtol 1e-5 (the same fp32 function summed in another order).
 K1 runs the plain version's fp32 operations in the same order (built
 without FMA contraction): hit masks identical, depth and rgb to atol 1e-6.
 """
@@ -24,9 +24,9 @@ import torch
 
 from freepose_tpu_torch.geometry.rotation import template_poses
 from freepose_tpu_torch.io.mesh import TriMesh, pad_mesh
-from freepose_tpu_torch.ops.attention import (bf16_error_bound, dense_attention, dense_attention_masked,
-                                              flash_attention, flash_attention_k2, flash_attention_k3,
-                                              flash_attention_stream)
+from freepose_tpu_torch.ops.attention import (bf16_error_bound, dense_attention, dense_attention_bias,
+                                              dense_attention_masked, flash_attention, flash_attention_bias,
+                                              flash_attention_k2, flash_attention_k3, flash_attention_stream)
 from freepose_tpu_torch.ops.rasterizer import RasterSettings, rasterize
 from freepose_tpu_torch.ops.rasterizer_cuda import _bin_and_pack, raster_tile, raster_tile_plain
 
@@ -160,6 +160,48 @@ def test_k2_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
         flash_attention_stream(q.float(), q.float(), q.float(), SCALE, kv_mask=torch.ones((1, 8), device=cuda))
     with pytest.raises(ValueError):  # a mask per batch element, not per (batch, head)
         flash_attention_stream(q, q, q, SCALE, kv_mask=torch.ones((2, 8), dtype=torch.bool, device=cuda))
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("b", [1, 2])
+def test_k5_matches_plain(cuda, b, masked):
+    """The ZoeD_N shape [b, 16, 577, 64] fp32 with a [16, 577, 577] bias
+    N(0, 1); b = 2 shows the bias read at bh % heads. Masked: batch 0 loses
+    a ragged run of keys, batch 1 (if any) every key (a uniform mean of V).
+    The plain version without the bias, or with the next head's, fails the
+    tolerance."""
+    q, k, v = (torch.as_tensor(x, device=cuda) for x in _qkv(577, b, 16, 64, seed=7))
+    bias = torch.randn((16, 577, 577), generator=torch.Generator(device=cuda).manual_seed(7), device=cuda)
+    mask = None
+    if masked:
+        mask = torch.ones((b, 577), dtype=torch.bool, device=cuda)
+        mask[0, 100:181] = False
+        mask[1:] = False
+    before = flash_attention_bias.launches
+    out = flash_attention_bias(q, k, v, SCALE, bias, kv_mask=mask)
+    torch.cuda.synchronize()
+    assert flash_attention_bias.launches == before + 1
+    assert out.dtype == torch.float32 and out.shape == q.shape
+    ref = dense_attention_bias(q, k, v, SCALE, bias, mask)
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)
+    for wrong in (None, bias.roll(1, dims=0)):
+        x = dense_attention_bias(q, k, v, SCALE, wrong, mask)
+        assert not torch.allclose(x, ref, atol=1e-5, rtol=1e-5)
+
+
+def test_k5_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
+    q = torch.zeros((1, 2, 8, 64), device=cuda)
+    bias = torch.zeros((2, 8, 8), device=cuda)
+    with pytest.raises(TypeError):  # fp32 only
+        flash_attention_bias(q.bfloat16(), q.bfloat16(), q.bfloat16(), SCALE, bias)
+    with pytest.raises(ValueError):  # d = 64 only
+        flash_attention_bias(*(q[..., :32].contiguous(),) * 3, SCALE, bias)
+    with pytest.raises(ValueError):  # bias [H, N, Nk]
+        flash_attention_bias(q, q, q, SCALE, bias[:1])
+    with pytest.raises(ValueError):  # bias on another device
+        flash_attention_bias(q, q, q, SCALE, bias.cpu())
+    with pytest.raises(ValueError):  # a key mask per batch element
+        flash_attention_bias(q, q, q, SCALE, bias, kv_mask=torch.ones((2, 8), dtype=torch.bool, device=cuda))
 
 
 def _cube():

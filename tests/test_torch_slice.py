@@ -236,11 +236,59 @@ def test_clis_match_jax(workspace, monkeypatch):
         assert o.time > 0
 
 
+def test_dino_inference_depthmap_matches_jax(workspace, monkeypatch, tmp_path):
+    """--depth-method depthmap: each proposal's scale is its mask's
+    pointcloud half-extent in the dataset's depth (pipeline/
+    scale_estimator.depth_scales). The scene's depth is a seeded bumpy
+    plane at ~1.2 m; both CLIs read one set of template shards. The CSV
+    rows agree as in test_clis_match_jax, and the scale column to rtol 1e-5
+    (fp32 extents of the same pointcloud)."""
+    import shutil
+
+    from freepose_tpu_torch.scripts import dino_inference, render_templates
+
+    ws = workspace
+    monkeypatch.setenv("FREEPOSE_TINY_MODELS", "1")
+    monkeypatch.setenv("FREEPOSE_TEMPLATE_VIEWS", str(N_VIEWS))
+    bop = tmp_path / "bop"
+    shutil.copytree(ws / "bop", bop, ignore=shutil.ignore_patterns("*_metadata.json"))
+    rng = np.random.default_rng(5)
+    depth = 12000 + np.add.outer(np.arange(120) * 8, np.arange(160) * 3) + rng.integers(0, 40, (120, 160))
+    Image.fromarray(depth.astype(np.uint16)).save(bop / "test" / "000001" / "depth" / "000000.png")
+    render_templates.main(["--mesh-dir", str(ws / "meshes"), "--filelist", str(ws / "filelist.txt"),
+                           "--n-poses", str(N_VIEWS), "--resolution", str(RES), "--out", str(tmp_path / "shards"),
+                           "--device", "cpu"])
+
+    def infer(out):
+        return ["--dataset", str(bop), "--split", "test", "--proposals", str(ws / "props.json"),
+                "--wds-dir", str(tmp_path / "shards"), "--filelist", str(ws / "filelist.txt"), "--out", str(out),
+                "--layer", str(LAYER), "--depth-method", "depthmap", "--weights", str(ws / "dinov2.npz")]
+
+    _run_jax_cli("scripts.dino_inference", infer(tmp_path / "jax.csv"), monkeypatch)
+    dino_inference.main(infer(tmp_path / "torch.csv") + ["--device", "cpu"])
+    ours = read_results_csv(tmp_path / "torch.csv", t_scale=1000.0)
+    ref = read_results_csv(tmp_path / "jax.csv", t_scale=1000.0)
+    assert len(ours) == len(ref) == 1
+    for o, r in zip(ours, ref):
+        assert (o.scene_id, o.im_id, o.obj_id) == (r.scene_id, r.im_id, r.obj_id)
+        assert 0.05 < o.scale < 0.5  # a 60 x 50 px mask at ~1.2 m, f = 150 px
+        np.testing.assert_allclose(o.scale, r.scale, rtol=1e-5)
+        np.testing.assert_allclose(o.R, r.R, atol=1e-4)
+        np.testing.assert_allclose(o.t * 1000.0, r.t * 1000.0, atol=1e-2)
+
+
 VIDEO_SLICE_MODULES = [
     "freepose_tpu_torch.ops.sampling", "freepose_tpu_torch.datasets.video",
     *(f"freepose_tpu_torch.models.sam2.{m}" for m in ("hiera", "prompt", "mask_decoder", "model", "memory",
                                                       "video", "predictor", "convert")),
     "freepose_tpu_torch.scripts.extract_proposals_ground_video",
+]
+SCALE_SLICE_MODULES = [
+    *(f"freepose_tpu_torch.models.{m}" for m in ("layers", "beit", "zoedepth", "clip", "tokenizer")),
+    *(f"freepose_tpu_torch.ops.{m}" for m in ("connected_components", "erosion", "knn")),
+    "freepose_tpu_torch.geometry.pointcloud", "freepose_tpu_torch.geometry.camera",
+    "freepose_tpu_torch.pipeline.scale_estimator",
+    *(f"freepose_tpu_torch.scripts.{m}" for m in ("compute_scale", "compute_scale_video", "generate_depth_zoe")),
 ]
 
 
@@ -259,7 +307,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
     mods = r.stdout.split()
-    assert len(mods) >= 40 and set(VIDEO_SLICE_MODULES) <= set(mods)  # every module of both slices
+    assert len(mods) >= 40 and set(VIDEO_SLICE_MODULES) <= set(mods)  # every module of the slices
+    assert set(SCALE_SLICE_MODULES) <= set(mods)
     # No import of JAX, the JAX package or the tests anywhere in the sources,
     # not even inside a function that this import did not run.
     pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|freepose_tpu|scripts|tests)\b", re.M)
@@ -288,4 +337,11 @@ def test_entry_points_raise_without_a_gpu_unless_asked_for_the_cpu(workspace):
         dino_inference.main(["--dataset", str(ws / "bop"), "--proposals", str(ws / "props.json"),
                              "--wds-dir", str(ws / "shards_nodevice"), "--filelist", str(ws / "filelist.txt"),
                              "--out", str(ws / "nodevice.csv"), "--depth-method", "const-0.1"])
+    from freepose_tpu_torch.scripts import compute_scale, generate_depth_zoe
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        generate_depth_zoe.main(["--dataset", str(ws / "bop")])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        compute_scale.main(["--dataset", str(ws / "bop"), "--proposals", str(ws / "props.json"),
+                            "--scale-file", str(ws / "props.json")])
     assert TemplateRenderer(n_poses=2, resolution=RES, device="cpu").poses.device.type == "cpu"
