@@ -4,13 +4,18 @@
 
 Phases, one line each on stdout:
   1. build   every hand-written kernel (csrc/raster_tile.cu,
-             csrc/flash_attention.cu) with nvcc, one process per source,
-             started together;
-  2. k2      the whole-K/V attention kernel against its plain PyTorch version
-             at the DINOv2-L shapes of the static path (bank batch 128, a
-             frame of 4 proposals, and batch 8; H 16, n 905, d 64, bf16), a
-             ragged length and fp32; kernel, plain and
-             scaled_dot_product_attention times;
+             csrc/flash_attention.cu, csrc/flash_attention_sm90.cu) with
+             nvcc, one process per source, started together; ptxas lines;
+  2. k2      the whole-K/V attention kernel (bf16 d 64: the wgmma + TMA
+             kernel) against its plain PyTorch version at the DINOv2-L
+             shapes of the paths (bank batch 128 and batch 8, a static frame
+             of 4 proposals, a video frame's 1 and 2 retrieval crops; H 16,
+             n 905, d 64, bf16), a ragged length and fp32, with the
+             configuration the split rule picks at each; at each crop batch
+             also both d 64 builds (64- and 192-row blocks), checked and
+             timed; the previous design (the mma.sync tile kernel) checked
+             and timed on the same inputs in turns with it (prev_ms); kernel,
+             plain and scaled_dot_product_attention times;
   3. k2_d72, k2_d256, k3, k4
              the attention kernels at the video path's shapes against their
              plain versions: K2 at the Hiera-L global blocks [1, 8, 4096, 72]
@@ -18,10 +23,15 @@ Phases, one line each on stdout:
              streaming regime, no mask) at [1, 1, 4096, 256] x 6,144 keys; K4
              at the memory cross-attention [2, 1, 4096, 256] x 28,736 keys
              with whole memory slots masked; kernel, plain and SDPA times
-             (SDPA with attn_mask for K4). Every attention check also shows
-             that its tolerance fails the plain version of a kernel that
-             drops keys (the last 64; for K4 the object pointers, or one
-             memory slot);
+             (SDPA with attn_mask for K4). K2 d 256 and K3 run the wgmma +
+             TMA kernel (K3 with its key split and the combine kernel, which
+             is held against its plain version on the same partials), with
+             the previous design's time beside it (prev_ms). Every attention
+             check also shows that its tolerance fails the plain version of a
+             kernel that drops keys (the last 64; for K4 the object pointers,
+             or one memory slot); K2 and K3 checks on a ragged key count also
+             fail a kernel that reads the next head's K/V rows into the
+             ragged tile (what a 2-D tensor map would do);
   4. k5      the biased fp32 attention kernel against its plain version at
              the ZoeD_N shape [1, 16, 577, 64] and [2, 16, 577, 64] (the bias
              [16, 577, 577] shared across the batch), each with and without a
@@ -39,16 +49,19 @@ Phases, one line each on stdout:
              kernel, 600 crops through the ViT in batches of 128,
              depth_stats); estimate_batch on 4 proposals cut from a rendered
              frame. Launch counts are zeroed before the pack build, read after
-             the frame, and must be > 0 for K1 and K2; then a torch.profiler
-             breakdown of one ViT batch and one frame;
+             the frame, and must be > 0 for K1, K2 and the wgmma + TMA kernel
+             (launches_by_kernel["sm90"]); then a torch.profiler breakdown of
+             one ViT batch and one frame;
   7. video   the video proposal path at full width through its CLI
              (extract_proposals_ground_video --detector boxes): a seeded
              10-frame 1280x720 video with 2 boxed objects, SAM2 Hiera-L at
              1024², bf16, seeded random weights carried over by
              sam2_video_from_jax, DINOv2-L layer 22 retrieval against a
              seeded 46,000 x 1024 mesh bank. Launch counts are zeroed before
-             the CLI and read after it (K2 and K4 must be > 0); proposals and
-             tracks counted (> 0 proposals). Then, on the same path's
+             the CLI and read after it (K2, K4, the wgmma + TMA kernel and its
+             combine, which memory self-attention's key split runs, must be
+             > 0); proposals and tracks counted (> 0 proposals). Then, on the
+             same path's
              functions: ms per frame of SAM2 propagation and of retrieval,
              kernel launches per frame (3 K2 in the trunk on every frame, 4
              K2 + 4 K4 in memory attention on every frame that reads memory),
@@ -114,6 +127,14 @@ DEPTH_REL_TOL = 1e-4
 PRIOR_NAMES = 2201  # the LLM scale prior's object names (the reference's data/*.json)
 QUERY_K = 11
 DROPPED_KEYS = 64  # keys a wrong kernel drops in the tolerance's own check
+# The d 64 builds of the sm90 kernel, (warpgroups, key splits): 64-row blocks
+# two per SM, and 192-row blocks one per SM.
+SM90_D64_CONFIGS = ((1, 1), (3, 1))
+# The combine kernel against its plain version on the same fp32 partials:
+# the same fp32 sums (in another order, with another exp) each rounded to
+# bf16 once, so one bf16 step apart where they straddle a rounding boundary;
+# one step is up to 2^-7·|ref|, and the tolerance allows two.
+COMBINE_TOL = "2^-6·|ref| + 1e-6"
 # K1 against its plain version: the same fp32 operations in the same order
 # (kernel built without FMA contraction).
 K1_ATOL = 1e-5
@@ -134,6 +155,10 @@ MIN_MASK_PX = 400  # the CLI's default
 WORK_DIR = Path(__file__).resolve().parent / "freepose_tpu_torch" / "_build" / "smoke_video"
 
 
+SM90_SOURCE = "freepose_tpu_torch/csrc/flash_attention_sm90.cu"
+TILE_SOURCE = "freepose_tpu_torch/csrc/flash_attention.cu"
+
+
 def log(phase: str, **fields) -> None:
     print(f"{phase}: {json.dumps(fields)}", flush=True)
 
@@ -152,26 +177,67 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def host_ms(fn, reps: int = 20) -> float:
+    """Host milliseconds per call of `fn` over `reps` calls issued back to
+    back: the wrapper's own time where the device keeps up with it."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    secs = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return secs / reps * 1e3
+
+
+def device_ms(fn, reps: int = 5) -> float | None:
+    """Device ms per call of `fn`: the time of the kernels it launches,
+    summed by torch.profiler over `reps` calls, without the host time
+    between launches that CUDA events also see when the host is slower.
+    The profiler now and then records no kernel at all: then it measures
+    once more, and None (not measured) if it records none again."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+        if total > 0:
+            return total / 1e3 / reps
+    return None
+
+
 def reset_launches() -> None:
     """Set every kernel wrapper's launch count to 0."""
-    from freepose_tpu_torch.ops.attention import (flash_attention_bias, flash_attention_k2, flash_attention_k3,
-                                                  flash_attention_stream)
+    from freepose_tpu_torch.ops import attention
     from freepose_tpu_torch.ops.rasterizer_cuda import raster_tile
 
-    raster_tile.launches = flash_attention_k3.launches = flash_attention_stream.launches = 0
-    flash_attention_k2.launches = flash_attention_bias.launches = 0
-    flash_attention_k2.launches_by_dim = {}
+    raster_tile.launches = attention.flash_attention_k3.launches = attention.flash_attention_stream.launches = 0
+    attention.flash_attention_k2.launches = attention.flash_attention_bias.launches = 0
+    attention.attention_combine.launches = 0
+    attention.flash_attention_k2.launches_by_dim = {}
+    for kernel in attention.launches_by_kernel:
+        attention.launches_by_kernel[kernel] = 0
 
 
 def read_launches() -> dict:
-    """Every kernel wrapper's launch count, K2 also by head dim."""
-    from freepose_tpu_torch.ops.attention import (flash_attention_bias, flash_attention_k2, flash_attention_k3,
-                                                  flash_attention_stream)
+    """Every kernel wrapper's launch count, K2 also by head dim, and the
+    attention launches by device program (`launches_by_kernel`: "sm90" the
+    wgmma + TMA kernel, "tile" the mma.sync tile kernel, "f32" the fp32
+    one)."""
+    from freepose_tpu_torch.ops import attention
     from freepose_tpu_torch.ops.rasterizer_cuda import raster_tile
 
-    return {"K1": raster_tile.launches, "K2": flash_attention_k2.launches, "K3": flash_attention_k3.launches,
-            "K4": flash_attention_stream.launches, "K5": flash_attention_bias.launches,
-            "K2_by_dim": {str(d): n for d, n in sorted(flash_attention_k2.launches_by_dim.items())}}
+    return {"K1": raster_tile.launches, "K2": attention.flash_attention_k2.launches,
+            "K3": attention.flash_attention_k3.launches, "K4": attention.flash_attention_stream.launches,
+            "K5": attention.flash_attention_bias.launches, "combine": attention.attention_combine.launches,
+            "K2_by_dim": {str(d): n for d, n in sorted(attention.flash_attention_k2.launches_by_dim.items())},
+            "launches_by_kernel": dict(attention.launches_by_kernel)}
 
 
 def check_attention(out: torch.Tensor, ref: torch.Tensor, allowed: torch.Tensor, wrong: dict) -> dict:
@@ -257,31 +323,63 @@ def phase_build() -> None:
     from freepose_tpu_torch.ops import cuda_build
 
     t0 = time.perf_counter()
-    logs = cuda_build.build(["raster_tile", "flash_attention"])
+    logs = cuda_build.build(["raster_tile", "flash_attention", "flash_attention_sm90"])
     secs = time.perf_counter() - t0
-    ptxas = {name: [ln.strip() for ln in out.splitlines() if "registers" in ln or "spill" in ln or "entry" in ln]
+    keep = ("registers", "spill", "entry", "serialized", "setmaxnreg", "warning")
+    ptxas = {name: [ln.strip() for ln in out.splitlines() if any(w in ln for w in keep)]
              for name, out in logs.items()}
     log("build", seconds=secs, ptxas=ptxas)
+
+
+def reads_next_head(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, key_tile: int) -> torch.Tensor:
+    """Plain stand-in of a wrong kernel that loads K and V through a 2-D map
+    [bh·nk, d] and leaves the keys past nk unmasked: each head's ragged last
+    key tile holds the next head's first rows (zeros after the last head)."""
+    from freepose_tpu_torch.ops.attention import dense_attention
+
+    b, h, nk, d = k.shape
+    pad = -nk % key_tile
+    rows = torch.arange(b * h, device=k.device)[:, None] * nk + torch.arange(nk + pad, device=k.device)[None]
+
+    def window(x):
+        flat = torch.cat([x.reshape(b * h * nk, d), x.new_zeros((pad, d))])
+        return flat[rows].reshape(b, h, nk + pad, d)
+
+    return dense_attention(q, window(k), window(v), scale)
+
+
+def in_turns(new, prev, reps: int) -> tuple[float, float]:
+    """Device ms of two versions on the same inputs, timed in turns new,
+    prev, prev, new; each the mean of its two runs."""
+    a, b, c, d = cuda_ms(new, reps), cuda_ms(prev, reps), cuda_ms(prev, reps), cuda_ms(new, reps)
+    return (a + d) / 2, (b + c) / 2
 
 
 def phase_k2(dev) -> dict:
     import torch.nn.functional as F
 
-    from freepose_tpu_torch.ops.attention import bf16_error_bound, dense_attention
+    from freepose_tpu_torch.ops.attention import (bf16_error_bound, dense_attention, flash_attention_sm90,
+                                                  flash_attention_tile, sm90_config, sm90_key_tile)
     from freepose_tpu_torch.ops.attention import flash_attention_k2 as flash_attention
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     scale = 64 ** -0.5
     heads, n, d = 16, 1 + 4 + (RES // 14) ** 2, 64
+    key_tile = sm90_key_tile(d)
 
     def qkv(b, length, dtype):
         q, k, v = (torch.randn((b, heads, length, d), generator=gen, device=dev) for _ in range(3))
         return (q * QUERY_STD).to(dtype), k.to(dtype), v.to(dtype)
 
+    # The batches of 420² crops the paths give K2: the template pack's ViT
+    # batches, a static frame's proposals, and the 1-2 tracked masks of a
+    # video frame's retrieval; then a ragged length and fp32.
     checks = {}
     for label, b, length, dtype in (("bank", BANK_BATCH, n, torch.bfloat16),
-                                    ("frame", N_PROPOSALS, n, torch.bfloat16),
                                     ("b8", 8, n, torch.bfloat16),
+                                    ("frame", N_PROPOSALS, n, torch.bfloat16),
+                                    ("crop2", 2, n, torch.bfloat16),
+                                    ("crop1", 1, n, torch.bfloat16),
                                     ("ragged", 8, 37, torch.bfloat16),
                                     ("fp32", 2, 130, torch.float32)):
         q, k, v = qkv(b, length, dtype)
@@ -291,39 +389,106 @@ def phase_k2(dev) -> dict:
         if dtype == torch.float32:
             torch.testing.assert_close(out, ref, **K2_TOL_FP32)
             checks[label] = {"max_abs_err": float((out - ref).abs().max())}
-        else:
-            kd, vd = k[:, :, :-DROPPED_KEYS], v[:, :, :-DROPPED_KEYS]
-            wrong = {} if label == "ragged" else {"drops_last_keys": dense_attention(q, kd, vd, scale)}
-            checks[label] = check_attention(out, ref, bf16_error_bound(q, k, v, scale, ref), wrong)
+            continue
+        # Every n here is ragged against the key tile.
+        wrong = {"reads_next_head": reads_next_head(q, k, v, scale, key_tile)}
+        if label != "ragged":
+            wrong["drops_last_keys"] = dense_attention(q, k[:, :, :-DROPPED_KEYS], v[:, :, :-DROPPED_KEYS], scale)
+        allowed = bf16_error_bound(q, k, v, scale, ref)
+        c = checks[label] = check_attention(out, ref, allowed, wrong)
+        c["warpgroups_splits"] = picked = sm90_config(b * heads, length, length, d, key_tile)
+        c["prev"] = check_attention(flash_attention_tile(q, k, v, scale), ref, allowed, {})
+        del wrong, out
+        if label != "ragged":
+            # Each d 64 build of the kernel at this shape: held to the same
+            # bound, and its device time beside the tile kernel's and SDPA's.
+            c["configs"] = {}
+            for config in SM90_D64_CONFIGS:
+                def run(config=config):
+                    return flash_attention_sm90(q, k, v, scale, config)
+
+                c["configs"][f"{config[0]}wg"] = {"tol_ratio": check_attention(run(), ref, allowed, {})["tol_ratio"],
+                                                  "device_ms": device_ms(run)}
+            c["device"] = {"ms": c["configs"][f"{picked[0]}wg"]["device_ms"],
+                           "prev_ms": device_ms(lambda: flash_attention_tile(q, k, v, scale)),
+                           "sdpa_ms": device_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))}
+            if label != "bank":  # the bank shape is timed below, for the kernels line
+                c["ms"], c["prev_ms"] = in_turns(lambda: flash_attention(q, k, v, scale),
+                                                 lambda: flash_attention_tile(q, k, v, scale), 10)
+                # Where CUDA events exceed the device times, the host's.
+                c["host_ms"] = {"ms": host_ms(lambda: flash_attention(q, k, v, scale)),
+                                "prev_ms": host_ms(lambda: flash_attention_tile(q, k, v, scale)),
+                                "sdpa_ms": host_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))}
         if label == "bank":
             main = (q, k, v)
-        del out, ref
+        del ref, allowed
     q, k, v = main
-    ms = cuda_ms(lambda: flash_attention(q, k, v, scale), reps=10)
+    ms, prev_ms = in_turns(lambda: flash_attention(q, k, v, scale), lambda: flash_attention_tile(q, k, v, scale), 10)
     plain_ms = cuda_ms(lambda: dense_attention(q, k, v, scale), reps=3)
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), reps=10)
     bh = BANK_BATCH * heads
-    nbytes = 4 * bh * n * d * q.element_size()
     flops = 4 * bh * n * n * d
-    bytes_ms, ops_ms = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_BF16_FLOPS * 1e3
-    rec = dict(name="K2 flash_attention_k2 (whole-K/V attention), d 64", route="cuda",
-               source="freepose_tpu_torch/csrc/flash_attention.cu",
+    bound_ms, bound_by = bound(flops, 4 * bh * n * d * q.element_size())
+    rec = dict(name="K2 flash_attention_k2 (whole-K/V attention), d 64", route="cuda", source=SM90_SOURCE,
                replaces="freepose_tpu/ops/attention.py:75", max_abs_err=checks["bank"]["max_abs_err"],
-               ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
-               bound_by="bytes" if bytes_ms >= ops_ms else "operations", library_ms=library_ms)
+               ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
     log("k2", shape=[BANK_BATCH, heads, n, d], dtype="bf16", checks=checks, tol=ATTN_TOL, tol_fp32=K2_TOL_FP32,
-        ms=ms, plain_ms=plain_ms, sdpa_ms=library_ms, bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
-        tflops=flops / ms / 1e9)
+        ms=ms, prev_ms=prev_ms, plain_ms=plain_ms, sdpa_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+        tflops=flops / ms / 1e9, device=checks["bank"]["device"])
+    del q, k, v, main
+    torch.cuda.empty_cache()
     return rec
+
+
+def check_combine(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> tuple[dict, dict]:
+    """The combine kernel against its plain version on the same fp32
+    partials: the plain (m, l, acc) of the key ranges the sm90 kernel splits
+    this shape into. The tolerance must fail a combine that drops the first
+    split. Returns (check, record for the kernels line)."""
+    from freepose_tpu_torch.ops.attention import (attention_combine, attention_partials, combine_partials,
+                                                  sm90_config, sm90_key_tile)
+
+    b, h, n, d = q.shape
+    nk, key_tile = k.shape[2], sm90_key_tile(d)
+    tiles = -(-nk // key_tile)
+    per = -(-tiles // sm90_config(b * h, n, nk, d, key_tile)[1]) * key_tile
+    parts = [attention_partials(q, k[:, :, a:a + per], v[:, :, a:a + per], scale) for a in range(0, nk, per)]
+    m, l, acc = (torch.stack(x) for x in zip(*parts))
+    out, ref = attention_combine(m, l, acc), combine_partials(m, l, acc)
+    torch.cuda.synchronize()
+    allowed = 2.0 ** -6 * ref.float().abs() + 1e-6
+
+    def ratio(x):
+        return float(((x.float() - ref.float()).abs() / allowed).max())
+
+    check = {"splits": len(parts), "max_abs_err": float((out.float() - ref.float()).abs().max()),
+             "tol_ratio": ratio(out), "drops_a_split_tol_ratio": ratio(combine_partials(m[1:], l[1:], acc[1:]))}
+    if check["tol_ratio"] > 1.0 or check["drops_a_split_tol_ratio"] <= 1.0:
+        raise AssertionError(f"combine kernel vs plain version, tolerance {COMBINE_TOL}: {check}")
+    ms = cuda_ms(lambda: attention_combine(m, l, acc), reps=20)
+    plain_ms = cuda_ms(lambda: combine_partials(m, l, acc), reps=5)
+    # Each partial read once and the bf16 output written once; a multiply-add
+    # per partial element.
+    bound_ms, bound_by = bound(2.0 * acc.numel(), 4 * (acc.numel() + m.numel() + l.numel()) + 2 * out.numel(),
+                               PEAK_FP32_FLOPS)
+    rec = dict(name="attention_combine (merge of the sm90 kernel's key splits)", route="cuda", source=SM90_SOURCE,
+               replaces="freepose_tpu/ops/attention.py:66", max_abs_err=check["max_abs_err"], ms=ms,
+               plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    check.update(tol=COMBINE_TOL, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+    return check, rec
 
 
 def phase_stream_kernels(dev) -> dict:
     """K2 at the video path's head dims, K3 and K4, each against its plain
-    version and timed beside it and beside SDPA. Returns {kernel: record}."""
+    version and timed beside it and beside SDPA; K2 d 256 and K3 (the wgmma +
+    TMA kernel) also beside the previous design, on a ragged key count
+    against a kernel that reads the next head's rows, and K3's combine
+    against its plain version. Returns {kernel: record}."""
     import torch.nn.functional as F
 
     from freepose_tpu_torch.ops.attention import (bf16_error_bound, dense_attention, dense_attention_masked,
-                                                  flash_attention_k2, flash_attention_k3, flash_attention_stream)
+                                                  flash_attention_k2, flash_attention_k3, flash_attention_stream,
+                                                  flash_attention_tile, sm90_config, sm90_key_tile)
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
 
@@ -346,18 +511,16 @@ def phase_stream_kernels(dev) -> dict:
     cases = {
         "K2_d72": dict(q=(1, 8, hw, 72), nk=hw, kernel=flash_attention_k2, mask=None,
                        name="K2 flash_attention_k2 (whole-K/V attention), d 72",
-                       source="freepose_tpu_torch/csrc/flash_attention.cu", replaces="freepose_tpu/ops/attention.py:75"),
+                       source=TILE_SOURCE, replaces="freepose_tpu/ops/attention.py:75"),
         "K2_d256": dict(q=(2, 1, hw, 256), nk=hw, kernel=flash_attention_k2, mask=None,
                         name="K2 flash_attention_k2 (whole-K/V attention), d 256",
-                        source="freepose_tpu_torch/csrc/flash_attention.cu",
-                        replaces="freepose_tpu/ops/attention.py:75"),
+                        source=SM90_SOURCE, replaces="freepose_tpu/ops/attention.py:75"),
         "K3": dict(q=(1, 1, hw, 256), nk=6144, kernel=flash_attention_k3, mask=None,
                    name="K3 flash_attention_k3 (streaming attention, no mask)",
-                   source="freepose_tpu_torch/csrc/flash_attention.cu", replaces="freepose_tpu/ops/attention.py:30"),
+                   source=SM90_SOURCE, replaces="freepose_tpu/ops/attention.py:30"),
         "K4": dict(q=(2, 1, hw, 256), nk=nk_mem, kernel=flash_attention_stream, mask=mask,
                    name="K4 flash_attention_stream (streaming attention, per-batch key mask)",
-                   source="freepose_tpu_torch/csrc/flash_attention.cu",
-                   replaces="freepose_tpu/ops/attention.py:208"),
+                   source=TILE_SOURCE, replaces="freepose_tpu/ops/attention.py:208"),
     }
     recs = {}
     for label, c in cases.items():
@@ -392,15 +555,34 @@ def phase_stream_kernels(dev) -> dict:
         else:
             wrong = {"drops_pointers": dense_attention_masked(q, k, v, scale, no_pointers),
                      "drops_a_slot": dense_attention_masked(q, k, v, scale, no_slot)}
-        check = check_attention(out, ref, bf16_error_bound(q, k, v, scale, ref, m), wrong)
+        allowed = bf16_error_bound(q, k, v, scale, ref, m)
+        check = check_attention(out, ref, allowed, wrong)
         err = check["max_abs_err"]
-        del out, ref, wrong
-        ms = cuda_ms(run, reps=10)
+        extra = {}
+        sm90 = c["source"] == SM90_SOURCE
+        if sm90:  # the previous design, on the same inputs
+            check["prev"] = check_attention(flash_attention_tile(q, k, v, scale), ref, allowed, {})
+        del out, ref, wrong, allowed
+        if sm90:
+            extra["warpgroups"], extra["splits"] = sm90_config(b * h, n, c["nk"], d, sm90_key_tile(d))
+            ms, extra["prev_ms"] = in_turns(run, lambda: flash_attention_tile(q, k, v, scale), 10)
+            extra["device"] = {"ms": device_ms(run), "prev_ms": device_ms(lambda: flash_attention_tile(q, k, v, scale)),
+                               "sdpa_ms": device_ms(library)}
+            # A ragged key count over two heads: the tolerance fails a kernel
+            # that fills the ragged tile with the next head's rows.
+            rq, rk, rv = randn(2, h, n, d, std=QUERY_STD), randn(2, h, c["nk"] - 27, d), randn(2, h, c["nk"] - 27, d)
+            rref = dense_attention(rq, rk, rv, scale)
+            check["ragged_keys"] = check_attention(
+                c["kernel"](rq, rk, rv, scale), rref, bf16_error_bound(rq, rk, rv, scale, rref),
+                {"reads_next_head": reads_next_head(rq, rk, rv, scale, sm90_key_tile(d))})
+            del rq, rk, rv, rref
+        else:
+            ms = cuda_ms(run, reps=10)
         plain_ms = cuda_ms(plain, reps=2)
         library_ms = cuda_ms(library, reps=10)
-        extra = {}
         if label == "K3":  # the other regime on the same inputs: what flash_attention's dispatch weighs
             extra["k2_ms_same_inputs"] = cuda_ms(lambda: flash_attention_k2(q, k, v, scale), reps=10)
+            extra["combine"], recs["combine"] = check_combine(q, k, v, scale)
         # Work these inputs need: the products over every valid key, each
         # input and the output moved once.
         valid_keys = h * (int(m.sum()) if m is not None else b * c["nk"])
@@ -676,7 +858,7 @@ def phase_main(dev, mesh) -> tuple[dict, dict]:
                   kernel_vs_plain_min_patch_cos=cos_min,
                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, profile=profile)
     log("main", **result)
-    if min(launches["K1"], launches["K2"]) <= 0:
+    if min(launches["K1"], launches["K2"], launches["launches_by_kernel"]["sm90"]) <= 0:
         raise AssertionError(f"main path did not launch every kernel: {launches}")
     return result, launches
 
@@ -840,7 +1022,7 @@ def phase_video(dev) -> tuple[dict, dict]:
                   low_res_logit_max_abs_diff=logit_diff, low_res_logit_max_abs=logit_scale,
                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, profile=profile)
     log("video", **result)
-    if min(launches["K2"], launches["K4"]) <= 0:
+    if min(launches["K2"], launches["K4"], launches["combine"], launches["launches_by_kernel"]["sm90"]) <= 0:
         raise AssertionError(f"video path did not launch every kernel: {launches}")
     if not props or n_scored == 0:
         raise AssertionError(f"video path retrieved no proposal: {len(props)} proposals, {n_scored} scored")
@@ -1030,10 +1212,11 @@ def main() -> int:
     # Launches on each main path's run (`launches_by_path`) and their sum.
     paths = {"static": static, "video": video, "scale": scale}
     counts = {k1["name"]: lambda p: p["K1"], streams["K3"]["name"]: lambda p: p["K3"],
-              streams["K4"]["name"]: lambda p: p["K4"], k5["name"]: lambda p: p["K5"]}
+              streams["K4"]["name"]: lambda p: p["K4"], k5["name"]: lambda p: p["K5"],
+              streams["combine"]["name"]: lambda p: p["combine"]}
     for rec, d in ((k2, 64), (streams["K2_d72"], 72), (streams["K2_d256"], 256)):
         counts[rec["name"]] = lambda p, d=d: p["K2_by_dim"].get(str(d), 0)
-    records = (k1, k2, streams["K2_d72"], streams["K2_d256"], streams["K3"], streams["K4"], k5)
+    records = (k1, k2, streams["K2_d72"], streams["K2_d256"], streams["K3"], streams["K4"], k5, streams["combine"])
     for rec in records:
         rec["launches_by_path"] = {path: counts[rec["name"]](p) for path, p in paths.items()}
         rec["launches"] = sum(rec["launches_by_path"].values())

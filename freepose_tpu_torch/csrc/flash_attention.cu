@@ -1,17 +1,19 @@
 // Attention kernels K2, K3, K4 (softmax(q·kᵀ·scale)·v on the tensor cores)
 // and K5 (fp32, with an additive logit bias; its note is further down).
 //
-// One tile kernel, instantiated per head dim, stands in for three TPU kernels
-// of freepose_tpu/ops/attention.py. The wrappers in
-// freepose_tpu_torch/ops/attention.py call the one entry point below:
+// One tile kernel (mma.sync), instantiated per head dim, stands in for three
+// TPU kernels of freepose_tpu/ops/attention.py. The dispatch in
+// freepose_tpu_torch/ops/attention.py:_launch sends it, through the entry
+// point flash_tile_launch:
 //   * K2 flash_attention_k2 (replaces _flash_kernel_single, the whole-K/V
-//     regime): no key mask. Callers: DINOv2 self-attention (d = 64), the
-//     Hiera-L global-attention blocks of the SAM2 trunk (d = 72) and SAM2
-//     memory self-attention (d = 256).
+//     regime) at d = 72: the Hiera-L global-attention blocks of the SAM2
+//     trunk. K2 and K3 at d = 64 and 256 (DINOv2, SAM2 memory
+//     self-attention) run csrc/flash_attention_sm90.cu (wgmma + TMA); this
+//     kernel stays instantiated at 64 and 256 as the previous design, which
+//     chip_smoke.py and the card-only tests time and check beside it
+//     (ops/attention.py:flash_attention_tile).
 //   * K3 flash_attention_k3 (replaces _flash_kernel + _kernel_squeeze, the
-//     streaming regime for key sets beyond the TPU's whole-K/V budget): the
-//     same launch as K2. K/V stream through shared memory here in both
-//     regimes, so the two TPU kernels are one device program on Hopper.
+//     streaming regime) at d = 72: the same launch as K2.
 //   * K4 flash_attention_stream (replaces _stream_kernel): with a per-batch
 //     key mask shared by the heads of a batch element (block index i // h on
 //     the TPU). Caller: SAM2 memory cross-attention, 4096 queries against 7
@@ -60,10 +62,10 @@
 //     they would take 64 more, so Q is re-read from shared memory with
 //     ldmatrix for every key tile, and the key tile shrinks to 32 keys to
 //     halve the score and P registers.
-// wgmma and TMA are the next step.
 //
 // fp32 inputs at d = 64 with no mask (accepted for tests on the card) take
-// a plain scalar kernel of the same online-softmax structure.
+// a plain scalar kernel of the same online-softmax structure
+// (flash_f32_launch).
 //
 // K5 flash_attention_bias (replaces _stream_bias_kernel): fp32 attention
 // with an additive per-head logit bias [heads, n, nk] shared across the
@@ -543,20 +545,22 @@ flash_kernel_f32(const float* __restrict__ q, const float* __restrict__ k, const
 
 }  // namespace
 
-// q [bh, n, d], k/v [bh, nk, d], o [bh, n, d], all contiguous and 16-byte
-// aligned. dtype 0 = bf16 with d in {64, 72, 256}: mask nullptr (K2, K3) or
-// [bh / heads, nk] bytes, 0 = masked key (K4). dtype 1 = fp32 with d = 64
-// and no mask.
-extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, const void* mask, void* o,
-                                      int bh, int heads, int n, int nk, int d, float scale, int dtype,
-                                      void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return flash::launch_tile_any(q, k, v, mask, o, bh, heads, n, nk, d, scale, s);
-  if (dtype != 1 || mask != nullptr || d != HD || n <= 0 || nk <= 0 || bh <= 0 || (n + BQ - 1) / BQ > 65535)
-    return (int)cudaErrorInvalidValue;
+// The tile kernel: q [bh, n, d], k/v [bh, nk, d], o [bh, n, d], bf16,
+// contiguous and 16-byte aligned, d in {64, 72, 256}; mask nullptr (K2, K3)
+// or [bh / heads, nk] bytes, 0 = masked key (K4). Returns a cudaError_t.
+extern "C" int flash_tile_launch(const void* q, const void* k, const void* v, const void* mask, void* o, int bh,
+                                 int heads, int n, int nk, int d, float scale, void* stream) {
+  return flash::launch_tile_any(q, k, v, mask, o, bh, heads, n, nk, d, scale, (cudaStream_t)stream);
+}
+
+// fp32 K2: q [bh, n, 64], k/v [bh, nk, 64], o [bh, n, 64], contiguous, no
+// mask. Returns a cudaError_t.
+extern "C" int flash_f32_launch(const void* q, const void* k, const void* v, void* o, int bh, int n, int nk, int d,
+                                float scale, void* stream) {
+  if (d != HD || n <= 0 || nk <= 0 || bh <= 0 || (n + BQ - 1) / BQ > 65535) return (int)cudaErrorInvalidValue;
   const dim3 grid(bh, (n + BQ - 1) / BQ);
-  flash_kernel_f32<<<grid, BQ, 0, s>>>((const float*)q, (const float*)k, (const float*)v, (float*)o, n,
-                                       nk, scale);
+  flash_kernel_f32<<<grid, BQ, 0, (cudaStream_t)stream>>>((const float*)q, (const float*)k, (const float*)v,
+                                                          (float*)o, n, nk, scale);
   return (int)cudaGetLastError();
 }
 

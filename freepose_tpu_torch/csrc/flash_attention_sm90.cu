@@ -1,0 +1,615 @@
+// Attention K2 and K3 on Hopper: wgmma + TMA, bf16, head dims 64 and 256.
+//
+// Replaces, on the card, the unmasked bf16 calls of two TPU kernels of
+// freepose_tpu/ops/attention.py:
+//   * K2 `_flash_kernel_single` (:75), the whole-K/V regime, through the
+//     wrapper flash_attention_k2: DINOv2-L self-attention (d = 64) and SAM2
+//     memory self-attention (d = 256);
+//   * K3 `_flash_kernel` (:30, with `_kernel_squeeze` :70), the streaming
+//     regime, through flash_attention_k3 (d = 256 at its test shape).
+// The dispatch in freepose_tpu_torch/ops/attention.py:_launch sends every
+// unmasked bf16 call at d 64 or 256 here; d 72, masked calls (K4) and fp32
+// keep the kernels of csrc/flash_attention.cu.
+//
+// Function (the TPU kernels' semantics): softmax(q·kᵀ·scale)·v on bf16
+// operands; logits, running max, running sum and accumulator in fp32; p
+// rounded to bf16 before P·V; keys at or past nk take -inf; output
+// acc / max(l, 1e-30) in bf16.
+//
+// Bound on the H100 (4·n·nk·d operations at 989 TFLOP/s bf16 against each
+// input and the output moved once at 3.35 TB/s): operations everywhere.
+//   [128, 16, 905, 64] (the template pack's ViT batch): 429 GFLOP, 0.434 ms;
+//   [4, 16, 905, 64] (a frame of 4 proposals): 13.4 GFLOP, 0.014 ms;
+//   [2, 1, 4096, 256] (memory self-attention): 34.4 GFLOP, 0.035 ms;
+//   [1, 1, 4096, 256] x 6,144 keys (K3): 25.8 GFLOP, 0.026 ms.
+//
+// Design (what it does about the limits of the mma.sync tile kernel):
+//   1. Tensor cores through wgmma. A warpgroup (4 warps) owns 64 query rows.
+//      S = Q·Kᵀ is wgmma m64nBKk16 with Q and K read from shared memory
+//      (both K-major: d contiguous). P goes from the S accumulators straight
+//      into A register fragments (the m64nN accumulator layout of two
+//      adjacent 8-key blocks is the m64k16 A layout), and O += P·V is wgmma
+//      m64nDk16 with A from registers and V as the B operand, MN-major (d
+//      contiguous), hence the transpose bit.
+//   2. One read of each K/V tile per warpgroup product: wgmma reads its B
+//      operand from shared memory once per 64-row product, where each
+//      mma.sync warp re-read the tile for its own 16 rows.
+//   3. Asynchronous copies. A producer warpgroup, of which one thread issues
+//      every load as TMA (cp.async.bulk.tensor.3d) into 128-byte-swizzled
+//      shared memory, signals completion through mbarriers; K and V have a
+//      barrier each per stage, so Q·Kᵀ starts before V has landed. A ring of
+//      K/V stages (3 at d 64, 2 at d 256) lets the next tiles' loads overlap
+//      this tile's products; the consumers release a stage through an
+//      `empty` mbarrier. No __syncthreads after set-up. The producer gives
+//      its registers to the consumers with setmaxnreg (24 left a thread; see
+//      Sm90). A lone producer warp does not save them: the register file is
+//      split over the SM's four sub-partitions, so 9 warps cap a thread at
+//      170 registers, and at d 256 (168 registers) ptxas spilled and
+//      serialised the wgmma.
+//   4. d 64: 192 rows per block (3 consumer warpgroups sharing each K/V
+//      tile), 128-key tiles, 120 KB of shared memory with 3 stages. n = 905
+//      pads to 960 rows (5 x 192, the same 5.7% as 64-row tiles; 128-row
+//      tiles would pad 11.6%). Grids whose waves of such blocks would take
+//      longer than those of 64-row blocks of one warpgroup, two per SM (a
+//      wave of these costs 0.72 of one of those on the H100), take the
+//      64-row blocks: the 1-2 crops of a video frame's retrieval and a
+//      static frame's 4 (ops/attention.py:sm90_config). No spill: 160
+//      registers per consumer thread (O 32, S 64, P 32).
+//   5. d 256: the O accumulator takes 128 fp32 registers per thread, so Q
+//      never goes into registers (Q·Kᵀ reads it from shared memory) and the
+//      key tile is 64 (S: 32 registers); 128 rows per block (2 consumer
+//      warpgroups), 192 KB of shared memory (Q 64 KB, 2 stages of K and V
+//      64 KB each), one block per SM. When bh·ceil(n / rows) blocks leave
+//      the card short of a wave, the key range is split over `splits`
+//      blocks (whole key tiles each): each writes its partial (m, l, acc)
+//      in fp32 to scratch from the wrapper, and sm90_combine_kernel merges
+//      them. The split count comes from ops/attention.py:sm90_config: it
+//      engages for [2, 1, 4096, 256] (64 blocks of 128 rows -> 2 splits)
+//      and K3's [1, 1, 4096, 256] x 6,144 (32 blocks -> 4 splits), not at
+//      d 64 for batches of 1 crop or more.
+//   Tensor maps are 3-D [bh, n, d] (built on the host with
+//   cuTensorMapEncodeTiled, fetched through cudaGetDriverEntryPoint, so no
+//   -lcuda): a ragged tile past n or nk gets TMA's zero fill and never the
+//   next head's rows; a 128-byte swizzle atom is 64 columns, so a d 256 row
+//   is four atoms, each its own [rows, 64] box. Zero-filled keys would
+//   still give logit 0, so keys at or past nk are set to -inf after Q·Kᵀ.
+//   The shared-memory base is aligned to 1,024 bytes here (the swizzle
+//   atoms need it).
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace flash {
+
+using bf16 = __nv_bfloat16;
+
+constexpr float MASKED = -1e30f;  // running-max start, as in the tile kernel
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+template <int D, int NWG>
+struct Sm90 {
+  static_assert(D == 64 || D == 256, "head dim 64 or 256");
+  static constexpr int BK = D == 64 ? 128 : 64;  // keys per tile
+  static constexpr int STAGES = D == 64 ? 3 : 2;  // K/V ring (d 256: 2 fill the shared memory)
+  static constexpr int ATOMS = D / 64;                     // 128-byte swizzle atoms per row
+  static constexpr int ROWS = NWG * 64;                    // query rows per block
+  static constexpr int THREADS = (NWG + 1) * 128;          // consumer warpgroups + the producer warpgroup
+  static constexpr int MIN_BLOCKS = NWG == 1 ? 2 : 1;      // blocks per SM the registers must allow
+  // setmaxnreg: the producer keeps 24 registers a thread, the consumers take
+  // what it gives up (at most 240): 160 with 3 warpgroups, 240 with 2, 232
+  // with 1 (two blocks per SM).
+  static constexpr int PRODUCER_REGS = 24;
+  static constexpr int CONSUMER_REGS_FIT = (65536 / MIN_BLOCKS - 128 * PRODUCER_REGS) / (128 * NWG) / 8 * 8;
+  static constexpr int CONSUMER_REGS = CONSUMER_REGS_FIT < 240 ? CONSUMER_REGS_FIT : 240;
+  static constexpr uint32_t Q_ATOM = 64 * 128;             // one [64, 64] bf16 box
+  static constexpr uint32_t Q_BYTES = NWG * ATOMS * Q_ATOM;
+  static constexpr uint32_t KV_ATOM = BK * 128;            // one [BK, 64] bf16 box
+  static constexpr uint32_t KV_BYTES = ATOMS * KV_ATOM;    // one stage of K (or of V)
+  static constexpr uint32_t TILE_BYTES = Q_BYTES + 2 * STAGES * KV_BYTES;
+  static constexpr int N_BARS = 1 + 3 * STAGES;            // q, then k_full, v_full, empty per stage
+  static constexpr size_t SMEM = 1024 + TILE_BYTES + 8 * N_BARS;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// Wait until the phase of parity `parity` of the barrier has completed.
+// (A clock64 timeout with a trap in this loop made ptxas spill and
+// serialise the wgmma at d 256, so the wait has none.)
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One [box rows, 64] box of a 3-D tensor map at (column c0, row c1, head c2).
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(
+          dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_wait_all() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
+
+// Keep the compiler from moving accumulator reads or writes across a wgmma.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// Shared-memory matrix descriptor, 128-byte swizzle; lbo / sbo in bytes.
+// K-major operands: rows 128 B apart, 8-row groups at sbo = 1,024 B, lbo
+// unused (1). MN-major (V): 8-key groups at sbo = 1,024 B, 64-column atoms
+// at lbo.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32) |
+         (1ull << 62);
+}
+
+// Accumulator operand lists of the wgmma wrappers below.
+#define ACC8(b) "+f"(d[(b) + 0]), "+f"(d[(b) + 1]), "+f"(d[(b) + 2]), "+f"(d[(b) + 3]), \
+                "+f"(d[(b) + 4]), "+f"(d[(b) + 5]), "+f"(d[(b) + 6]), "+f"(d[(b) + 7])
+#define ACC32(b) ACC8(b), ACC8((b) + 8), ACC8((b) + 16), ACC8((b) + 24)
+#define ACC64(b) ACC32(b), ACC32((b) + 32)
+#define ACC128(b) ACC64(b), ACC64((b) + 64)
+
+// d[64 x 64] (+)= A[64 x 16] · B[16 x 64], A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : ACC32(0)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[64 x 128] (+)= A[64 x 16] · B[16 x 128], A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : ACC64(0)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[64 x 64] += A[64 x 16] · B[16 x 64], A in registers, B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : ACC32(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[64 x 256] += A[64 x 16] · B[16 x 256], A in registers, B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : ACC128(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int accumulate) {
+  if constexpr (N == 64) wgmma_ss_n64(d, da, db, accumulate);
+  else wgmma_ss_n128(d, da, db, accumulate);
+}
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (N == 64) wgmma_rs_n64(d, a, db);
+  else wgmma_rs_n256(d, a, db);
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Grid (query blocks, key splits, bh). Maps: q [bh, n, D], k and v
+// [bh, nk, D], bf16. One split: o [bh, n, D] bf16. Several: part_acc
+// [splits, bh, n, D] (unnormalised accumulator), part_m (row max of
+// q·kᵀ·scale) and part_l (row sum) [splits, bh, n], fp32.
+template <int D, int NWG>
+__global__ void __launch_bounds__((NWG + 1) * 128, NWG == 1 ? 2 : 1)  // Sm90::THREADS, MIN_BLOCKS
+sm90_attention_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ o, float* __restrict__ part_acc,
+                      float* __restrict__ part_m, float* __restrict__ part_l, int n, int nk, int tiles_per_split,
+                      float scale_log2) {
+  using C = Sm90<D, NWG>;
+  constexpr int BK = C::BK, STAGES = C::STAGES, ATOMS = C::ATOMS;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sq = (raw + 1023u) & ~1023u;  // Q: NWG warpgroups x ATOMS boxes of [64, 64]
+  const uint32_t sk = sq + C::Q_BYTES;         // K: STAGES x ATOMS boxes of [BK, 64]
+  const uint32_t sv = sk + STAGES * C::KV_BYTES;
+  const uint32_t bars = sv + STAGES * C::KV_BYTES;
+  const uint32_t q_full = bars;
+  auto k_full = [&](int s) { return bars + 8u * (1 + s); };
+  auto v_full = [&](int s) { return bars + 8u * (1 + STAGES + s); };
+  auto empty = [&](int s) { return bars + 8u * (1 + 2 * STAGES + s); };
+
+  const int q0 = blockIdx.x * C::ROWS;
+  const int split = blockIdx.y, bh = blockIdx.z;
+  const int n_tiles = (nk + BK - 1) / BK;
+  const int t0 = split * tiles_per_split;
+  const int nt = min(n_tiles, t0 + tiles_per_split) - t0;  // >= 1: the host checks the split count
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(empty(s), NWG * 4);  // every consumer warp releases the stage
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp >= NWG * 4) {  // the producer warpgroup: one thread issues every load
+    setmaxnreg_dec<C::PRODUCER_REGS>();
+    if (warp == NWG * 4 && lane == 0) {
+      mbar_expect_tx(q_full, C::Q_BYTES);
+      for (int w = 0; w < NWG; ++w)
+        for (int a = 0; a < ATOMS; ++a)
+          tma_load(sq + (w * ATOMS + a) * C::Q_ATOM, &tm_q, q_full, a * 64, q0 + w * 64, bh);
+      for (int it = 0; it < nt; ++it) {
+        const int s = it % STAGES;
+        if (it >= STAGES) mbar_wait(empty(s), ((it / STAGES) - 1) & 1);
+        const int key0 = (t0 + it) * BK;
+        mbar_expect_tx(k_full(s), C::KV_BYTES);
+        for (int a = 0; a < ATOMS; ++a)
+          tma_load(sk + s * C::KV_BYTES + a * C::KV_ATOM, &tm_k, k_full(s), a * 64, key0, bh);
+        mbar_expect_tx(v_full(s), C::KV_BYTES);
+        for (int a = 0; a < ATOMS; ++a)
+          tma_load(sv + s * C::KV_BYTES + a * C::KV_ATOM, &tm_v, v_full(s), a * 64, key0, bh);
+      }
+    }
+    return;
+  }
+
+  // Consumer warpgroup wg: query rows q0 + wg * 64 + [0, 64). Thread layout
+  // of the m64nN accumulators: warp w of the group holds rows 16w + g and
+  // 16w + g + 8; in each 8-column block, columns 2t and 2t + 1.
+  setmaxnreg_inc<C::CONSUMER_REGS>();
+  const int wg = warp / 4, w = warp % 4, g = lane / 4, t = lane % 4;
+  const uint32_t q_wg = sq + wg * ATOMS * C::Q_ATOM;
+  float oacc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) oacc[i] = 0.0f;
+  float m_lo = MASKED, m_hi = MASKED, l_lo = 0.0f, l_hi = 0.0f;  // log2 units, rows g and g + 8
+  mbar_wait(q_full, 0);
+
+  for (int it = 0; it < nt; ++it) {
+    const int s = it % STAGES;
+    const uint32_t parity = (it / STAGES) & 1;
+    const int key0 = (t0 + it) * BK;
+
+    // S = Q·Kᵀ over D / 16 k-steps: 16 columns = 32 bytes inside a swizzle atom.
+    float sacc[BK / 2];
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) sacc[i] = 0.0f;
+    mbar_wait(k_full(s), parity);
+    const uint32_t k_st = sk + s * C::KV_BYTES;
+    fence_regs(sacc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint64_t da = sw128_desc(q_wg + (kk / 4) * C::Q_ATOM + (kk % 4) * 32, 16, 1024);
+      const uint64_t db = sw128_desc(k_st + (kk / 4) * C::KV_ATOM + (kk % 4) * 32, 16, 1024);
+      wgmma_ss<BK>(sacc, da, db, kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sacc);
+
+    // Keys past nk (TMA's zero fill) take -inf; only the last tile has any.
+    if (key0 + BK > nk) {
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (key0 + j * 8 + 2 * t + e >= nk) sacc[4 * j + e] = sacc[4 * j + 2 + e] = -INFINITY;
+    }
+    // Online softmax in log2 units: x = s·scale·log2(e), p = 2^(x - m).
+    float mx_lo = -INFINITY, mx_hi = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      mx_lo = fmaxf(mx_lo, fmaxf(sacc[4 * j], sacc[4 * j + 1]));
+      mx_hi = fmaxf(mx_hi, fmaxf(sacc[4 * j + 2], sacc[4 * j + 3]));
+    }
+    const float mn_lo = fmaxf(m_lo, quad_max(mx_lo) * scale_log2);
+    const float mn_hi = fmaxf(m_hi, quad_max(mx_hi) * scale_log2);
+    const float a_lo = ex2(m_lo - mn_lo), a_hi = ex2(m_hi - mn_hi);
+    m_lo = mn_lo;
+    m_hi = mn_hi;
+    float sum_lo = 0.0f, sum_hi = 0.0f;
+    uint32_t pf[BK / 16][4];  // P as the A fragments of P·V, 16 keys each
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      const float p0 = ex2(fmaf(sacc[4 * j], scale_log2, -mn_lo));
+      const float p1 = ex2(fmaf(sacc[4 * j + 1], scale_log2, -mn_lo));
+      const float p2 = ex2(fmaf(sacc[4 * j + 2], scale_log2, -mn_hi));
+      const float p3 = ex2(fmaf(sacc[4 * j + 3], scale_log2, -mn_hi));
+      sum_lo += p0 + p1;
+      sum_hi += p2 + p3;
+      pf[j / 2][(j & 1) * 2 + 0] = pack_bf16(p0, p1);
+      pf[j / 2][(j & 1) * 2 + 1] = pack_bf16(p2, p3);
+    }
+    l_lo = a_lo * l_lo + sum_lo;  // per-thread partial sums; the quad adds them at the end
+    l_hi = a_hi * l_hi + sum_hi;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      oacc[4 * j] *= a_lo;
+      oacc[4 * j + 1] *= a_lo;
+      oacc[4 * j + 2] *= a_hi;
+      oacc[4 * j + 3] *= a_hi;
+    }
+
+    // O += P·V over BK / 16 k-steps: 16 keys = two 8-row groups = 2,048 bytes.
+    mbar_wait(v_full(s), parity);
+    const uint32_t v_st = sv + s * C::KV_BYTES;
+    fence_regs(oacc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) wgmma_rs<D>(oacc, pf[kk], sw128_desc(v_st + kk * 2048, C::KV_ATOM, 1024));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(oacc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(s));
+  }
+
+  l_lo = quad_sum(l_lo);
+  l_hi = quad_sum(l_hi);
+  const int row_lo = q0 + wg * 64 + w * 16 + g, row_hi = row_lo + 8;
+  if (gridDim.y == 1) {
+    const float inv_lo = 1.0f / fmaxf(l_lo, 1e-30f), inv_hi = 1.0f / fmaxf(l_hi, 1e-30f);
+    bf16* og = o + (size_t)bh * n * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int col = j * 8 + 2 * t;
+      if (row_lo < n)
+        *reinterpret_cast<__nv_bfloat162*>(og + (size_t)row_lo * D + col) =
+            __floats2bfloat162_rn(oacc[4 * j] * inv_lo, oacc[4 * j + 1] * inv_lo);
+      if (row_hi < n)
+        *reinterpret_cast<__nv_bfloat162*>(og + (size_t)row_hi * D + col) =
+            __floats2bfloat162_rn(oacc[4 * j + 2] * inv_hi, oacc[4 * j + 3] * inv_hi);
+    }
+  } else {
+    const size_t prow = ((size_t)split * gridDim.z + bh) * n;  // row 0 of this (split, bh)
+    float* ag = part_acc + prow * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int col = j * 8 + 2 * t;
+      if (row_lo < n) *reinterpret_cast<float2*>(ag + (size_t)row_lo * D + col) = make_float2(oacc[4 * j], oacc[4 * j + 1]);
+      if (row_hi < n)
+        *reinterpret_cast<float2*>(ag + (size_t)row_hi * D + col) = make_float2(oacc[4 * j + 2], oacc[4 * j + 3]);
+    }
+    if (t == 0) {  // m back in natural units: the max of q·kᵀ·scale
+      if (row_lo < n) {
+        part_m[prow + row_lo] = m_lo * LN2;
+        part_l[prow + row_lo] = l_lo;
+      }
+      if (row_hi < n) {
+        part_m[prow + row_hi] = m_hi * LN2;
+        part_l[prow + row_hi] = l_hi;
+      }
+    }
+  }
+}
+
+// Merge key splits: out[r] = Σ_s e^(m_s - M)·acc_s / max(Σ_s e^(m_s - M)·l_s,
+// 1e-30) with M = max_s m_s, in bf16. acc [splits, rows, d], m and l
+// [splits, rows], fp32; d / 4 threads per row, each on 4 columns.
+__global__ void __launch_bounds__(256)
+sm90_combine_kernel(const float* __restrict__ acc, const float* __restrict__ m, const float* __restrict__ l,
+                    bf16* __restrict__ o, int splits, int rows, int d) {
+  const int tpr = d / 4;
+  const long idx = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long row = idx / tpr;
+  const int c4 = (int)(idx % tpr);
+  if (row >= rows) return;
+  float mx = -INFINITY;
+  for (int s = 0; s < splits; ++s) mx = fmaxf(mx, m[(long)s * rows + row]);
+  float sum = 0.0f;
+  float4 a = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (int s = 0; s < splits; ++s) {
+    const float wgt = expf(m[(long)s * rows + row] - mx);
+    sum += wgt * l[(long)s * rows + row];
+    const float4 x = reinterpret_cast<const float4*>(acc + ((long)s * rows + row) * d)[c4];
+    a.x += wgt * x.x;
+    a.y += wgt * x.y;
+    a.z += wgt * x.z;
+    a.w += wgt * x.w;
+  }
+  const float inv = 1.0f / fmaxf(sum, 1e-30f);
+  __nv_bfloat162* og = reinterpret_cast<__nv_bfloat162*>(o + row * d + 4 * c4);
+  og[0] = __floats2bfloat162_rn(a.x * inv, a.y * inv);
+  og[1] = __floats2bfloat162_rn(a.z * inv, a.w * inv);
+}
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point (no -lcuda).
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// 3-D map of a contiguous bf16 [bh, rows, d] tensor, boxes of [box_rows, 64]
+// with the 128-byte swizzle; out-of-range rows read as zeros.
+inline bool make_map(EncodeTiledFn enc, CUtensorMap* map, const void* ptr, int bh, int rows, int d, int box_rows) {
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)rows * d * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box, elem_strides,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Raise the kernel's dynamic shared-memory limit once per device.
+template <int D, int NWG>
+int allow_smem() {
+  static bool done[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 64 && done[dev]) return 0;
+  err = cudaFuncSetAttribute(sm90_attention_kernel<D, NWG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)Sm90<D, NWG>::SMEM);
+  if (err == cudaSuccess && dev < 64) done[dev] = true;
+  return (int)err;
+}
+
+inline int launch_combine(const float* acc, const float* m, const float* l, bf16* o, int splits, int rows, int d,
+                          cudaStream_t stream) {
+  const long blocks = ((long)rows * (d / 4) + 255) / 256;
+  if (blocks > 2147483647L) return (int)cudaErrorInvalidValue;
+  sm90_combine_kernel<<<(unsigned)blocks, 256, 0, stream>>>(acc, m, l, o, splits, rows, d);
+  return (int)cudaGetLastError();
+}
+
+template <int D, int NWG>
+int launch_sm90(const void* q, const void* k, const void* v, void* o, void* part_acc, void* part_m, void* part_l,
+                int bh, int n, int nk, int splits, float scale, cudaStream_t stream) {
+  using C = Sm90<D, NWG>;
+  const int n_tiles = (nk + C::BK - 1) / C::BK;
+  const int per = splits > 0 ? (n_tiles + splits - 1) / splits : 0;
+  if (splits < 1 || splits > 65535 || (splits - 1) * per >= n_tiles || o == nullptr) return (int)cudaErrorInvalidValue;
+  if (splits > 1 && (part_acc == nullptr || part_m == nullptr || part_l == nullptr)) return (int)cudaErrorInvalidValue;
+  const EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  CUtensorMap tq, tk, tv;
+  if (!make_map(enc, &tq, q, bh, n, D, 64) || !make_map(enc, &tk, k, bh, nk, D, C::BK) ||
+      !make_map(enc, &tv, v, bh, nk, D, C::BK))
+    return (int)cudaErrorInvalidValue;
+  const int err = allow_smem<D, NWG>();
+  if (err != 0) return err;
+  const dim3 grid((n + C::ROWS - 1) / C::ROWS, splits, bh);
+  sm90_attention_kernel<D, NWG><<<grid, C::THREADS, C::SMEM, stream>>>(
+      tq, tk, tv, (bf16*)o, (float*)part_acc, (float*)part_m, (float*)part_l, n, nk, per, scale * LOG2E);
+  const cudaError_t launched = cudaGetLastError();
+  if (launched != cudaSuccess || splits == 1) return (int)launched;
+  return launch_combine((const float*)part_acc, (const float*)part_m, (const float*)part_l, (bf16*)o, splits,
+                        bh * n, D, stream);
+}
+
+}  // namespace flash
+
+// q [bh, n, d], k/v [bh, nk, d], o [bh, n, d], bf16, contiguous, 16-byte
+// aligned; d 64 with warpgroups 1 or 3, d 256 with warpgroups 2 (rows per
+// block = 64 x warpgroups). With splits > 1 the kernel writes part_acc
+// [splits, bh, n, d], part_m and part_l [splits, bh, n] (fp32 scratch) and
+// the combine kernel then writes o. Each split gets ceil(tiles / splits) key
+// tiles and none may be empty. Returns a cudaError_t.
+extern "C" int flash_sm90_launch(const void* q, const void* k, const void* v, void* o, void* part_acc, void* part_m,
+                                 void* part_l, int bh, int n, int nk, int d, int warpgroups, int splits, float scale,
+                                 void* stream) {
+  if (n <= 0 || nk <= 0 || bh <= 0 || bh > 65535) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (d == 64 && warpgroups == 3)
+    return flash::launch_sm90<64, 3>(q, k, v, o, part_acc, part_m, part_l, bh, n, nk, splits, scale, s);
+  if (d == 64 && warpgroups == 1)
+    return flash::launch_sm90<64, 1>(q, k, v, o, part_acc, part_m, part_l, bh, n, nk, splits, scale, s);
+  if (d == 256 && warpgroups == 2)
+    return flash::launch_sm90<256, 2>(q, k, v, o, part_acc, part_m, part_l, bh, n, nk, splits, scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Keys per tile (Sm90::BK) at head dim d, 0 for a head dim the kernel does
+// not take: the split rule of ops/attention.py:sm90_config counts tiles of it.
+extern "C" int flash_sm90_key_tile(int d) {
+  if (d == 64) return flash::Sm90<64, 1>::BK;
+  if (d == 256) return flash::Sm90<256, 2>::BK;
+  return 0;
+}
+
+// The combine alone: acc [splits, rows, d], m and l [splits, rows] fp32
+// contiguous, 16-byte aligned; o [rows, d] bf16; d a multiple of 4, at most
+// 1024. Returns a cudaError_t.
+extern "C" int flash_sm90_combine_launch(const void* acc, const void* m, const void* l, void* o, int splits, int rows,
+                                         int d, void* stream) {
+  if (splits < 1 || rows <= 0 || d <= 0 || d % 4 != 0 || d > 1024) return (int)cudaErrorInvalidValue;
+  return flash::launch_combine((const float*)acc, (const float*)m, (const float*)l, (flash::bf16*)o, splits, rows, d,
+                               (cudaStream_t)stream);
+}

@@ -18,13 +18,17 @@ before the P·V product, and the output acc / max(l, 1e-30):
   additive per-head logit bias [H, N, Nk] shared across the batch, and an
   optional key mask: the relative-position bias of the BEiT trunk of ZoeD_N.
 
-K2, K3 and K4 launch the one tile kernel of csrc/flash_attention.cu, whose
-key mask pointer is null for K2 and K3; K5 is a scalar fp32 kernel of the
-same library.
+`_launch` picks the device program of each call (`attention_kernel`):
+unmasked bf16 K2 and K3 at d 64 and 256 run the wgmma + TMA kernel of
+csrc/flash_attention_sm90.cu (with its combine kernel when it splits the
+keys, `sm90_config`); bf16 at d 72 and every K4 call run the mma.sync tile
+kernel of csrc/flash_attention.cu; fp32 K2 its scalar kernel. K5 is a
+scalar fp32 kernel of the same library.
 
 Each wrapper launches its kernel for CUDA tensors (or raises on what the
 kernel does not take) and runs the plain version for CPU tensors; nothing
-falls back quietly. `launches` on each wrapper counts kernel launches.
+falls back quietly. `launches` on each wrapper counts kernel launches, and
+`launches_by_kernel` counts `_launch`'s launches by device program.
 `flash_attention` picks K2 or K3 as the JAX function picks its regime, and
 `flash_attention_auto` routes a masked call to K4 and an unmasked one to
 `flash_attention`, as in the JAX package.
@@ -32,12 +36,25 @@ falls back quietly. `launches` on each wrapper counts kernel launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
+from freepose_tpu_torch.ops import cuda_build
+
 NEG_INF = -1e30
 HEAD_DIMS = (64, 72, 256)  # the bf16 head dims the kernels are built for
-_DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
+_DTYPES = (torch.bfloat16, torch.float32)
+SM90_HEAD_DIMS = (64, 256)  # unmasked bf16 head dims of csrc/flash_attention_sm90.cu
+MAX_SPLITS, MIN_SPLIT_TILES = 16, 8
+# Device time of a wave of 64-row blocks (two per SM) over that of a wave of
+# 192-row blocks (one per SM) of the d 64 sm90 kernel: 1.332 ms in 117 waves
+# against 1.232 ms in 78 at [128, 16, 905, 64] (chip_smoke.py's k2 phase,
+# H100 80GB HBM3 at 700 W). With it the wave counts of the two builds
+# predict their times at 1, 2, 4, 8 and 128 crops of 905 tokens within 10%.
+D64_WAVE_RATIO = 0.72
+
+launches_by_kernel = {"sm90": 0, "tile": 0, "f32": 0}  # `_launch`'s launches by device program
 
 
 def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
@@ -124,26 +141,192 @@ def _mask_bytes(name: str, kv_mask: torch.Tensor | None, b: int, nk: int,
     return kv_mask.to(torch.uint8).contiguous()
 
 
-def _launch(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
-            kv_mask: torch.Tensor | None, dtypes) -> torch.Tensor:
-    """Launch csrc/flash_attention.cu's entry point: the tile kernel for bf16
-    (kv_mask None runs it unmasked), the scalar kernel for fp32."""
-    from freepose_tpu_torch.ops import cuda_build
+def attention_kernel(dtype: torch.dtype, d: int, masked: bool) -> str:
+    """The dispatch rule of `_launch`: the device program that serves a
+    call. "sm90" (csrc/flash_attention_sm90.cu, wgmma + TMA) for unmasked
+    bf16 at d 64 or 256; "tile" (csrc/flash_attention.cu, the mma.sync tile
+    kernel) for bf16 at d 72 and every masked call; "f32" (its scalar
+    kernel) for fp32."""
+    if dtype == torch.float32:
+        return "f32"
+    if not masked and d in SM90_HEAD_DIMS:
+        return "sm90"
+    return "tile"
 
+
+@functools.lru_cache(maxsize=4096)
+def sm90_config(bh: int, n: int, nk: int, d: int, key_tile: int, num_sms: int = 132) -> tuple[int, int]:
+    """(consumer warpgroups, key splits) of the sm90 kernel for q [bh, n, d]
+    against nk keys in tiles of `key_tile` (`sm90_key_tile`); a warpgroup
+    owns 64 query rows. d 64: blocks of 3
+    warpgroups (one per SM) when their waves take less time than those of
+    blocks of one (two per SM), a wave of these costing D64_WAVE_RATIO of
+    one of those; on ties blocks of one. d 256: 2 warpgroups, one block per
+    SM. A grid short of a wave splits the keys into the count (at most
+    MAX_SPLITS, at least MIN_SPLIT_TILES key tiles each, none empty) whose
+    grid fills its waves best, the fewest on ties."""
+    if d == 64:
+        waves = {w: -(-(bh * -(-n // (64 * w))) // (num_sms * (2 if w == 1 else 1))) for w in (1, 3)}
+        wgs = 3 if waves[3] < D64_WAVE_RATIO * waves[1] else 1
+    else:
+        wgs = 2
+    wave = num_sms * (2 if wgs == 1 else 1)
+    blocks = bh * -(-n // (64 * wgs))
+    tiles = -(-nk // key_tile)
+    best, best_fill = 1, 0.0
+    if blocks < wave:
+        for s in range(1, min(MAX_SPLITS, tiles // MIN_SPLIT_TILES) + 1):
+            per = -(-tiles // s)
+            if -(-tiles // per) != s:  # a split would be empty
+                continue
+            grid = blocks * s
+            fill = grid / (-(-grid // wave) * wave)
+            if fill > best_fill:
+                best, best_fill = s, fill
+    return wgs, best
+
+
+def attention_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       scale: float) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain (m, l, acc) of one key range, as a key split of the sm90 kernel
+    leaves them: m the row max of q·kᵀ·scale, l the row sum of
+    p = exp(q·kᵀ·scale - m), acc = p (rounded to v's dtype)·v; all fp32.
+    q [..., N, d], k/v [..., Nk, d] -> [..., N], [..., N], [..., N, d]."""
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    m = logits.amax(dim=-1)
+    p = torch.exp(logits - m[..., None])
+    return m, p.sum(dim=-1), torch.matmul(p.to(v.dtype).float(), v.float())
+
+
+def combine_partials(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
+                     dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Plain version of the combine kernel: merge the partials of S key
+    splits, m and l [S, ...] and acc [S, ..., d] fp32, into
+    Σ e^(m_s - M)·acc_s / max(Σ e^(m_s - M)·l_s, 1e-30), M = max m_s, in
+    `dtype`."""
+    w = torch.exp(m - m.amax(dim=0))
+    total = (w * l).sum(dim=0)
+    return ((w[..., None] * acc).sum(dim=0) / torch.clamp(total, min=1e-30)[..., None]).to(dtype)
+
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ARGTYPES = {  # the C entry points of the attention libraries
+    ("flash_attention_sm90", "flash_sm90_launch"): [_P] * 7 + [_I] * 6 + [_F, _P],
+    ("flash_attention_sm90", "flash_sm90_combine_launch"): [_P] * 4 + [_I] * 3 + [_P],
+    ("flash_attention_sm90", "flash_sm90_key_tile"): [_I],
+    ("flash_attention", "flash_tile_launch"): [_P] * 5 + [_I] * 5 + [_F, _P],
+    ("flash_attention", "flash_f32_launch"): [_P] * 4 + [_I] * 4 + [_F, _P],
+    ("flash_attention", "flash_attention_bias_launch"): [_P] * 6 + [_I] * 5 + [_F, _P],
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _entry(lib: str, fn: str):
+    """A kernel library's C entry point (built at first use), its argument
+    types set once; each returns an int (a cudaError_t for the launches)."""
+    entry = getattr(cuda_build.load(lib), fn)
+    entry.argtypes = _ARGTYPES[lib, fn]
+    entry.restype = ctypes.c_int
+    return entry
+
+
+@functools.lru_cache(maxsize=None)
+def sm90_key_tile(d: int) -> int:
+    """Keys per tile of the sm90 kernel at head dim d, as the library
+    states it (`Sm90::BK`, read once per head dim)."""
+    tile = _entry("flash_attention_sm90", "flash_sm90_key_tile")(d)
+    if tile <= 0:
+        raise ValueError(f"the sm90 kernel does not take head dim {d} (it takes {SM90_HEAD_DIMS})")
+    return tile
+
+
+def attention_combine(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
+                      dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Combine wrapper: m and l [S, B, H, N], acc [S, B, H, N, d], fp32 and
+    contiguous -> [B, H, N, d]. CUDA tensors launch sm90_combine_kernel
+    (bf16 output), CPU tensors run `combine_partials`."""
+    name = "attention_combine"
+    if _on_cpu(m, l, acc):
+        return combine_partials(m, l, acc, dtype)
+    if dtype != torch.bfloat16 or any(t.dtype != torch.float32 for t in (m, l, acc)):
+        raise TypeError(f"{name} takes fp32 partials to a bf16 output, got {m.dtype}, {l.dtype}, {acc.dtype} "
+                        f"-> {dtype}")
+    if not (m.device.type == "cuda" and l.device == m.device and acc.device == m.device):
+        raise ValueError(f"{name}: partials on {m.device}, {l.device}, {acc.device}")
+    if m.shape != l.shape or acc.shape[:-1] != m.shape or acc.shape[-1] % 4:
+        raise ValueError(f"{name}: bad shapes {tuple(m.shape)}, {tuple(l.shape)}, {tuple(acc.shape)}")
+    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in (m, l, acc)):
+        raise ValueError(f"{name} takes contiguous, 16-byte aligned partials")
+    out = torch.empty(acc.shape[1:], dtype=dtype, device=acc.device)
+    d = acc.shape[-1]
+    with torch.cuda.device(acc.device):
+        status = _entry("flash_attention_sm90", "flash_sm90_combine_launch")(
+            acc.data_ptr(), m.data_ptr(), l.data_ptr(), out.data_ptr(), acc.shape[0], out.numel() // d, d,
+            torch.cuda.current_stream().cuda_stream)
+    cuda_build.check(status, name)
+    attention_combine.launches += 1
+    return out
+
+
+attention_combine.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _num_sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _launch_sm90(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+                 stream: int, config: tuple[int, int] | None) -> torch.Tensor:
+    """csrc/flash_attention_sm90.cu at `config` (warpgroups, splits), by
+    default the `sm90_config` of the call. With key splits the same C call
+    launches the kernel into one fp32 scratch tensor (acc, then m, then l)
+    and the combine kernel from it."""
+    b, h, n, d = q.shape
+    nk = k.shape[2]
+    wgs, splits = config or sm90_config(b * h, n, nk, d, sm90_key_tile(d), _num_sms(q.device))
+    out = torch.empty_like(q)
+    parts = (None, None, None)
+    if splits > 1:
+        rows = splits * b * h * n
+        scratch = torch.empty(rows * (d + 2), dtype=torch.float32, device=q.device)
+        parts = (scratch.data_ptr(), scratch.data_ptr() + 4 * rows * d, scratch.data_ptr() + 4 * rows * (d + 1))
+    status = _entry("flash_attention_sm90", "flash_sm90_launch")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *parts, b * h, n, nk, d, wgs, splits, float(scale),
+        stream)
+    cuda_build.check(status, name)
+    if splits > 1:
+        attention_combine.launches += 1
+    return out
+
+
+def _launch(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+            kv_mask: torch.Tensor | None, dtypes, kernel: str | None = None,
+            config: tuple[int, int] | None = None) -> torch.Tensor:
+    """Launch the device program `attention_kernel` picks for the call (or
+    `kernel`): the sm90 kernel (at `config`, see `_launch_sm90`), or
+    csrc/flash_attention.cu's tile kernel (kv_mask None runs it unmasked) or
+    scalar fp32 kernel. Counts the launch in `launches_by_kernel`."""
     _check_qkv(name, q, k, v, dtypes)
     b, h, n, d = q.shape
     nk = k.shape[2]
+    kernel = kernel or attention_kernel(q.dtype, d, kv_mask is not None)
     kv_mask = _mask_bytes(name, kv_mask, b, nk, q.device)
-    mask_ptr = None if kv_mask is None else kv_mask.data_ptr()
-    fn = cuda_build.load("flash_attention").flash_attention_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    out = torch.empty_like(q)
+    qkv = (q.data_ptr(), k.data_ptr(), v.data_ptr())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, out.data_ptr(), b * h, h, n, nk, d,
-                    float(scale), _DTYPE_CODES[q.dtype], stream)
-    cuda_build.check(status, name)
+        if kernel == "sm90":
+            out = _launch_sm90(name, q, k, v, scale, stream, config)
+        elif kernel == "tile":
+            out = torch.empty_like(q)
+            cuda_build.check(_entry("flash_attention", "flash_tile_launch")(
+                *qkv, None if kv_mask is None else kv_mask.data_ptr(), out.data_ptr(), b * h, h, n, nk, d,
+                float(scale), stream), name)
+        else:
+            out = torch.empty_like(q)
+            cuda_build.check(_entry("flash_attention", "flash_f32_launch")(
+                *qkv, out.data_ptr(), b * h, n, nk, d, float(scale), stream), name)
+    launches_by_kernel[kernel] += 1
     return out
 
 
@@ -153,7 +336,7 @@ def flash_attention_k2(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale:
     run `dense_attention`."""
     if _on_cpu(q, k, v):
         return dense_attention(q, k, v, scale)
-    out = _launch("flash_attention_k2", q, k, v, scale, None, _DTYPE_CODES)
+    out = _launch("flash_attention_k2", q, k, v, scale, None, _DTYPES)
     d = q.shape[3]
     flash_attention_k2.launches += 1
     flash_attention_k2.launches_by_dim[d] = flash_attention_k2.launches_by_dim.get(d, 0) + 1
@@ -166,9 +349,9 @@ flash_attention_k2.launches_by_dim = {}  # the same launches, by head dim
 
 def flash_attention_k3(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
     """K3 wrapper: the streaming regime, bf16, d in {64, 72, 256}. On the
-    card it is K2's launch (one device program serves both TPU regimes),
-    counted apart so that the regime `flash_attention` picked stays
-    visible. CPU tensors run `dense_attention`."""
+    card it is K2's launch (one device program per head dim serves both TPU
+    regimes), counted apart so that the regime `flash_attention` picked
+    stays visible. CPU tensors run `dense_attention`."""
     if _on_cpu(q, k, v):
         return dense_attention(q, k, v, scale)
     out = _launch("flash_attention_k3", q, k, v, scale, None, (torch.bfloat16,))
@@ -194,6 +377,29 @@ def flash_attention_stream(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sc
 flash_attention_stream.launches = 0
 
 
+def flash_attention_tile(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+                         kv_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """The mma.sync tile kernel whatever the dispatch picks, bf16 at d 64,
+    72 or 256, kv_mask as for K4: the previous design of K2 and K3 at d 64
+    and 256, which chip_smoke.py and the card-only tests time and check
+    beside the sm90 kernel on the same inputs. CPU tensors run
+    `dense_attention_masked`."""
+    if _on_cpu(q, k, v):
+        return dense_attention_masked(q, k, v, scale, kv_mask)
+    return _launch("flash_attention_tile", q, k, v, scale, kv_mask, (torch.bfloat16,), kernel="tile")
+
+
+def flash_attention_sm90(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+                         config: tuple[int, int]) -> torch.Tensor:
+    """The sm90 kernel at `config` (warpgroups, key splits) whatever
+    `sm90_config` picks, unmasked bf16 at d 64 (1 or 3 warpgroups) or 256
+    (2): chip_smoke.py checks and times each configuration at the main
+    paths' shapes with it. CPU tensors run `dense_attention`."""
+    if _on_cpu(q, k, v):
+        return dense_attention(q, k, v, scale)
+    return _launch("flash_attention_sm90", q, k, v, scale, None, (torch.bfloat16,), kernel="sm90", config=config)
+
+
 def _round16(x: int) -> int:
     return max(16, -(-x // 16) * 16)
 
@@ -213,7 +419,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: fl
     """softmax(q·kᵀ·scale)·v through K2 or K3, with the JAX signature.
 
     single_budget None (the default) takes K2 for every shape: on the H100
-    both regimes are the same launch of one tile kernel, so the TPU's VMEM
+    both regimes are the same launch of one kernel, so the TPU's VMEM
     budget has nothing to choose. An integer budget applies the
     JAX rule, so `single_budget=0` selects K3. block_q, block_k and
     interpret are TPU tiling knobs and change nothing here."""
@@ -242,8 +448,6 @@ def flash_attention_bias(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scal
     bool (False = masked key). CPU tensors run `dense_attention_bias`.
     block_q, block_k and interpret are TPU tiling knobs and change nothing
     here."""
-    from freepose_tpu_torch.ops import cuda_build
-
     name = "flash_attention_bias"
     if _on_cpu(q, k, v, bias):
         return dense_attention_bias(q, k, v, scale, bias, kv_mask)
@@ -256,15 +460,12 @@ def flash_attention_bias(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scal
     if not bias.is_contiguous() or bias.data_ptr() % 16:
         raise ValueError(f"{name} takes a contiguous, 16-byte aligned bias")
     kv_mask = _mask_bytes(name, kv_mask, b, nk, q.device)
-    fn = cuda_build.load("flash_attention").flash_attention_bias_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-                    None if kv_mask is None else kv_mask.data_ptr(), out.data_ptr(), b * h, h, n, nk, d,
-                    float(scale), stream)
+        status = _entry("flash_attention", "flash_attention_bias_launch")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), None if kv_mask is None else kv_mask.data_ptr(),
+            out.data_ptr(), b * h, h, n, nk, d, float(scale), stream)
     cuda_build.check(status, name)
     flash_attention_bias.launches += 1
     return out

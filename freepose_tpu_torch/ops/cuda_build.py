@@ -27,6 +27,7 @@ BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo"
 EXTRA_FLAGS = {
     "raster_tile": ["--fmad=false"],
     "flash_attention": [],
+    "flash_attention_sm90": [],
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

@@ -2,7 +2,10 @@
 
 On the CPU the port's wrappers run their plain versions (`dense_attention`,
 `dense_attention_masked`); they are held against the JAX Pallas kernels in
-interpret mode and against the dense XLA path on the same numpy inputs.
+interpret mode and against the dense XLA path on the same numpy inputs. So
+is the plain version of the sm90 kernel's key split (`attention_partials`
+per key range, merged by `combine_partials`), and the dispatch rule and
+split rule of `_launch` are checked as the pure functions they are.
 
 Tolerances: fp32 atol 1e-5 (same arithmetic, summation order differs);
 bf16 atol 2e-2 (outputs of O(1) size rounded to bf16's 8-bit mantissa, and
@@ -18,12 +21,18 @@ import torch
 from freepose_tpu.ops.attention import dense_attention_masked as jax_dense
 from freepose_tpu.ops.attention import flash_attention as jax_flash
 from freepose_tpu.ops.attention import flash_attention_stream as jax_stream
-from freepose_tpu_torch.ops.attention import (dense_attention, dense_attention_bias, dense_attention_masked,
-                                              flash_attention, flash_attention_auto, flash_attention_bias,
-                                              flash_attention_bias_auto, flash_attention_k2, flash_attention_k3,
-                                              flash_attention_stream)
+from freepose_tpu_torch.ops.attention import (MIN_SPLIT_TILES, attention_combine, attention_kernel,
+                                              attention_partials, combine_partials, dense_attention,
+                                              dense_attention_bias, dense_attention_masked, flash_attention,
+                                              flash_attention_auto, flash_attention_bias, flash_attention_bias_auto,
+                                              flash_attention_k2, flash_attention_k3, flash_attention_stream,
+                                              flash_attention_sm90, flash_attention_tile, launches_by_kernel,
+                                              sm90_config)
 
 SCALE = 64**-0.5
+# Keys per tile of the sm90 kernel (`Sm90::BK`; on the card `sm90_key_tile` reads
+# them from the library), which the split rule's expectations below assume.
+KEY_TILE = {64: 128, 256: 64}
 
 
 def _qkv(n, b=2, h=3, d=64, seed=0, nk=None):
@@ -67,6 +76,86 @@ def test_wrapper_refuses_tensors_off_cpu_and_cuda():
     q = torch.empty((1, 1, 8, 64), device="meta")
     with pytest.raises(ValueError):
         flash_attention(q, q, q, SCALE)
+
+
+@pytest.mark.parametrize("dtype,tol", [(np.float32, 1e-5), (jnp.bfloat16, 2e-2)])
+@pytest.mark.parametrize("splits", [1, 2, 3, 4])
+def test_split_partials_combine_to_jax_streaming(splits, dtype, tol):
+    """The plain version of the sm90 kernel's key split: (m, l, acc) of each
+    of 1-4 uneven key ranges (`attention_partials`), merged by
+    `combine_partials`, give the JAX streaming kernel's output
+    (`single_budget=0`, interpret mode) on the same numpy inputs, and the
+    combine wrapper on CPU tensors is that plain version."""
+    q, k, v = _qkv(40, b=1, h=2, d=64, seed=12, nk=300)
+    jq, jk, jv = (jnp.asarray(x, dtype) for x in (q, k, v))
+    tdtype = torch.float32 if dtype == np.float32 else torch.bfloat16
+    tq, tk, tv = (torch.as_tensor(np.array(x.astype(jnp.float32))).to(tdtype) for x in (jq, jk, jv))
+    bounds = [0, *sorted(np.random.default_rng(splits).choice(np.arange(1, 300), splits - 1, replace=False)), 300]
+    parts = [attention_partials(tq, tk[:, :, a:b], tv[:, :, a:b], SCALE) for a, b in zip(bounds, bounds[1:])]
+    m, l, acc = (torch.stack(x) for x in zip(*parts))
+    ours = combine_partials(m, l, acc, tdtype)
+    ref = np.asarray(jax_flash(jq, jk, jv, SCALE, block_k=128, single_budget=0, interpret=True).astype(jnp.float32))
+    np.testing.assert_allclose(ours.float().numpy(), ref, atol=tol)
+    before = attention_combine.launches
+    torch.testing.assert_close(attention_combine(m, l, acc, tdtype), ours, rtol=0, atol=0)
+    assert attention_combine.launches == before
+
+
+@pytest.mark.parametrize("dtype,d,masked,kernel", [
+    (torch.bfloat16, 64, False, "sm90"), (torch.bfloat16, 256, False, "sm90"),
+    (torch.bfloat16, 72, False, "tile"), (torch.bfloat16, 64, True, "tile"),
+    (torch.bfloat16, 72, True, "tile"), (torch.bfloat16, 256, True, "tile"),
+    (torch.float32, 64, False, "f32"),
+])
+def test_dispatch_rule(dtype, d, masked, kernel):
+    """Unmasked bf16 K2/K3 at d 64 and 256 go to the wgmma + TMA kernel; d 72
+    and every masked call (K4) to the tile kernel; fp32 to its own."""
+    assert attention_kernel(dtype, d, masked) == kernel
+
+
+@pytest.mark.parametrize("bh,n,nk,d,config", [
+    (128 * 16, 905, 905, 64, (3, 1)),  # the template pack's ViT batch: 78 waves of 192-row blocks vs 117
+    (8 * 16, 905, 905, 64, (3, 1)),  # 8 crops: 5 waves vs 8
+    (4 * 16, 905, 905, 64, (1, 1)),  # a frame of 4 proposals: 3 waves of 192-row blocks vs 4 of 64-row
+    (2 * 16, 905, 905, 64, (1, 1)),  # 2 retrieval crops: 480 blocks of 64 rows, 2 per SM
+    (1 * 16, 905, 905, 64, (1, 1)),  # 1 crop: 240 blocks; 8 key tiles leave nothing to split
+    (2, 4096, 4096, 256, (2, 2)),  # memory self-attention: 64 blocks of 128 rows -> 2 splits
+    (1, 4096, 6144, 256, (2, 4)),  # K3's shape: 32 blocks -> 4 splits of 24 key tiles
+])
+def test_sm90_config_at_the_main_path_shapes(bh, n, nk, d, config):
+    assert sm90_config(bh, n, nk, d, KEY_TILE[d]) == config
+
+
+def test_sm90_config_splits_are_whole_and_never_empty():
+    """Over many shapes: every split the rule picks gets at least
+    MIN_SPLIT_TILES key tiles, and the split only comes with a grid short of
+    a wave."""
+    rng = np.random.default_rng(13)
+    for _ in range(500):
+        d = int(rng.choice([64, 256]))
+        bh, n, nk = int(rng.integers(1, 40)), int(rng.integers(1, 5000)), int(rng.integers(1, 40000))
+        wgs, splits = sm90_config(bh, n, nk, d, KEY_TILE[d])
+        tiles = -(-nk // KEY_TILE[d])
+        per = -(-tiles // splits)
+        assert wgs in ((1, 3) if d == 64 else (2,))
+        assert (splits - 1) * per < tiles and (splits == 1 or per >= MIN_SPLIT_TILES)
+        assert splits == 1 or bh * -(-n // (64 * wgs)) < 132 * (2 if wgs == 1 else 1)
+
+
+def test_tile_wrapper_and_launch_counts_on_cpu():
+    """The previous design's wrapper and the sm90 kernel's at a forced
+    configuration run the plain versions on CPU tensors, and nothing counts
+    a launch."""
+    q, k, v = map(torch.as_tensor, _qkv(20, b=2, h=2, seed=14, nk=33))
+    mask = torch.ones((2, 33), dtype=torch.bool)
+    mask[0, 5:9] = False
+    before = dict(launches_by_kernel)
+    torch.testing.assert_close(flash_attention_tile(q, k, v, SCALE, kv_mask=mask),
+                               dense_attention_masked(q, k, v, SCALE, mask), rtol=0, atol=0)
+    torch.testing.assert_close(flash_attention_sm90(q, k, v, SCALE, (3, 1)), dense_attention(q, k, v, SCALE),
+                               rtol=0, atol=0)
+    flash_attention(q, k, v, SCALE, single_budget=0)
+    assert launches_by_kernel == before
 
 
 

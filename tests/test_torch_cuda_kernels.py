@@ -17,16 +17,23 @@ V exactly in fp32 before the bf16 rounding, to 1e-4 + 1e-2·|ref|; K2 and
 K5 in fp32 atol/rtol 1e-5 (the same fp32 function summed in another order).
 K1 runs the plain version's fp32 operations in the same order (built
 without FMA contraction): hit masks identical, depth and rgb to atol 1e-6.
+The combine of the sm90 kernel's key splits against its plain version on the
+same fp32 partials: 2^-6·|ref| + 1e-6, two bf16 steps (the same sums in
+another order, each rounded to bf16 once, so at most one step apart).
 """
 import numpy as np
 import pytest
 import torch
 
+from chip_smoke import reads_next_head  # the stand-in of a kernel that reads the next head's rows
 from freepose_tpu_torch.geometry.rotation import template_poses
 from freepose_tpu_torch.io.mesh import TriMesh, pad_mesh
-from freepose_tpu_torch.ops.attention import (bf16_error_bound, dense_attention, dense_attention_bias,
+from freepose_tpu_torch.ops.attention import (attention_combine, attention_partials, bf16_error_bound,
+                                              combine_partials, dense_attention, dense_attention_bias,
                                               dense_attention_masked, flash_attention, flash_attention_bias,
-                                              flash_attention_k2, flash_attention_k3, flash_attention_stream)
+                                              flash_attention_k2, flash_attention_k3, flash_attention_stream,
+                                              flash_attention_sm90, flash_attention_tile, launches_by_kernel,
+                                              sm90_config, sm90_key_tile)
 from freepose_tpu_torch.ops.rasterizer import RasterSettings, rasterize
 from freepose_tpu_torch.ops.rasterizer_cuda import _bin_and_pack, raster_tile, raster_tile_plain
 
@@ -80,10 +87,11 @@ def test_k2_head_dims_match_plain(cuda, d, n, nk):
     head dims, at their 4096-token shape and at ragged lengths."""
     b, h = (1, 8) if d == 72 else (2, 1)
     q, k, v = (torch.as_tensor(x, device=cuda).to(torch.bfloat16) for x in _qkv(n, b, h, d, nk=nk))
-    before = flash_attention_k2.launches
+    before, design = flash_attention_k2.launches, "tile" if d == 72 else "sm90"
+    by_kernel = launches_by_kernel[design]
     out = flash_attention_k2(q, k, v, d**-0.5)
     torch.cuda.synchronize()
-    assert flash_attention_k2.launches == before + 1
+    assert flash_attention_k2.launches == before + 1 and launches_by_kernel[design] == by_kernel + 1
     ref = dense_attention(q, k, v, d**-0.5)
     assert _within_bound(out, ref, q, k, v, d**-0.5)
 
@@ -114,10 +122,10 @@ def test_k4_matches_plain(cuda, d):
     nk = 3 * 4096 + 64 + 5
     q, k, v = (torch.as_tensor(x, device=cuda).to(torch.bfloat16) for x in _qkv(200, 2, 2, d, nk=nk))
     mask = _slot_mask(2, nk, cuda)
-    before = flash_attention_stream.launches
+    before, tile = flash_attention_stream.launches, launches_by_kernel["tile"]
     out = flash_attention_stream(q, k, v, d**-0.5, kv_mask=mask)
     torch.cuda.synchronize()
-    assert flash_attention_stream.launches == before + 1
+    assert flash_attention_stream.launches == before + 1 and launches_by_kernel["tile"] == tile + 1
     ref = dense_attention_masked(q, k, v, d**-0.5, mask)
     assert _within_bound(out, ref, q, k, v, d**-0.5, mask)
     uniform = v[1].float().mean(dim=1, keepdim=True).expand(-1, 200, -1)
@@ -142,6 +150,91 @@ def test_k4_at_the_memory_cross_attention_shape(cuda):
     no_slot[0, 4096:2 * 4096] = False
     for wrong in (no_pointers, no_slot):
         assert not _within_bound(dense_attention_masked(q, k, v, 1 / 16, wrong), ref, q, k, v, 1 / 16, mask)
+
+
+@pytest.mark.parametrize("d", [64, 256])
+@pytest.mark.parametrize("n", [905, 37, 64, 4096])
+def test_sm90_matches_plain(cuda, d, n):
+    """The wgmma + TMA kernel through K2 (n = nk), and the previous design
+    (the tile kernel) on the same inputs; the launch is counted as sm90."""
+    b, h = (2, 4) if d == 64 else (2, 1)
+    q, k, v = (torch.as_tensor(x, device=cuda).to(torch.bfloat16) for x in _qkv(n, b, h, d))
+    before = dict(launches_by_kernel)
+    out = flash_attention_k2(q, k, v, d**-0.5)
+    torch.cuda.synchronize()
+    assert launches_by_kernel["sm90"] == before["sm90"] + 1 and launches_by_kernel["tile"] == before["tile"]
+    ref = dense_attention(q, k, v, d**-0.5)
+    assert out.shape == q.shape and _within_bound(out, ref, q, k, v, d**-0.5)
+    assert _within_bound(flash_attention_tile(q, k, v, d**-0.5), ref, q, k, v, d**-0.5)
+
+
+@pytest.mark.parametrize("config", [(1, 1), (3, 1)])
+@pytest.mark.parametrize("b", [1, 2, 4])
+def test_sm90_d64_builds_at_the_crop_batches(cuda, config, b):
+    """Each d 64 build (64-row or 192-row blocks) at the paths' crop batches
+    [b, 16, 905, 64], whichever the split rule picks there: 8 key tiles wrap
+    the 3-stage ring."""
+    q, k, v = (torch.as_tensor(x, device=cuda).to(torch.bfloat16) for x in _qkv(905, b, 16))
+    out = flash_attention_sm90(q, k, v, SCALE, config)
+    torch.cuda.synchronize()
+    assert _within_bound(out, dense_attention(q, k, v, SCALE), q, k, v, SCALE)
+
+
+@pytest.mark.parametrize("d", [64, 256])
+def test_sm90_ragged_key_count(cuda, d):
+    """nk no multiple of the key tile (the zero-filled keys of the last tile
+    must take -inf), with n != nk."""
+    nk = 5 * sm90_key_tile(d) + 7
+    q, k, v = (torch.as_tensor(x, device=cuda).to(torch.bfloat16) for x in _qkv(300, 2, 2, d, nk=nk))
+    out = flash_attention_k2(q, k, v, d**-0.5)
+    torch.cuda.synchronize()
+    assert _within_bound(out, dense_attention(q, k, v, d**-0.5), q, k, v, d**-0.5)
+
+
+@pytest.mark.parametrize("d", [64, 256])
+def test_sm90_heads_do_not_read_each_other(cuda, d):
+    """Several heads with a ragged n = nk, each head's K and V offset (V by 8
+    per head), so that reading the next head's rows into a ragged tile would
+    break the bound: the kernel stays within it, the stand-in of such a
+    kernel does not."""
+    b, h, n = 2, 3, 3 * sm90_key_tile(d) + 29
+    q, k, v = (torch.as_tensor(x, device=cuda) for x in _qkv(n, b, h, d, seed=9))
+    offset = torch.arange(b * h, device=cuda, dtype=torch.float32).reshape(b, h, 1, 1)
+    q, k, v = q.bfloat16(), (k + 0.5 * offset).bfloat16(), (v + 8.0 * offset).bfloat16()
+    out = flash_attention_k2(q, k, v, d**-0.5)
+    torch.cuda.synchronize()
+    ref = dense_attention(q, k, v, d**-0.5)
+    assert _within_bound(out, ref, q, k, v, d**-0.5)
+    assert not _within_bound(reads_next_head(q, k, v, d**-0.5, sm90_key_tile(d)), ref, q, k, v, d**-0.5)
+
+
+def test_sm90_k3_shape_with_its_key_split(cuda):
+    """K3 at [1, 1, 4096, 256] x 6,144 keys: 4 key splits merged by the
+    combine kernel."""
+    q, k, v = (torch.as_tensor(x, device=cuda).to(torch.bfloat16) for x in _qkv(4096, 1, 1, 256, nk=6144))
+    assert sm90_config(1, 4096, 6144, 256, sm90_key_tile(256)) == (2, 4)
+    before = (flash_attention_k3.launches, launches_by_kernel["sm90"], attention_combine.launches)
+    out = flash_attention(q, k, v, 1 / 16, single_budget=0)
+    torch.cuda.synchronize()
+    assert (flash_attention_k3.launches, launches_by_kernel["sm90"], attention_combine.launches) == \
+        tuple(x + 1 for x in before)
+    assert _within_bound(out, dense_attention(q, k, v, 1 / 16), q, k, v, 1 / 16)
+
+
+def test_combine_kernel_matches_plain(cuda):
+    """The combine kernel against combine_partials on the same fp32 partials
+    of 3 key ranges at d 256; dropping a split breaks the tolerance."""
+    q, k, v = (torch.as_tensor(x, device=cuda).to(torch.bfloat16) for x in _qkv(333, 2, 1, 256, nk=1000))
+    parts = [attention_partials(q, k[:, :, a:a + 384], v[:, :, a:a + 384], 1 / 16) for a in (0, 384, 768)]
+    m, l, acc = (torch.stack(x) for x in zip(*parts))
+    before = attention_combine.launches
+    out = attention_combine(m, l, acc)
+    torch.cuda.synchronize()
+    assert attention_combine.launches == before + 1 and out.dtype == torch.bfloat16
+    ref = combine_partials(m, l, acc)
+    allowed = 2.0**-6 * ref.float().abs() + 1e-6
+    assert bool(((out.float() - ref.float()).abs() <= allowed).all())
+    assert not bool(((combine_partials(m[1:], l[1:], acc[1:]).float() - ref.float()).abs() <= allowed).all())
 
 
 def test_k2_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
