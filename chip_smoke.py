@@ -22,16 +22,23 @@ Phases, one line each on stdout:
              and SAM2 memory self-attention [2, 1, 4096, 256]; K3 (the
              streaming regime, no mask) at [1, 1, 4096, 256] x 6,144 keys; K4
              at the memory cross-attention [2, 1, 4096, 256] x 28,736 keys
-             with whole memory slots masked; kernel, plain and SDPA times
-             (SDPA with attn_mask for K4). K2 d 256 and K3 run the wgmma +
-             TMA kernel (K3 with its key split and the combine kernel, which
-             is held against its plain version on the same partials), with
-             the previous design's time beside it (prev_ms). Every attention
-             check also shows that its tolerance fails the plain version of a
-             kernel that drops keys (the last 64; for K4 the object pointers,
-             or one memory slot); K2 and K3 checks on a ragged key count also
-             fail a kernel that reads the next head's K/V rows into the
-             ragged tile (what a 2-D tensor map would do);
+             with whole memory slots masked. All four run the wgmma + TMA
+             kernel (K2 d 256, K3 and K4 with their key splits and the
+             combine kernel, which is held against its plain version on the
+             same partials); kernel, plain and SDPA times (SDPA with
+             attn_mask for K4), the previous design (the tile kernel) checked
+             and timed on the same inputs in turns with it (prev_ms), and at
+             d 72 its three block sizes and for K4 1-8 key splits checked
+             and timed (configs). Every attention check also shows that its
+             tolerance fails the plain version of a kernel that drops keys
+             (the last 64; for K4 the object pointers, or one memory slot);
+             checks on a ragged key count also fail a kernel that reads the
+             next head's K/V rows into the ragged tile (what a 2-D tensor map
+             would do). K4 adds ragged mask runs (which also fail a kernel
+             that skips partially masked tiles), a batch element with every
+             key masked (the uniform mean of its V; a kernel that writes 0
+             there fails), its list kernel against key_tile_list (identical)
+             and the key tiles it processes at the smoke's mask;
   4. k5      the biased fp32 attention kernel against its plain version at
              the ZoeD_N shape [1, 16, 577, 64] and [2, 16, 577, 64] (the bias
              [16, 577, 577] shared across the batch), each with and without a
@@ -130,6 +137,16 @@ DROPPED_KEYS = 64  # keys a wrong kernel drops in the tolerance's own check
 # The d 64 builds of the sm90 kernel, (warpgroups, key splits): 64-row blocks
 # two per SM, and 192-row blocks one per SM.
 SM90_D64_CONFIGS = ((1, 1), (3, 1))
+# The d 72 builds (the same two block sizes) at the Hiera-L global shape, and
+# K4's key-split counts at the memory cross-attention shape, each checked
+# and timed: the measurements the warpgroup and split rules rest on.
+SM90_D72_CONFIGS = ((1, 1), (2, 1), (3, 1), (3, 3))
+K4_CONFIGS = ((2, 1), (2, 2), (2, 3), (2, 4), (2, 6), (2, 8))
+# K4 on a batch element whose keys are all masked against the uniform mean
+# of its V in fp32: p is exactly 1 for every key, so only the fp32 sum's
+# order and the output's bf16 rounding (2^-8·|ref|) differ; a kernel that
+# skips every tile of that element writes 0 and fails it.
+UNIFORM_TOL = "2^-7·|ref| + 1e-5"
 # The combine kernel against its plain version on the same fp32 partials:
 # the same fp32 sums (in another order, with another exp) each rounded to
 # bf16 once, so one bf16 step apart where they straddle a rounding boundary;
@@ -219,7 +236,7 @@ def reset_launches() -> None:
 
     raster_tile.launches = attention.flash_attention_k3.launches = attention.flash_attention_stream.launches = 0
     attention.flash_attention_k2.launches = attention.flash_attention_bias.launches = 0
-    attention.attention_combine.launches = 0
+    attention.attention_combine.launches = attention.key_tiles.launches = 0
     attention.flash_attention_k2.launches_by_dim = {}
     for kernel in attention.launches_by_kernel:
         attention.launches_by_kernel[kernel] = 0
@@ -229,13 +246,14 @@ def read_launches() -> dict:
     """Every kernel wrapper's launch count, K2 also by head dim, and the
     attention launches by device program (`launches_by_kernel`: "sm90" the
     wgmma + TMA kernel, "tile" the mma.sync tile kernel, "f32" the fp32
-    one)."""
+    one); "key_tiles" counts K4's list kernel."""
     from freepose_tpu_torch.ops import attention
     from freepose_tpu_torch.ops.rasterizer_cuda import raster_tile
 
     return {"K1": raster_tile.launches, "K2": attention.flash_attention_k2.launches,
             "K3": attention.flash_attention_k3.launches, "K4": attention.flash_attention_stream.launches,
             "K5": attention.flash_attention_bias.launches, "combine": attention.attention_combine.launches,
+            "key_tiles": attention.key_tiles.launches,
             "K2_by_dim": {str(d): n for d, n in sorted(attention.flash_attention_k2.launches_by_dim.items())},
             "launches_by_kernel": dict(attention.launches_by_kernel)}
 
@@ -331,11 +349,13 @@ def phase_build() -> None:
     log("build", seconds=secs, ptxas=ptxas)
 
 
-def reads_next_head(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, key_tile: int) -> torch.Tensor:
+def reads_next_head(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, key_tile: int,
+                    kv_mask: torch.Tensor | None = None) -> torch.Tensor:
     """Plain stand-in of a wrong kernel that loads K and V through a 2-D map
     [bh·nk, d] and leaves the keys past nk unmasked: each head's ragged last
-    key tile holds the next head's first rows (zeros after the last head)."""
-    from freepose_tpu_torch.ops.attention import dense_attention
+    key tile holds the next head's first rows (zeros after the last head),
+    which a key mask [B, nk], if any, leaves valid."""
+    from freepose_tpu_torch.ops.attention import dense_attention_masked
 
     b, h, nk, d = k.shape
     pad = -nk % key_tile
@@ -345,7 +365,23 @@ def reads_next_head(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: fl
         flat = torch.cat([x.reshape(b * h * nk, d), x.new_zeros((pad, d))])
         return flat[rows].reshape(b, h, nk + pad, d)
 
-    return dense_attention(q, window(k), window(v), scale)
+    if kv_mask is not None:
+        kv_mask = torch.cat([kv_mask, kv_mask.new_ones((b, pad))], dim=1)
+    return dense_attention_masked(q, window(k), window(v), scale, kv_mask)
+
+
+def drops_partial_tiles(kv_mask: torch.Tensor, key_tile: int) -> torch.Tensor:
+    """The key mask a wrong K4 would apply if it skipped every partially
+    masked key tile as empty: kv_mask with every key of those tiles masked
+    (the tiles `key_tile_list` flags)."""
+    from freepose_tpu_torch.ops.attention import key_tile_list
+
+    _, order, flags = key_tile_list(kv_mask, key_tile)
+    b, nk = kv_mask.shape
+    tiles = order.shape[1]
+    partial = torch.zeros((b, tiles + 1), dtype=torch.bool, device=kv_mask.device)
+    partial.scatter_(1, torch.where(flags.bool(), order.long(), tiles), True)  # unflagged -> the spare column
+    return kv_mask & ~partial[:, :tiles].repeat_interleave(key_tile, dim=1)[:, :nk]
 
 
 def in_turns(new, prev, reps: int) -> tuple[float, float]:
@@ -478,17 +514,92 @@ def check_combine(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: floa
     return check, rec
 
 
+def check_k4_extra(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, mask: torch.Tensor,
+                   randn) -> tuple[dict, dict]:
+    """K4's own checks beyond the smoke mask's: ragged mask runs with a
+    ragged nk (against stand-ins that read the next head's rows or skip
+    partially masked tiles), a batch element with every key masked (against
+    one that writes 0 for it), the list kernel against key_tile_list at the
+    smoke's, the ragged and the all-masked mask (identical), and the tiles
+    the smoke mask leaves. Returns (checks, record of the list kernel for the
+    kernels line)."""
+    from freepose_tpu_torch.ops.attention import (bf16_error_bound, dense_attention_masked, flash_attention_stream,
+                                                  key_tile_list, key_tiles, sm90_key_tile)
+
+    b, h, n, d = q.shape
+    nk, key_tile = k.shape[2], sm90_key_tile(d)
+    checks = {}
+    # Ragged runs: valid keys that start and end inside key tiles (at 28,736
+    # keys: from 37, 4,109, 9,580 and 19,157 on, a hole at 25,144), nk - 27
+    # keys.
+    rnk = nk - 27
+    rmask = torch.zeros((b, rnk), dtype=torch.bool, device=q.device)
+    for e in range(b):
+        for a, z in ((37 + 5 * e, nk // 7 + 4), (nk // 3 + 2, nk // 3 + 4), (2 * nk // 3 + 13 * e, rnk - 5)):
+            rmask[e, a:z] = True
+        rmask[e, 7 * nk // 8:7 * nk // 8 + 50] = False
+    rk, rv = randn(b, h, rnk, d), randn(b, h, rnk, d)
+    rref = dense_attention_masked(q, rk, rv, scale, rmask)
+    checks["ragged_runs"] = check_attention(
+        flash_attention_stream(q, rk, rv, scale, kv_mask=rmask), rref, bf16_error_bound(q, rk, rv, scale, rref, rmask),
+        {"reads_next_head": reads_next_head(q, rk, rv, scale, key_tile, rmask),
+         "drops_partial_tiles": dense_attention_masked(q, rk, rv, scale, drops_partial_tiles(rmask, key_tile))})
+    checks["ragged_runs"]["partial_tiles"] = int(key_tile_list(rmask, key_tile)[2].sum())
+    del rk, rv, rref
+    # Batch element 1 with every key masked: the uniform mean of its V.
+    amask = mask.clone()
+    amask[1] = False
+    out = flash_attention_stream(q, k, v, scale, kv_mask=amask)
+    ref0 = dense_attention_masked(q[:1], k[:1], v[:1], scale, amask[:1])
+    uniform = v[1].float().mean(dim=1, keepdim=True).expand(-1, n, -1)
+    allowed = 2.0 ** -7 * uniform.abs() + 1e-5
+
+    def ratio(x):
+        return float(((x.float() - uniform).abs() / allowed).max())
+
+    am = checks["all_masked"] = {"other_element": check_attention(out[:1], ref0, bf16_error_bound(
+        q[:1], k[:1], v[:1], scale, ref0, amask[:1]), {}), "max_abs_err": float((out[1].float() - uniform).abs().max()),
+        "tol_ratio": ratio(out[1]), "zeroed_tol_ratio": ratio(torch.zeros_like(uniform)), "tol": UNIFORM_TOL}
+    if am["tol_ratio"] > 1.0 or am["zeroed_tol_ratio"] <= 1.0:
+        raise AssertionError(f"K4 on an all-masked batch element vs the uniform mean, tolerance {UNIFORM_TOL}: {am}")
+    del out, ref0, uniform, allowed
+    # The list kernel against its plain version, at each mask.
+    lists = {}
+    for name, m in (("smoke", mask), ("ragged_runs", rmask), ("all_masked", amask)):
+        ours, plain = key_tiles(m, key_tile), key_tile_list(m, key_tile)
+        same = all(x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(ours, plain))
+        lists[name] = {"identical": same, "listed": ours[0].tolist(), "flagged": int(ours[2].sum())}
+        if not same:
+            raise AssertionError(f"list kernel vs key_tile_list at the {name} mask: {ours} vs {plain}")
+    checks["key_tiles"] = lists
+    tiles = -(-nk // key_tile)
+    checks["valid_tiles"] = {"processed": sum(lists["smoke"]["listed"]), "of": b * tiles}
+    ms = cuda_ms(lambda: key_tiles(mask, key_tile), reps=20)
+    plain_ms = cuda_ms(lambda: key_tile_list(mask, key_tile), reps=5)
+    # The mask read once, the count, list and flags written once; one
+    # comparison per mask byte.
+    bound_ms, bound_by = bound(float(mask.numel()), mask.numel() + 4 * b + 5 * b * tiles, PEAK_FP32_FLOPS)
+    checks["key_tiles"].update(ms=ms, device_ms=device_ms(lambda: key_tiles(mask, key_tile)), plain_ms=plain_ms,
+                               bound_ms=bound_ms)
+    rec = dict(name="key_tiles (K4's list of key tiles holding a valid key)", route="cuda", source=SM90_SOURCE,
+               replaces="freepose_tpu/ops/attention.py:250", max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+               bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    return checks, rec
+
+
 def phase_stream_kernels(dev) -> dict:
     """K2 at the video path's head dims, K3 and K4, each against its plain
-    version and timed beside it and beside SDPA; K2 d 256 and K3 (the wgmma +
-    TMA kernel) also beside the previous design, on a ragged key count
-    against a kernel that reads the next head's rows, and K3's combine
-    against its plain version. Returns {kernel: record}."""
+    version and timed beside it, beside the previous design (the tile
+    kernel, on the same inputs) and beside SDPA, with the warpgroup and
+    split configurations the rules choose from; each on a ragged key count
+    against a kernel that reads the next head's rows; K3's combine and K4's
+    list kernel against their plain versions. Returns {kernel: record}."""
     import torch.nn.functional as F
 
     from freepose_tpu_torch.ops.attention import (bf16_error_bound, dense_attention, dense_attention_masked,
-                                                  flash_attention_k2, flash_attention_k3, flash_attention_stream,
-                                                  flash_attention_tile, sm90_config, sm90_key_tile)
+                                                  flash_attention_k2, flash_attention_k3, flash_attention_sm90,
+                                                  flash_attention_stream, flash_attention_tile, sm90_config,
+                                                  sm90_key_tile)
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
 
@@ -509,18 +620,18 @@ def phase_stream_kernels(dev) -> dict:
     no_pointers[:, n_slots * hw:] = False
     no_slot[0, hw:2 * hw] = False
     cases = {
-        "K2_d72": dict(q=(1, 8, hw, 72), nk=hw, kernel=flash_attention_k2, mask=None,
+        "K2_d72": dict(q=(1, 8, hw, 72), nk=hw, kernel=flash_attention_k2, mask=None, configs=SM90_D72_CONFIGS,
                        name="K2 flash_attention_k2 (whole-K/V attention), d 72",
-                       source=TILE_SOURCE, replaces="freepose_tpu/ops/attention.py:75"),
-        "K2_d256": dict(q=(2, 1, hw, 256), nk=hw, kernel=flash_attention_k2, mask=None,
+                       replaces="freepose_tpu/ops/attention.py:75"),
+        "K2_d256": dict(q=(2, 1, hw, 256), nk=hw, kernel=flash_attention_k2, mask=None, configs=(),
                         name="K2 flash_attention_k2 (whole-K/V attention), d 256",
-                        source=SM90_SOURCE, replaces="freepose_tpu/ops/attention.py:75"),
-        "K3": dict(q=(1, 1, hw, 256), nk=6144, kernel=flash_attention_k3, mask=None,
+                        replaces="freepose_tpu/ops/attention.py:75"),
+        "K3": dict(q=(1, 1, hw, 256), nk=6144, kernel=flash_attention_k3, mask=None, configs=(),
                    name="K3 flash_attention_k3 (streaming attention, no mask)",
-                   source=SM90_SOURCE, replaces="freepose_tpu/ops/attention.py:30"),
-        "K4": dict(q=(2, 1, hw, 256), nk=nk_mem, kernel=flash_attention_stream, mask=mask,
+                   replaces="freepose_tpu/ops/attention.py:30"),
+        "K4": dict(q=(2, 1, hw, 256), nk=nk_mem, kernel=flash_attention_stream, mask=mask, configs=K4_CONFIGS,
                    name="K4 flash_attention_stream (streaming attention, per-batch key mask)",
-                   source=TILE_SOURCE, replaces="freepose_tpu/ops/attention.py:208"),
+                   replaces="freepose_tpu/ops/attention.py:208"),
     }
     recs = {}
     for label, c in cases.items():
@@ -528,9 +639,13 @@ def phase_stream_kernels(dev) -> dict:
         q, k, v = randn(b, h, n, d, std=QUERY_STD), randn(b, h, c["nk"], d), randn(b, h, c["nk"], d)
         scale = d ** -0.5
         m = c["mask"]
+        key_tile = sm90_key_tile(d)
         if m is None:
             def run():
                 return c["kernel"](q, k, v, scale)
+
+            def prev():
+                return flash_attention_tile(q, k, v, scale)
 
             def plain():
                 return dense_attention(q, k, v, scale)
@@ -540,6 +655,9 @@ def phase_stream_kernels(dev) -> dict:
         else:
             def run():
                 return c["kernel"](q, k, v, scale, kv_mask=m)
+
+            def prev():
+                return flash_attention_tile(q, k, v, scale, kv_mask=m)
 
             def plain():
                 return dense_attention_masked(q, k, v, scale, m)
@@ -558,26 +676,35 @@ def phase_stream_kernels(dev) -> dict:
         allowed = bf16_error_bound(q, k, v, scale, ref, m)
         check = check_attention(out, ref, allowed, wrong)
         err = check["max_abs_err"]
+        check["prev"] = check_attention(prev(), ref, allowed, {})  # the previous design, on the same inputs
         extra = {}
-        sm90 = c["source"] == SM90_SOURCE
-        if sm90:  # the previous design, on the same inputs
-            check["prev"] = check_attention(flash_attention_tile(q, k, v, scale), ref, allowed, {})
+        extra["warpgroups"], extra["splits"] = sm90_config(b * h, n, c["nk"], d, key_tile, masked=m is not None)
+        if c["configs"]:
+            # Each configuration the rules choose from, held to the same bound
+            # and timed on the device.
+            extra["configs"] = {}
+            for config in c["configs"]:
+                def forced(config=config):
+                    return flash_attention_sm90(q, k, v, scale, config, kv_mask=m)
+
+                extra["configs"][f"{config[0]}wg_{config[1]}split"] = {
+                    "tol_ratio": check_attention(forced(), ref, allowed, {})["tol_ratio"],
+                    "device_ms": device_ms(forced)}
         del out, ref, wrong, allowed
-        if sm90:
-            extra["warpgroups"], extra["splits"] = sm90_config(b * h, n, c["nk"], d, sm90_key_tile(d))
-            ms, extra["prev_ms"] = in_turns(run, lambda: flash_attention_tile(q, k, v, scale), 10)
-            extra["device"] = {"ms": device_ms(run), "prev_ms": device_ms(lambda: flash_attention_tile(q, k, v, scale)),
-                               "sdpa_ms": device_ms(library)}
+        ms, extra["prev_ms"] = in_turns(run, prev, 10)
+        extra["device"] = {"ms": device_ms(run), "prev_ms": device_ms(prev), "sdpa_ms": device_ms(library)}
+        if m is None:
             # A ragged key count over two heads: the tolerance fails a kernel
             # that fills the ragged tile with the next head's rows.
             rq, rk, rv = randn(2, h, n, d, std=QUERY_STD), randn(2, h, c["nk"] - 27, d), randn(2, h, c["nk"] - 27, d)
             rref = dense_attention(rq, rk, rv, scale)
             check["ragged_keys"] = check_attention(
                 c["kernel"](rq, rk, rv, scale), rref, bf16_error_bound(rq, rk, rv, scale, rref),
-                {"reads_next_head": reads_next_head(rq, rk, rv, scale, sm90_key_tile(d))})
+                {"reads_next_head": reads_next_head(rq, rk, rv, scale, key_tile)})
             del rq, rk, rv, rref
         else:
-            ms = cuda_ms(run, reps=10)
+            k4_checks, recs["key_tiles"] = check_k4_extra(q, k, v, scale, m, randn)
+            check.update(k4_checks)
         plain_ms = cuda_ms(plain, reps=2)
         library_ms = cuda_ms(library, reps=10)
         if label == "K3":  # the other regime on the same inputs: what flash_attention's dispatch weighs
@@ -589,12 +716,12 @@ def phase_stream_kernels(dev) -> dict:
         flops = 4.0 * n * d * valid_keys
         nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel()) + (m.numel() if m is not None else 0)
         bound_ms, bound_by = bound(flops, nbytes)
-        recs[label] = dict(name=c["name"], route="cuda", source=c["source"], replaces=c["replaces"],
+        recs[label] = dict(name=c["name"], route="cuda", source=SM90_SOURCE, replaces=c["replaces"],
                            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                            library_ms=library_ms)
         log(label.lower(), q=list(c["q"]), nk=c["nk"], masked_keys=int((~m).sum()) if m is not None else 0,
-            dtype="bf16", check=check, tol=ATTN_TOL, ms=ms, plain_ms=plain_ms, sdpa_ms=library_ms,
-            bound_ms=bound_ms, bound_by=bound_by, tflops=flops / ms / 1e9, **extra)
+            dtype="bf16", source=SM90_SOURCE, check=check, tol=ATTN_TOL, ms=ms, plain_ms=plain_ms,
+            sdpa_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, tflops=flops / ms / 1e9, **extra)
         del q, k, v
         torch.cuda.empty_cache()
     return recs
@@ -647,7 +774,7 @@ def phase_k5(dev) -> dict:
     nbytes = 4 * (4 * q.numel() + bias.numel())  # q, k, v and o, and the bias, once each, fp32
     bound_ms, bound_by = bound(flops, nbytes, PEAK_FP32_FLOPS)
     rec = dict(name="K5 flash_attention_bias (fp32 attention with a per-head logit bias)", route="cuda",
-               source="freepose_tpu_torch/csrc/flash_attention.cu", replaces="freepose_tpu/ops/attention.py:317",
+               source=TILE_SOURCE, replaces="freepose_tpu/ops/attention.py:317",
                max_abs_err=checks["b1"]["max_abs_err"], ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                bound_by=bound_by, library_ms=library_ms)
     log("k5", shape=list(K5_SHAPE), bias=[h, n, n], dtype="fp32", checks=checks, tol=K5_TOL, ms=ms,
@@ -1022,8 +1149,11 @@ def phase_video(dev) -> tuple[dict, dict]:
                   low_res_logit_max_abs_diff=logit_diff, low_res_logit_max_abs=logit_scale,
                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, profile=profile)
     log("video", **result)
-    if min(launches["K2"], launches["K4"], launches["combine"], launches["launches_by_kernel"]["sm90"]) <= 0:
+    if min(launches["K2"], launches["K4"], launches["combine"], launches["key_tiles"],
+           launches["launches_by_kernel"]["sm90"]) <= 0:
         raise AssertionError(f"video path did not launch every kernel: {launches}")
+    if launches["launches_by_kernel"]["tile"] != 0:
+        raise AssertionError(f"video path ran the previous design's tile kernel: {launches}")
     if not props or n_scored == 0:
         raise AssertionError(f"video path retrieved no proposal: {len(props)} proposals, {n_scored} scored")
     if np.mean(ious) < VIDEO_IOU_MIN or logit_diff > VIDEO_LOGIT_ATOL:
@@ -1213,10 +1343,12 @@ def main() -> int:
     paths = {"static": static, "video": video, "scale": scale}
     counts = {k1["name"]: lambda p: p["K1"], streams["K3"]["name"]: lambda p: p["K3"],
               streams["K4"]["name"]: lambda p: p["K4"], k5["name"]: lambda p: p["K5"],
-              streams["combine"]["name"]: lambda p: p["combine"]}
+              streams["combine"]["name"]: lambda p: p["combine"],
+              streams["key_tiles"]["name"]: lambda p: p["key_tiles"]}
     for rec, d in ((k2, 64), (streams["K2_d72"], 72), (streams["K2_d256"], 256)):
         counts[rec["name"]] = lambda p, d=d: p["K2_by_dim"].get(str(d), 0)
-    records = (k1, k2, streams["K2_d72"], streams["K2_d256"], streams["K3"], streams["K4"], k5, streams["combine"])
+    records = (k1, k2, streams["K2_d72"], streams["K2_d256"], streams["K3"], streams["K4"], k5, streams["combine"],
+               streams["key_tiles"])
     for rec in records:
         rec["launches_by_path"] = {path: counts[rec["name"]](p) for path, p in paths.items()}
         rec["launches"] = sum(rec["launches_by_path"].values())

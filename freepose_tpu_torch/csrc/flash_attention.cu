@@ -1,24 +1,18 @@
 // Attention kernels K2, K3, K4 (softmax(q·kᵀ·scale)·v on the tensor cores)
 // and K5 (fp32, with an additive logit bias; its note is further down).
 //
-// One tile kernel (mma.sync), instantiated per head dim, stands in for three
-// TPU kernels of freepose_tpu/ops/attention.py. The dispatch in
-// freepose_tpu_torch/ops/attention.py:_launch sends it, through the entry
-// point flash_tile_launch:
-//   * K2 flash_attention_k2 (replaces _flash_kernel_single, the whole-K/V
-//     regime) at d = 72: the Hiera-L global-attention blocks of the SAM2
-//     trunk. K2 and K3 at d = 64 and 256 (DINOv2, SAM2 memory
-//     self-attention) run csrc/flash_attention_sm90.cu (wgmma + TMA); this
-//     kernel stays instantiated at 64 and 256 as the previous design, which
-//     chip_smoke.py and the card-only tests time and check beside it
-//     (ops/attention.py:flash_attention_tile).
-//   * K3 flash_attention_k3 (replaces _flash_kernel + _kernel_squeeze, the
-//     streaming regime) at d = 72: the same launch as K2.
-//   * K4 flash_attention_stream (replaces _stream_kernel): with a per-batch
-//     key mask shared by the heads of a batch element (block index i // h on
-//     the TPU). Caller: SAM2 memory cross-attention, 4096 queries against 7
-//     mask-memory slots x 4096 tokens + 16 object pointers x 4 tokens =
-//     28,736 keys at d = 256, with empty slots masked.
+// One tile kernel (mma.sync), instantiated per head dim, stood in for three
+// TPU kernels of freepose_tpu/ops/attention.py (through the entry point
+// flash_tile_launch): K2 `_flash_kernel_single` and K3 `_flash_kernel` (+
+// `_kernel_squeeze`) at d = 64, 72 and 256, and K4 `_stream_kernel` with a
+// per-batch key mask shared by the heads of a batch element (block index
+// i // h on the TPU; caller: SAM2 memory cross-attention, 4096 queries
+// against 7 mask-memory slots x 4096 tokens + 16 object pointers x 4 tokens
+// = 28,736 keys at d = 256, with empty slots masked). Every bf16 call of the
+// dispatch in freepose_tpu_torch/ops/attention.py:_launch now runs
+// csrc/flash_attention_sm90.cu (wgmma + TMA); this kernel stays as the
+// previous design, which chip_smoke.py and the card-only tests time and
+// check beside it on the same inputs (ops/attention.py:flash_attention_tile).
 //
 // Semantics kept from the TPU kernels: bf16 operands with fp32
 // accumulation; logits, running max and sum in fp32; p rounded to bf16

@@ -19,11 +19,13 @@ before the P·V product, and the output acc / max(l, 1e-30):
   optional key mask: the relative-position bias of the BEiT trunk of ZoeD_N.
 
 `_launch` picks the device program of each call (`attention_kernel`):
-unmasked bf16 K2 and K3 at d 64 and 256 run the wgmma + TMA kernel of
-csrc/flash_attention_sm90.cu (with its combine kernel when it splits the
-keys, `sm90_config`); bf16 at d 72 and every K4 call run the mma.sync tile
-kernel of csrc/flash_attention.cu; fp32 K2 its scalar kernel. K5 is a
-scalar fp32 kernel of the same library.
+every bf16 call, K2, K3 and K4 at d 64, 72 and 256, runs the wgmma + TMA
+kernel of csrc/flash_attention_sm90.cu (with its combine kernel when it
+splits the keys, `sm90_config`; a masked call first lists the key tiles
+that hold a valid key, `key_tiles`, and skips the others); fp32 K2 runs the
+scalar kernel of csrc/flash_attention.cu. K5 is a scalar fp32 kernel of the
+same library, which also keeps the mma.sync tile kernel, the previous
+design of K2 to K4 (`flash_attention_tile`).
 
 Each wrapper launches its kernel for CUDA tensors (or raises on what the
 kernel does not take) and runs the plain version for CPU tensors; nothing
@@ -45,14 +47,16 @@ from freepose_tpu_torch.ops import cuda_build
 NEG_INF = -1e30
 HEAD_DIMS = (64, 72, 256)  # the bf16 head dims the kernels are built for
 _DTYPES = (torch.bfloat16, torch.float32)
-SM90_HEAD_DIMS = (64, 256)  # unmasked bf16 head dims of csrc/flash_attention_sm90.cu
 MAX_SPLITS, MIN_SPLIT_TILES = 16, 8
-# Device time of a wave of 64-row blocks (two per SM) over that of a wave of
-# 192-row blocks (one per SM) of the d 64 sm90 kernel: 1.332 ms in 117 waves
-# against 1.232 ms in 78 at [128, 16, 905, 64] (chip_smoke.py's k2 phase,
-# H100 80GB HBM3 at 700 W). With it the wave counts of the two builds
-# predict their times at 1, 2, 4, 8 and 128 crops of 905 tokens within 10%.
-D64_WAVE_RATIO = 0.72
+# Device time of a wave of the sm90 kernel's blocks of w consumer warpgroups
+# (64·w query rows; w = 1 runs two blocks per SM, more one), over that of a
+# wave of the largest, by head dim (chip_smoke.py's k2 and k2_d72 phases,
+# H100 80GB HBM3 at 700 W). d 64: 1.332 ms in 117 waves of 64-row blocks
+# against 1.232 ms in 78 of 192-row ones at [128, 16, 905, 64]; with it the
+# wave counts predict both builds' times at 1, 2, 4, 8 and 128 crops of 905
+# tokens within 10%. d 72: 0.1809, 0.1053 and 0.1272 ms for 64-, 128- and
+# 192-row blocks at [1, 8, 4096, 72], 2 waves each.
+WAVE_COST = {64: {1: 0.72, 3: 1.0}, 72: {1: 1.42, 2: 0.83, 3: 1.0}, 256: {2: 1.0}}
 
 launches_by_kernel = {"sm90": 0, "tile": 0, "f32": 0}  # `_launch`'s launches by device program
 
@@ -143,39 +147,39 @@ def _mask_bytes(name: str, kv_mask: torch.Tensor | None, b: int, nk: int,
 
 def attention_kernel(dtype: torch.dtype, d: int, masked: bool) -> str:
     """The dispatch rule of `_launch`: the device program that serves a
-    call. "sm90" (csrc/flash_attention_sm90.cu, wgmma + TMA) for unmasked
-    bf16 at d 64 or 256; "tile" (csrc/flash_attention.cu, the mma.sync tile
-    kernel) for bf16 at d 72 and every masked call; "f32" (its scalar
-    kernel) for fp32."""
-    if dtype == torch.float32:
-        return "f32"
-    if not masked and d in SM90_HEAD_DIMS:
-        return "sm90"
-    return "tile"
+    call. "sm90" (csrc/flash_attention_sm90.cu, wgmma + TMA) for every bf16
+    call, at d 64, 72 and 256, with or without a key mask; "f32" (the scalar
+    kernel of csrc/flash_attention.cu) for fp32. The mma.sync tile kernel
+    ("tile") is reached only through `flash_attention_tile`."""
+    return "f32" if dtype == torch.float32 else "sm90"
 
 
 @functools.lru_cache(maxsize=4096)
-def sm90_config(bh: int, n: int, nk: int, d: int, key_tile: int, num_sms: int = 132) -> tuple[int, int]:
+def sm90_config(bh: int, n: int, nk: int, d: int, key_tile: int, num_sms: int = 132,
+                masked: bool = False) -> tuple[int, int]:
     """(consumer warpgroups, key splits) of the sm90 kernel for q [bh, n, d]
     against nk keys in tiles of `key_tile` (`sm90_key_tile`); a warpgroup
-    owns 64 query rows. d 64: blocks of 3
-    warpgroups (one per SM) when their waves take less time than those of
-    blocks of one (two per SM), a wave of these costing D64_WAVE_RATIO of
-    one of those; on ties blocks of one. d 256: 2 warpgroups, one block per
-    SM. A grid short of a wave splits the keys into the count (at most
-    MAX_SPLITS, at least MIN_SPLIT_TILES key tiles each, none empty) whose
-    grid fills its waves best, the fewest on ties."""
-    if d == 64:
-        waves = {w: -(-(bh * -(-n // (64 * w))) // (num_sms * (2 if w == 1 else 1))) for w in (1, 3)}
-        wgs = 3 if waves[3] < D64_WAVE_RATIO * waves[1] else 1
-    else:
-        wgs = 2
+    owns 64 query rows. The warpgroups whose waves of blocks cost least
+    (`WAVE_COST`), the fewest on ties. A grid short of a wave splits the
+    keys into the count (at most MAX_SPLITS, at least MIN_SPLIT_TILES key
+    tiles each, none empty) whose grid fills its waves best, the fewest on
+    ties. A masked call takes twice that count (within the same limits):
+    the kernel shares each batch element's listed tiles among its splits,
+    and the host, which knows only nk, cannot see how unevenly the mask
+    spreads them; at K4's shape 1, 2, 3, 4, 6 and 8 splits took 0.683,
+    0.359, 0.254, 0.257, 0.272 and 0.290 ms (chip_smoke.py's k4 phase, H100
+    80GB HBM3 at 700 W)."""
+    def waves(w):
+        return -(-(bh * -(-n // (64 * w))) // (num_sms * (2 if w == 1 else 1)))
+
+    wgs = min(sorted(WAVE_COST[d]), key=lambda w: waves(w) * WAVE_COST[d][w])
     wave = num_sms * (2 if wgs == 1 else 1)
     blocks = bh * -(-n // (64 * wgs))
     tiles = -(-nk // key_tile)
+    most = min(MAX_SPLITS, tiles // MIN_SPLIT_TILES)
     best, best_fill = 1, 0.0
     if blocks < wave:
-        for s in range(1, min(MAX_SPLITS, tiles // MIN_SPLIT_TILES) + 1):
+        for s in range(1, most + 1):
             per = -(-tiles // s)
             if -(-tiles // per) != s:  # a split would be empty
                 continue
@@ -183,16 +187,55 @@ def sm90_config(bh: int, n: int, nk: int, d: int, key_tile: int, num_sms: int = 
             fill = grid / (-(-grid // wave) * wave)
             if fill > best_fill:
                 best, best_fill = s, fill
+    if masked and best > 1:
+        best = max(s for s in range(best, min(2 * best, most) + 1) if -(-tiles // -(-tiles // s)) == s)
     return wgs, best
 
 
-def attention_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                       scale: float) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def key_tile_list(kv_mask: torch.Tensor, key_tile: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the list kernel (`key_tiles`): for kv_mask [B, Nk]
+    (False = masked key) and tiles of `key_tile` keys, per batch element the
+    count of tiles that hold a valid key [B] (int32), their indices in
+    increasing order [B, T] (int32, -1 past the count) and a flag on each
+    listed tile that also holds a masked key [B, T] (uint8, 0 past the
+    count); T = ceil(Nk / key_tile), and keys past Nk are not masked keys.
+    An element with no valid key lists every tile, each flagged: its rows
+    average V over its Nk keys. Torch operations on the mask's device,
+    nothing read on the host."""
+    b, nk = kv_mask.shape
+    tiles = -(-nk // key_tile)
+    keys = torch.arange(tiles * key_tile, device=kv_mask.device).reshape(tiles, key_tile) < nk
+    valid = torch.zeros((b, tiles * key_tile), dtype=torch.bool, device=kv_mask.device)
+    valid[:, :nk] = kv_mask.to(torch.bool)
+    n_valid = valid.reshape(b, tiles, key_tile).sum(-1)
+    listed = n_valid > 0
+    none = ~listed.any(-1, keepdim=True)
+    listed = listed | none
+    partial = (n_valid < keys.sum(-1)) & listed
+    order = torch.sort((~listed).to(torch.uint8), dim=-1, stable=True).indices  # listed tiles first, in order
+    count = listed.sum(-1)
+    held = torch.arange(tiles, device=kv_mask.device) < count[:, None]
+    tile_list = torch.where(held, order, -1).to(torch.int32)
+    flags = torch.where(held, partial.gather(-1, order), False).to(torch.uint8)
+    return count.to(torch.int32), tile_list, flags
+
+
+def attention_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+                       kv_mask: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain (m, l, acc) of one key range, as a key split of the sm90 kernel
     leaves them: m the row max of q·kᵀ·scale, l the row sum of
     p = exp(q·kᵀ·scale - m), acc = p (rounded to v's dtype)·v; all fp32.
-    q [..., N, d], k/v [..., Nk, d] -> [..., N], [..., N], [..., N, d]."""
+    q [..., N, d], k/v [..., Nk, d] -> [..., N], [..., N], [..., N, d].
+    kv_mask [B, Nk] as for K4 (q [B, H, N, d]): a masked key's logit is
+    -1e30. An empty key range gives m = -1e30, l = 0, acc = 0, what an empty
+    share of a masked call's key tiles leaves."""
+    if k.shape[-2] == 0:
+        return (torch.full(q.shape[:-1], NEG_INF, device=q.device), q.new_zeros(q.shape[:-1], dtype=torch.float32),
+                q.new_zeros(q.shape[:-1] + v.shape[-1:], dtype=torch.float32))
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if kv_mask is not None:
+        logits = torch.where(kv_mask.to(torch.bool)[:, None, None, :], logits,
+                             torch.full((), NEG_INF, device=logits.device))
     m = logits.amax(dim=-1)
     p = torch.exp(logits - m[..., None])
     return m, p.sum(dim=-1), torch.matmul(p.to(v.dtype).float(), v.float())
@@ -211,7 +254,8 @@ def combine_partials(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {  # the C entry points of the attention libraries
-    ("flash_attention_sm90", "flash_sm90_launch"): [_P] * 7 + [_I] * 6 + [_F, _P],
+    ("flash_attention_sm90", "flash_sm90_launch"): [_P] * 11 + [_I] * 7 + [_F, _P],
+    ("flash_attention_sm90", "flash_sm90_key_tiles_launch"): [_P, _I, _I, _I, _P, _P, _P, _P],
     ("flash_attention_sm90", "flash_sm90_combine_launch"): [_P] * 4 + [_I] * 3 + [_P],
     ("flash_attention_sm90", "flash_sm90_key_tile"): [_I],
     ("flash_attention", "flash_tile_launch"): [_P] * 5 + [_I] * 5 + [_F, _P],
@@ -236,7 +280,7 @@ def sm90_key_tile(d: int) -> int:
     states it (`Sm90::BK`, read once per head dim)."""
     tile = _entry("flash_attention_sm90", "flash_sm90_key_tile")(d)
     if tile <= 0:
-        raise ValueError(f"the sm90 kernel does not take head dim {d} (it takes {SM90_HEAD_DIMS})")
+        raise ValueError(f"the sm90 kernel does not take head dim {d} (it takes {HEAD_DIMS})")
     return tile
 
 
@@ -271,30 +315,69 @@ def attention_combine(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
 attention_combine.launches = 0
 
 
+def key_tiles(kv_mask: torch.Tensor, key_tile: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """List wrapper: kv_mask [B, Nk] -> the (count, tile list, partial
+    flags) of `key_tile_list`. A CUDA mask launches sm90_key_tiles_kernel
+    (which a masked call of the sm90 kernel also launches, inside its own C
+    call), a CPU mask runs `key_tile_list`."""
+    name = "key_tiles"
+    if kv_mask.device.type == "cpu":
+        return key_tile_list(kv_mask, key_tile)
+    if kv_mask.device.type != "cuda" or kv_mask.ndim != 2 or 0 in kv_mask.shape or key_tile < 1:
+        raise ValueError(f"{name}: kv_mask [B, Nk] on a CUDA device, got {tuple(kv_mask.shape)} on "
+                         f"{kv_mask.device}, key tile {key_tile}")
+    b, nk = kv_mask.shape
+    tiles = -(-nk // key_tile)
+    mask = kv_mask.to(torch.uint8).contiguous()
+    count = torch.empty(b, dtype=torch.int32, device=mask.device)
+    tile_list = torch.empty((b, tiles), dtype=torch.int32, device=mask.device)
+    flags = torch.empty((b, tiles), dtype=torch.uint8, device=mask.device)
+    with torch.cuda.device(mask.device):
+        status = _entry("flash_attention_sm90", "flash_sm90_key_tiles_launch")(
+            mask.data_ptr(), b, nk, key_tile, count.data_ptr(), tile_list.data_ptr(), flags.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    cuda_build.check(status, name)
+    key_tiles.launches += 1
+    return count, tile_list, flags
+
+
+key_tiles.launches = 0
+
+
 @functools.lru_cache(maxsize=None)
 def _num_sms(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _launch_sm90(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
-                 stream: int, config: tuple[int, int] | None) -> torch.Tensor:
+                 mask: torch.Tensor | None, stream: int, config: tuple[int, int] | None) -> torch.Tensor:
     """csrc/flash_attention_sm90.cu at `config` (warpgroups, splits), by
     default the `sm90_config` of the call. With key splits the same C call
     launches the kernel into one fp32 scratch tensor (acc, then m, then l)
-    and the combine kernel from it."""
+    and the combine kernel from it; with a mask (uint8 [B, Nk]) it first
+    launches the list kernel into one int32 buffer (count, tile list, then
+    the partial flags as bytes)."""
     b, h, n, d = q.shape
     nk = k.shape[2]
-    wgs, splits = config or sm90_config(b * h, n, nk, d, sm90_key_tile(d), _num_sms(q.device))
+    key_tile = sm90_key_tile(d)
+    wgs, splits = config or sm90_config(b * h, n, nk, d, key_tile, _num_sms(q.device), mask is not None)
     out = torch.empty_like(q)
     parts = (None, None, None)
     if splits > 1:
         rows = splits * b * h * n
         scratch = torch.empty(rows * (d + 2), dtype=torch.float32, device=q.device)
         parts = (scratch.data_ptr(), scratch.data_ptr() + 4 * rows * d, scratch.data_ptr() + 4 * rows * (d + 1))
+    lists = (None, None, None)
+    if mask is not None:
+        tiles = -(-nk // key_tile)
+        buf = torch.empty(b * (1 + tiles) + -(-b * tiles // 4), dtype=torch.int32, device=q.device)
+        lists = (buf.data_ptr(), buf.data_ptr() + 4 * b, buf.data_ptr() + 4 * b * (1 + tiles))
     status = _entry("flash_attention_sm90", "flash_sm90_launch")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *parts, b * h, n, nk, d, wgs, splits, float(scale),
-        stream)
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *parts, None if mask is None else mask.data_ptr(),
+        *lists, b * h, h, n, nk, d, wgs, splits, float(scale), stream)
     cuda_build.check(status, name)
+    if mask is not None:
+        key_tiles.launches += 1
     if splits > 1:
         attention_combine.launches += 1
     return out
@@ -305,8 +388,8 @@ def _launch(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale:
             config: tuple[int, int] | None = None) -> torch.Tensor:
     """Launch the device program `attention_kernel` picks for the call (or
     `kernel`): the sm90 kernel (at `config`, see `_launch_sm90`), or
-    csrc/flash_attention.cu's tile kernel (kv_mask None runs it unmasked) or
-    scalar fp32 kernel. Counts the launch in `launches_by_kernel`."""
+    csrc/flash_attention.cu's tile kernel or scalar fp32 kernel (kv_mask
+    None runs either unmasked). Counts the launch in `launches_by_kernel`."""
     _check_qkv(name, q, k, v, dtypes)
     b, h, n, d = q.shape
     nk = k.shape[2]
@@ -316,7 +399,7 @@ def _launch(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale:
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         if kernel == "sm90":
-            out = _launch_sm90(name, q, k, v, scale, stream, config)
+            out = _launch_sm90(name, q, k, v, scale, kv_mask, stream, config)
         elif kernel == "tile":
             out = torch.empty_like(q)
             cuda_build.check(_entry("flash_attention", "flash_tile_launch")(
@@ -380,9 +463,9 @@ flash_attention_stream.launches = 0
 def flash_attention_tile(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
                          kv_mask: torch.Tensor | None = None) -> torch.Tensor:
     """The mma.sync tile kernel whatever the dispatch picks, bf16 at d 64,
-    72 or 256, kv_mask as for K4: the previous design of K2 and K3 at d 64
-    and 256, which chip_smoke.py and the card-only tests time and check
-    beside the sm90 kernel on the same inputs. CPU tensors run
+    72 or 256, kv_mask as for K4: the previous design of K2, K3 and K4,
+    which chip_smoke.py and the card-only tests time and check beside the
+    sm90 kernel on the same inputs. CPU tensors run
     `dense_attention_masked`."""
     if _on_cpu(q, k, v):
         return dense_attention_masked(q, k, v, scale, kv_mask)
@@ -390,14 +473,16 @@ def flash_attention_tile(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scal
 
 
 def flash_attention_sm90(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
-                         config: tuple[int, int]) -> torch.Tensor:
+                         config: tuple[int, int], kv_mask: torch.Tensor | None = None) -> torch.Tensor:
     """The sm90 kernel at `config` (warpgroups, key splits) whatever
-    `sm90_config` picks, unmasked bf16 at d 64 (1 or 3 warpgroups) or 256
-    (2): chip_smoke.py checks and times each configuration at the main
-    paths' shapes with it. CPU tensors run `dense_attention`."""
+    `sm90_config` picks, bf16 at d 64 (1 or 3 warpgroups), 72 (1, 2 or 3)
+    or 256 (2), kv_mask as for K4 (a masked call's splits may outnumber its
+    listed tiles): chip_smoke.py checks and times each configuration at the
+    main paths' shapes with it. CPU tensors run `dense_attention_masked`."""
     if _on_cpu(q, k, v):
-        return dense_attention(q, k, v, scale)
-    return _launch("flash_attention_sm90", q, k, v, scale, None, (torch.bfloat16,), kernel="sm90", config=config)
+        return dense_attention_masked(q, k, v, scale, kv_mask)
+    return _launch("flash_attention_sm90", q, k, v, scale, kv_mask, (torch.bfloat16,), kernel="sm90",
+                   config=config)
 
 
 def _round16(x: int) -> int:

@@ -4,8 +4,10 @@ On the CPU the port's wrappers run their plain versions (`dense_attention`,
 `dense_attention_masked`); they are held against the JAX Pallas kernels in
 interpret mode and against the dense XLA path on the same numpy inputs. So
 is the plain version of the sm90 kernel's key split (`attention_partials`
-per key range, merged by `combine_partials`), and the dispatch rule and
-split rule of `_launch` are checked as the pure functions they are.
+per key range, merged by `combine_partials`), unmasked and over equal shares
+of a masked call's key-tile list (`key_tile_list`, itself held against a
+numpy reference), and the dispatch rule and split rule of `_launch` are
+checked as the pure functions they are.
 
 Tolerances: fp32 atol 1e-5 (same arithmetic, summation order differs);
 bf16 atol 2e-2 (outputs of O(1) size rounded to bf16's 8-bit mantissa, and
@@ -21,18 +23,18 @@ import torch
 from freepose_tpu.ops.attention import dense_attention_masked as jax_dense
 from freepose_tpu.ops.attention import flash_attention as jax_flash
 from freepose_tpu.ops.attention import flash_attention_stream as jax_stream
-from freepose_tpu_torch.ops.attention import (MIN_SPLIT_TILES, attention_combine, attention_kernel,
+from freepose_tpu_torch.ops.attention import (MIN_SPLIT_TILES, WAVE_COST, attention_combine, attention_kernel,
                                               attention_partials, combine_partials, dense_attention,
                                               dense_attention_bias, dense_attention_masked, flash_attention,
                                               flash_attention_auto, flash_attention_bias, flash_attention_bias_auto,
                                               flash_attention_k2, flash_attention_k3, flash_attention_stream,
-                                              flash_attention_sm90, flash_attention_tile, launches_by_kernel,
-                                              sm90_config)
+                                              flash_attention_sm90, flash_attention_tile, key_tile_list, key_tiles,
+                                              launches_by_kernel, sm90_config)
 
 SCALE = 64**-0.5
 # Keys per tile of the sm90 kernel (`Sm90::BK`; on the card `sm90_key_tile` reads
 # them from the library), which the split rule's expectations below assume.
-KEY_TILE = {64: 128, 256: 64}
+KEY_TILE = {64: 128, 72: 128, 256: 64}
 
 
 def _qkv(n, b=2, h=3, d=64, seed=0, nk=None):
@@ -103,27 +105,29 @@ def test_split_partials_combine_to_jax_streaming(splits, dtype, tol):
 
 @pytest.mark.parametrize("dtype,d,masked,kernel", [
     (torch.bfloat16, 64, False, "sm90"), (torch.bfloat16, 256, False, "sm90"),
-    (torch.bfloat16, 72, False, "tile"), (torch.bfloat16, 64, True, "tile"),
-    (torch.bfloat16, 72, True, "tile"), (torch.bfloat16, 256, True, "tile"),
+    (torch.bfloat16, 72, False, "sm90"), (torch.bfloat16, 64, True, "sm90"),
+    (torch.bfloat16, 72, True, "sm90"), (torch.bfloat16, 256, True, "sm90"),
     (torch.float32, 64, False, "f32"),
 ])
 def test_dispatch_rule(dtype, d, masked, kernel):
-    """Unmasked bf16 K2/K3 at d 64 and 256 go to the wgmma + TMA kernel; d 72
-    and every masked call (K4) to the tile kernel; fp32 to its own."""
+    """Every bf16 call, K2 and K3 at d 64, 72 and 256 and every masked call
+    (K4), goes to the wgmma + TMA kernel; fp32 to its own."""
     assert attention_kernel(dtype, d, masked) == kernel
 
 
-@pytest.mark.parametrize("bh,n,nk,d,config", [
-    (128 * 16, 905, 905, 64, (3, 1)),  # the template pack's ViT batch: 78 waves of 192-row blocks vs 117
-    (8 * 16, 905, 905, 64, (3, 1)),  # 8 crops: 5 waves vs 8
-    (4 * 16, 905, 905, 64, (1, 1)),  # a frame of 4 proposals: 3 waves of 192-row blocks vs 4 of 64-row
-    (2 * 16, 905, 905, 64, (1, 1)),  # 2 retrieval crops: 480 blocks of 64 rows, 2 per SM
-    (1 * 16, 905, 905, 64, (1, 1)),  # 1 crop: 240 blocks; 8 key tiles leave nothing to split
-    (2, 4096, 4096, 256, (2, 2)),  # memory self-attention: 64 blocks of 128 rows -> 2 splits
-    (1, 4096, 6144, 256, (2, 4)),  # K3's shape: 32 blocks -> 4 splits of 24 key tiles
+@pytest.mark.parametrize("bh,n,nk,d,masked,config", [
+    (128 * 16, 905, 905, 64, False, (3, 1)),  # the template pack's ViT batch: 78 waves of 192-row blocks vs 117
+    (8 * 16, 905, 905, 64, False, (3, 1)),  # 8 crops: 5 waves vs 8
+    (4 * 16, 905, 905, 64, False, (1, 1)),  # a frame of 4 proposals: 3 waves of 192-row blocks vs 4 of 64-row
+    (2 * 16, 905, 905, 64, False, (1, 1)),  # 2 retrieval crops: 480 blocks of 64 rows, 2 per SM
+    (1 * 16, 905, 905, 64, False, (1, 1)),  # 1 crop: 240 blocks; 8 key tiles leave nothing to split
+    (2, 4096, 4096, 256, False, (2, 2)),  # memory self-attention: 64 blocks of 128 rows -> 2 splits
+    (1, 4096, 6144, 256, False, (2, 4)),  # K3's shape: 32 blocks -> 4 splits of 24 key tiles
+    (8, 4096, 4096, 72, False, (2, 1)),  # a Hiera-L global block: 2 waves of 64-, 128- or 192-row blocks
+    (2, 4096, 28736, 256, True, (2, 4)),  # K4: 64 blocks of 128 rows, 449 key tiles; twice the 2 splits
 ])
-def test_sm90_config_at_the_main_path_shapes(bh, n, nk, d, config):
-    assert sm90_config(bh, n, nk, d, KEY_TILE[d]) == config
+def test_sm90_config_at_the_main_path_shapes(bh, n, nk, d, masked, config):
+    assert sm90_config(bh, n, nk, d, KEY_TILE[d], masked=masked) == config
 
 
 def test_sm90_config_splits_are_whole_and_never_empty():
@@ -132,31 +136,143 @@ def test_sm90_config_splits_are_whole_and_never_empty():
     a wave."""
     rng = np.random.default_rng(13)
     for _ in range(500):
-        d = int(rng.choice([64, 256]))
+        d = int(rng.choice([64, 72, 256]))
         bh, n, nk = int(rng.integers(1, 40)), int(rng.integers(1, 5000)), int(rng.integers(1, 40000))
         wgs, splits = sm90_config(bh, n, nk, d, KEY_TILE[d])
         tiles = -(-nk // KEY_TILE[d])
         per = -(-tiles // splits)
-        assert wgs in ((1, 3) if d == 64 else (2,))
+        assert wgs in WAVE_COST[d]
         assert (splits - 1) * per < tiles and (splits == 1 or per >= MIN_SPLIT_TILES)
         assert splits == 1 or bh * -(-n // (64 * wgs)) < 132 * (2 if wgs == 1 else 1)
 
 
+def _key_tile_list_numpy(mask, key_tile):
+    """Reference of the list: a loop over tiles, in numpy."""
+    b, nk = mask.shape
+    tiles = -(-nk // key_tile)
+    count = np.zeros(b, np.int32)
+    order = np.full((b, tiles), -1, np.int32)
+    flags = np.zeros((b, tiles), np.uint8)
+    for e in range(b):
+        for i in range(tiles):
+            keys = mask[e, i * key_tile:(i + 1) * key_tile]
+            if keys.any():
+                order[e, count[e]], flags[e, count[e]] = i, not keys.all()
+                count[e] += 1
+        if count[e] == 0:
+            count[e], order[e], flags[e] = tiles, np.arange(tiles), 1
+    return count, order, flags
+
+
+def _runs(nk, runs, b=1):
+    mask = np.zeros((b, nk), bool)
+    for e, a, z in runs:
+        mask[e, a:z] = True
+    return mask
+
+
+@pytest.mark.parametrize("name,mask", [
+    # whole 64-key tiles valid and empty (the memory slots)
+    ("whole_tiles", _runs(6 * 64, [(0, 0, 128), (0, 256, 320), (1, 64, 384)], b=2)),
+    # runs that start and end inside tiles, a ragged nk, one row all masked
+    ("ragged", _runs(5 * 64 + 29, [(0, 37, 70), (0, 200, 201), (0, 300, 349), (2, 0, 349)], b=3)),
+    # every key valid, ragged nk: every tile listed, none flagged
+    ("all_valid", np.ones((2, 3 * 64 + 5), bool)),
+    # a row whose only valid keys sit in the ragged last tile
+    ("last_tile", _runs(2 * 64 + 3, [(0, 129, 131)])),
+])
+def test_key_tile_list_matches_numpy(name, mask):
+    """The plain list against a loop in numpy, exactly; and its invariants:
+    every tile with a valid key is listed, in increasing order, each flag
+    says whether the tile also holds a masked key, and a row with no valid
+    key lists every tile, flagged. The wrapper on a CPU mask is the plain
+    version and counts no launch."""
+    key_tile = 64
+    count, order, flags = key_tile_list(torch.as_tensor(mask), key_tile)
+    ref = _key_tile_list_numpy(mask, key_tile)
+    for ours, theirs in zip((count, order, flags), ref):
+        np.testing.assert_array_equal(ours.numpy(), theirs)
+    assert (count.dtype, order.dtype, flags.dtype) == (torch.int32, torch.int32, torch.uint8)
+    tiles = order.shape[1]
+    for e in range(mask.shape[0]):
+        listed = order[e, :count[e]].numpy()
+        assert (np.diff(listed) > 0).all() and (order[e, count[e]:] == -1).all()
+        has_valid = [mask[e, i * key_tile:(i + 1) * key_tile].any() for i in range(tiles)]
+        assert set(listed) == ({i for i in range(tiles) if has_valid[i]} if any(has_valid) else set(range(tiles)))
+        if not any(has_valid):
+            assert (flags[e] == 1).all()
+    before = key_tiles.launches
+    for ours, theirs in zip(key_tiles(torch.as_tensor(mask), key_tile), (count, order, flags)):
+        torch.testing.assert_close(ours, theirs, rtol=0, atol=0)
+    assert key_tiles.launches == before
+
+
+@pytest.mark.parametrize("dtype,tol", [(np.float32, 1e-5), (jnp.bfloat16, 2e-2)])
+@pytest.mark.parametrize("d", [72, 256])
+def test_masked_split_partials_combine_to_jax_stream(d, dtype, tol):
+    """The plain version of a masked call's key splits: 3 splits take equal
+    contiguous shares of each batch element's listed key tiles
+    (`key_tile_list`), each share's (m, l, acc) from `attention_partials`
+    with the mask, merged by `combine_partials`, give the JAX streaming
+    kernel's output (`flash_attention_stream`, interpret mode) on the same
+    numpy inputs. Batch 0 masks a whole tile and ragged runs; batch 1 keeps
+    one partial tile, so two of its shares are empty; batch 2 masks every
+    key (a uniform mean of V; nk is a multiple of the JAX block, so both
+    sides average the same keys)."""
+    key_tile, splits = KEY_TILE[d], 3
+    nk = 5 * key_tile + 32
+    q, k, v = _qkv(24, b=3, h=2, d=d, seed=15, nk=nk)
+    mask = np.ones((3, nk), bool)
+    mask[0, key_tile:2 * key_tile] = False
+    mask[0, 3 * key_tile + 5:3 * key_tile + 40] = False
+    mask[0, nk - 20:nk - 3] = False
+    mask[1] = False
+    mask[1, 2 * key_tile + 7:2 * key_tile + 30] = True
+    mask[2] = False
+    jq, jk, jv = (jnp.asarray(x, dtype) for x in (q, k, v))
+    tdtype = torch.float32 if dtype == np.float32 else torch.bfloat16
+    tq, tk, tv = (torch.as_tensor(np.array(x.astype(jnp.float32))).to(tdtype) for x in (jq, jk, jv))
+    tmask = torch.as_tensor(mask)
+    count, order, _ = key_tile_list(tmask, key_tile)
+    assert count.tolist() == [5, 1, 6]
+    ours = []
+    for e in range(3):
+        listed = order[e, :count[e]].tolist()
+        parts = []
+        for s in range(splits):
+            share = listed[s * len(listed) // splits:(s + 1) * len(listed) // splits]
+            keys = torch.cat([torch.arange(i * key_tile, min(nk, (i + 1) * key_tile)) for i in share]) if share \
+                else torch.zeros(0, dtype=torch.long)
+            parts.append(attention_partials(tq[e:e + 1], tk[e:e + 1, :, keys], tv[e:e + 1, :, keys], d**-0.5,
+                                            tmask[e:e + 1, keys]))
+        m, l, acc = (torch.stack(x) for x in zip(*parts))
+        if e == 1:
+            assert (l == 0).sum() == 2 * l[0].numel()  # two empty shares
+        ours.append(combine_partials(m, l, acc, tdtype))
+    ours = torch.cat(ours)
+    ref = np.asarray(jax_stream(jq, jk, jv, d**-0.5, kv_mask=jnp.asarray(mask), block_q=16, block_k=32,
+                                interpret=True).astype(jnp.float32))
+    np.testing.assert_allclose(ours.float().numpy(), ref, atol=tol)
+    uniform = tv[2].float().mean(dim=1, keepdim=True).expand(-1, 24, -1).numpy()
+    np.testing.assert_allclose(ours[2].float().numpy(), uniform, atol=tol)
+
+
 def test_tile_wrapper_and_launch_counts_on_cpu():
     """The previous design's wrapper and the sm90 kernel's at a forced
-    configuration run the plain versions on CPU tensors, and nothing counts
-    a launch."""
+    configuration, with and without a key mask, run the plain versions on
+    CPU tensors, and nothing counts a launch."""
     q, k, v = map(torch.as_tensor, _qkv(20, b=2, h=2, seed=14, nk=33))
     mask = torch.ones((2, 33), dtype=torch.bool)
     mask[0, 5:9] = False
-    before = dict(launches_by_kernel)
+    before = dict(launches_by_kernel), key_tiles.launches
     torch.testing.assert_close(flash_attention_tile(q, k, v, SCALE, kv_mask=mask),
                                dense_attention_masked(q, k, v, SCALE, mask), rtol=0, atol=0)
     torch.testing.assert_close(flash_attention_sm90(q, k, v, SCALE, (3, 1)), dense_attention(q, k, v, SCALE),
                                rtol=0, atol=0)
+    torch.testing.assert_close(flash_attention_sm90(q, k, v, SCALE, (1, 4), kv_mask=mask),
+                               dense_attention_masked(q, k, v, SCALE, mask), rtol=0, atol=0)
     flash_attention(q, k, v, SCALE, single_budget=0)
-    assert launches_by_kernel == before
-
+    assert (launches_by_kernel, key_tiles.launches) == before
 
 
 def _bf16(*xs):

@@ -19,21 +19,24 @@ K1 runs the plain version's fp32 operations in the same order (built
 without FMA contraction): hit masks identical, depth and rgb to atol 1e-6.
 The combine of the sm90 kernel's key splits against its plain version on the
 same fp32 partials: 2^-6·|ref| + 1e-6, two bf16 steps (the same sums in
-another order, each rounded to bf16 once, so at most one step apart).
+another order, each rounded to bf16 once, so at most one step apart). The
+list kernel of a masked call against its plain version: identical.
 """
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import reads_next_head  # the stand-in of a kernel that reads the next head's rows
+# The plain stand-ins of a kernel that reads the next head's rows, and of one
+# that skips partially masked key tiles.
+from chip_smoke import drops_partial_tiles, reads_next_head
 from freepose_tpu_torch.geometry.rotation import template_poses
 from freepose_tpu_torch.io.mesh import TriMesh, pad_mesh
 from freepose_tpu_torch.ops.attention import (attention_combine, attention_partials, bf16_error_bound,
                                               combine_partials, dense_attention, dense_attention_bias,
                                               dense_attention_masked, flash_attention, flash_attention_bias,
                                               flash_attention_k2, flash_attention_k3, flash_attention_stream,
-                                              flash_attention_sm90, flash_attention_tile, launches_by_kernel,
-                                              sm90_config, sm90_key_tile)
+                                              flash_attention_sm90, flash_attention_tile, key_tile_list, key_tiles,
+                                              launches_by_kernel, sm90_config, sm90_key_tile)
 from freepose_tpu_torch.ops.rasterizer import RasterSettings, rasterize
 from freepose_tpu_torch.ops.rasterizer_cuda import _bin_and_pack, raster_tile, raster_tile_plain
 
@@ -84,14 +87,14 @@ def test_k2_matches_plain(cuda, dtype, n):
 @pytest.mark.parametrize("n,nk", [(4096, 4096), (37, 100), (130, 64)])
 def test_k2_head_dims_match_plain(cuda, d, n, nk):
     """The Hiera-L global-block (d = 72) and memory self-attention (d = 256)
-    head dims, at their 4096-token shape and at ragged lengths."""
+    head dims, at their 4096-token shape and at ragged lengths, on the sm90
+    kernel."""
     b, h = (1, 8) if d == 72 else (2, 1)
     q, k, v = (torch.as_tensor(x, device=cuda).to(torch.bfloat16) for x in _qkv(n, b, h, d, nk=nk))
-    before, design = flash_attention_k2.launches, "tile" if d == 72 else "sm90"
-    by_kernel = launches_by_kernel[design]
+    before, by_kernel = flash_attention_k2.launches, launches_by_kernel["sm90"]
     out = flash_attention_k2(q, k, v, d**-0.5)
     torch.cuda.synchronize()
-    assert flash_attention_k2.launches == before + 1 and launches_by_kernel[design] == by_kernel + 1
+    assert flash_attention_k2.launches == before + 1 and launches_by_kernel["sm90"] == by_kernel + 1
     ref = dense_attention(q, k, v, d**-0.5)
     assert _within_bound(out, ref, q, k, v, d**-0.5)
 
@@ -122,14 +125,85 @@ def test_k4_matches_plain(cuda, d):
     nk = 3 * 4096 + 64 + 5
     q, k, v = (torch.as_tensor(x, device=cuda).to(torch.bfloat16) for x in _qkv(200, 2, 2, d, nk=nk))
     mask = _slot_mask(2, nk, cuda)
-    before, tile = flash_attention_stream.launches, launches_by_kernel["tile"]
+    before, sm90, lists = flash_attention_stream.launches, launches_by_kernel["sm90"], key_tiles.launches
     out = flash_attention_stream(q, k, v, d**-0.5, kv_mask=mask)
     torch.cuda.synchronize()
-    assert flash_attention_stream.launches == before + 1 and launches_by_kernel["tile"] == tile + 1
+    assert (flash_attention_stream.launches, launches_by_kernel["sm90"], key_tiles.launches) == \
+        (before + 1, sm90 + 1, lists + 1)
     ref = dense_attention_masked(q, k, v, d**-0.5, mask)
     assert _within_bound(out, ref, q, k, v, d**-0.5, mask)
     uniform = v[1].float().mean(dim=1, keepdim=True).expand(-1, 200, -1)
     torch.testing.assert_close(out[1].float(), uniform, atol=1e-4, rtol=1e-2)
+
+
+def _ragged_runs(b, nk, cuda):
+    """Valid runs that start and end inside key tiles, in every batch
+    element: partially masked tiles next to full and empty ones."""
+    mask = torch.zeros((b, nk), dtype=torch.bool, device=cuda)
+    for e in range(b):
+        for a, z in ((37 + e, 300), (1000, 1003), (2100 + 5 * e, nk - 11)):
+            mask[e, a:z] = True
+        mask[e, 2500:2570] = False
+    return mask
+
+
+@pytest.mark.parametrize("d,config", [(64, (1, 1)), (64, (3, 1)), (72, (1, 1)), (72, (2, 2)), (72, (3, 3)),
+                                      (256, (2, 1)), (256, (2, 4))])
+def test_k4_builds_on_ragged_runs(cuda, d, config):
+    """Each build of the masked kernel, with and without key splits, on
+    ragged mask runs and a ragged nk, two heads: within the bound, and the
+    tile kernel on the same inputs too; the plain stand-in of a kernel that
+    treats partially masked tiles as empty breaks it."""
+    nk = 3000 + 13
+    q, k, v = (torch.as_tensor(x, device=cuda).to(torch.bfloat16) for x in _qkv(333, 2, 2, d, nk=nk, seed=11))
+    mask = _ragged_runs(2, nk, cuda)
+    out = flash_attention_sm90(q, k, v, d**-0.5, config, kv_mask=mask)
+    tile = flash_attention_tile(q, k, v, d**-0.5, kv_mask=mask)
+    torch.cuda.synchronize()
+    ref = dense_attention_masked(q, k, v, d**-0.5, mask)
+    assert _within_bound(out, ref, q, k, v, d**-0.5, mask)
+    assert _within_bound(tile, ref, q, k, v, d**-0.5, mask)
+    wrong = dense_attention_masked(q, k, v, d**-0.5, drops_partial_tiles(mask, sm90_key_tile(d)))
+    assert not _within_bound(wrong, ref, q, k, v, d**-0.5, mask)
+
+
+def test_k4_split_with_an_empty_share(cuda):
+    """Batch 1 lists 2 key tiles and the call takes 6 splits, so 4 of its
+    shares are empty: they write m = -1e30, l = 0, acc = 0 and the combine
+    weighs them 0. Batch 0 masks every key (a uniform mean of V)."""
+    nk = 40 * 64 + 9
+    q, k, v = (torch.as_tensor(x, device=cuda).to(torch.bfloat16) for x in _qkv(130, 2, 1, 256, nk=nk, seed=12))
+    mask = torch.zeros((2, nk), dtype=torch.bool, device=cuda)
+    mask[1, 64 * 7 + 3:64 * 8 + 60] = True
+    assert key_tile_list(mask, 64)[0].tolist() == [41, 2]
+    before = attention_combine.launches
+    out = flash_attention_sm90(q, k, v, 1 / 16, (2, 6), kv_mask=mask)
+    torch.cuda.synchronize()
+    assert attention_combine.launches == before + 1
+    ref = dense_attention_masked(q, k, v, 1 / 16, mask)
+    assert _within_bound(out, ref, q, k, v, 1 / 16, mask)
+    uniform = v[0].float().mean(dim=1, keepdim=True).expand(-1, 130, -1)
+    torch.testing.assert_close(out[0].float(), uniform, atol=1e-4, rtol=1e-2)
+
+
+@pytest.mark.parametrize("key_tile", [64, 128])
+@pytest.mark.parametrize("name", ["slots", "ragged", "all_masked", "all_valid"])
+def test_key_tiles_kernel_matches_plain(cuda, name, key_tile):
+    """The list kernel against key_tile_list on the same mask: identical
+    counts, tile lists and flags (also past the counts)."""
+    nk = 7 * 4096 + 64
+    if name == "slots":
+        mask = _slot_mask(2, nk, cuda)
+    elif name == "ragged":
+        mask = _ragged_runs(3, nk - 27, cuda)
+    else:
+        mask = torch.full((2, 300 * key_tile + 1), name == "all_valid", dtype=torch.bool, device=cuda)
+    before = key_tiles.launches
+    ours = key_tiles(mask, key_tile)
+    torch.cuda.synchronize()
+    assert key_tiles.launches == before + 1
+    for x, y in zip(ours, key_tile_list(mask, key_tile)):
+        assert x.dtype == y.dtype and torch.equal(x, y)
 
 
 def test_k4_at_the_memory_cross_attention_shape(cuda):
@@ -152,12 +226,12 @@ def test_k4_at_the_memory_cross_attention_shape(cuda):
         assert not _within_bound(dense_attention_masked(q, k, v, 1 / 16, wrong), ref, q, k, v, 1 / 16, mask)
 
 
-@pytest.mark.parametrize("d", [64, 256])
+@pytest.mark.parametrize("d", [64, 72, 256])
 @pytest.mark.parametrize("n", [905, 37, 64, 4096])
 def test_sm90_matches_plain(cuda, d, n):
     """The wgmma + TMA kernel through K2 (n = nk), and the previous design
     (the tile kernel) on the same inputs; the launch is counted as sm90."""
-    b, h = (2, 4) if d == 64 else (2, 1)
+    b, h = (2, 4) if d != 256 else (2, 1)
     q, k, v = (torch.as_tensor(x, device=cuda).to(torch.bfloat16) for x in _qkv(n, b, h, d))
     before = dict(launches_by_kernel)
     out = flash_attention_k2(q, k, v, d**-0.5)
@@ -180,7 +254,21 @@ def test_sm90_d64_builds_at_the_crop_batches(cuda, config, b):
     assert _within_bound(out, dense_attention(q, k, v, SCALE), q, k, v, SCALE)
 
 
-@pytest.mark.parametrize("d", [64, 256])
+@pytest.mark.parametrize("config", [(1, 1), (2, 1), (3, 1), (3, 3)])
+@pytest.mark.parametrize("n", [4096, 333])
+def test_sm90_d72_builds(cuda, config, n):
+    """Each d 72 build (64-, 128- or 192-row blocks, and 192-row blocks with
+    3 key splits) at the Hiera-L global shape [1, 8, 4096, 72] and at a
+    ragged n = nk: the tails' zero columns 72-79 add nothing, and the
+    output's columns stop at 72."""
+    q, k, v = (torch.as_tensor(x, device=cuda).to(torch.bfloat16) for x in _qkv(n, 1, 8, 72))
+    out = flash_attention_sm90(q, k, v, 72**-0.5, config)
+    torch.cuda.synchronize()
+    assert out.shape == q.shape
+    assert _within_bound(out, dense_attention(q, k, v, 72**-0.5), q, k, v, 72**-0.5)
+
+
+@pytest.mark.parametrize("d", [64, 72, 256])
 def test_sm90_ragged_key_count(cuda, d):
     """nk no multiple of the key tile (the zero-filled keys of the last tile
     must take -inf), with n != nk."""
@@ -191,7 +279,7 @@ def test_sm90_ragged_key_count(cuda, d):
     assert _within_bound(out, dense_attention(q, k, v, d**-0.5), q, k, v, d**-0.5)
 
 
-@pytest.mark.parametrize("d", [64, 256])
+@pytest.mark.parametrize("d", [64, 72, 256])
 def test_sm90_heads_do_not_read_each_other(cuda, d):
     """Several heads with a ragged n = nk, each head's K and V offset (V by 8
     per head), so that reading the next head's rows into a ragged tile would
