@@ -39,16 +39,22 @@ Phases, one line each on stdout:
              key masked (the uniform mean of its V; a kernel that writes 0
              there fails), its list kernel against key_tile_list (identical)
              and the key tiles it processes at the smoke's mask;
-  4. k5      the biased fp32 attention kernel against its plain version at
-             the ZoeD_N shape [1, 16, 577, 64] and [2, 16, 577, 64] (the bias
-             [16, 577, 577] shared across the batch), each with and without a
-             key mask; the tolerance must fail the plain version without the
-             bias and with the next head's; kernel, plain and SDPA (attn_mask
-             = the bias) times;
+  4. k5      the biased fp32 attention kernel (register-tiled) against its
+             plain version at the ZoeD_N shape [1, 16, 577, 64] and
+             [2, 16, 577, 64] (the bias [16, 577, 577] shared across the
+             batch), each with and without a key mask, at the key split
+             count k5_config picks; the tolerance must fail the plain version
+             without the bias and with the next head's; each split count
+             checked and timed (configs); kernel, plain and SDPA (attn_mask =
+             the bias) times, CUDA events and profiler device times;
   5. k1      the raster tile kernel against its plain version on a seeded
              16k-face coloured mesh, one 128-pose chunk at 420², tile 28,
-             M 256: hit-mask mismatches, depth/rgb error, prologue, kernel and
-             plain times;
+             M 256, from per-face rows and per-tile slot indices: hit-mask
+             mismatches, depth/rgb error (colour and depth_only); a plain
+             stand-in that gathers a slot from the next pose's rows must
+             fail the gate; the prologue's time by part (projection,
+             binning, face rows), the kernel's, the whole chunk's
+             (rasterize_cuda) and the plain version's;
   6. main    the static coarse-pose path at full width: DINOv2-L/14-reg
              truncated at layer 22, bf16, seeded random weights in the JAX
              package's layout carried over by dinov2_from_jax;
@@ -126,6 +132,9 @@ K2_TOL_FP32 = dict(atol=1e-5, rtol=1e-5)
 # order, |out - ref| <= atol + rtol·|ref| (K2's fp32 tolerance).
 K5_TOL = dict(atol=1e-5, rtol=1e-5)
 K5_SHAPE = (1, 16, 577, 64)  # ZoeD_N: 384² input, 24² patches + cls, 16 heads of 64
+# K5's key-split counts, each checked and timed at K5_SHAPE: the
+# measurements k5_config rests on.
+K5_SPLITS = (1, 2, 3, 4)
 # Scale path: one frame's ZoeD_N depth with K5 vs with every biased attention
 # on the plain version. fp32 sums in another order in each of 24 blocks,
 # carried through the DPT neck and the bins head: relative to the largest
@@ -236,6 +245,7 @@ def reset_launches() -> None:
 
     raster_tile.launches = attention.flash_attention_k3.launches = attention.flash_attention_stream.launches = 0
     attention.flash_attention_k2.launches = attention.flash_attention_bias.launches = 0
+    attention.bias_combine.launches = 0
     attention.attention_combine.launches = attention.key_tiles.launches = 0
     attention.flash_attention_k2.launches_by_dim = {}
     for kernel in attention.launches_by_kernel:
@@ -252,7 +262,8 @@ def read_launches() -> dict:
 
     return {"K1": raster_tile.launches, "K2": attention.flash_attention_k2.launches,
             "K3": attention.flash_attention_k3.launches, "K4": attention.flash_attention_stream.launches,
-            "K5": attention.flash_attention_bias.launches, "combine": attention.attention_combine.launches,
+            "K5": attention.flash_attention_bias.launches, "K5_combine": attention.bias_combine.launches,
+            "combine": attention.attention_combine.launches,
             "key_tiles": attention.key_tiles.launches,
             "K2_by_dim": {str(d): n for d, n in sorted(attention.flash_attention_k2.launches_by_dim.items())},
             "launches_by_kernel": dict(attention.launches_by_kernel)}
@@ -727,19 +738,62 @@ def phase_stream_kernels(dev) -> dict:
     return recs
 
 
-def phase_k5(dev) -> dict:
+def check_bias_combine(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, bias: torch.Tensor,
+                       splits: int) -> tuple[dict, dict]:
+    """K5's combine kernel against its plain version (`combine_partials` in
+    fp32) on the same fp32 partials: the plain (m, l, acc) of the key shares
+    K5 splits this shape into, with the bias. K5_TOL; the tolerance must fail
+    a combine that drops the first split. Returns (check, record)."""
+    from freepose_tpu_torch.ops.attention import K5_KEY_TILE, attention_partials, bias_combine, combine_partials
+
+    nk = k.shape[2]
+    per = -(-(-(-nk // K5_KEY_TILE)) // splits) * K5_KEY_TILE
+    parts = [attention_partials(q, k[:, :, a:a + per], v[:, :, a:a + per], scale, None, bias[..., a:a + per])
+             for a in range(0, nk, per)]
+    m, l, acc = (torch.stack(x).contiguous() for x in zip(*parts))
+    out, ref = bias_combine(m, l, acc), combine_partials(m, l, acc, torch.float32)
+    torch.cuda.synchronize()
+
+    def ratio(x):
+        return float(((x - ref).abs() / (K5_TOL["atol"] + K5_TOL["rtol"] * ref.abs())).max())
+
+    check = {"splits": len(parts), "max_abs_err": float((out - ref).abs().max()), "tol_ratio": ratio(out),
+             "drops_a_split_tol_ratio": ratio(combine_partials(m[1:], l[1:], acc[1:], torch.float32))}
+    if check["tol_ratio"] > 1.0 or check["drops_a_split_tol_ratio"] <= 1.0:
+        raise AssertionError(f"K5's combine kernel vs plain version, tolerance {K5_TOL}: {check}")
+    ms = cuda_ms(lambda: bias_combine(m, l, acc), reps=50)
+    plain_ms = cuda_ms(lambda: combine_partials(m, l, acc, torch.float32), reps=10)
+    device = device_ms(lambda: bias_combine(m, l, acc), reps=20)
+    # Each partial read once and the fp32 output written once; a multiply-add
+    # per partial element.
+    bound_ms, bound_by = bound(2.0 * acc.numel(), 4 * (acc.numel() + m.numel() + l.numel() + out.numel()),
+                               PEAK_FP32_FLOPS)
+    rec = dict(name="bias_combine (merge of K5's key splits)", route="cuda", source=TILE_SOURCE,
+               replaces="freepose_tpu/ops/attention.py:355", max_abs_err=check["max_abs_err"], ms=ms,
+               plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    check.update(tol=K5_TOL, ms=ms, device=device, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+    return check, rec
+
+
+def phase_k5(dev) -> tuple[dict, dict]:
     """K5 against its plain version at the ZoeD_N shape, batch 1 and 2 (the
-    bias read at bh % heads), with and without a key mask; the tolerance
-    must fail the plain version without the bias and with the next head's.
-    Kernel, plain and SDPA times at the main path's [1, 16, 577, 64]."""
+    bias read at bh % heads), with and without a key mask, at the
+    split count `k5_config` picks; the tolerance must fail the plain
+    version without the bias and with the next head's. Each key-split
+    count (K5_SPLITS) checked and timed at the main path's
+    [1, 16, 577, 64] (`configs`); kernel, plain and SDPA times there; K5's
+    combine kernel against its plain version (`check_bias_combine`).
+    Returns the records of K5 and of its combine."""
     import torch.nn.functional as F
 
-    from freepose_tpu_torch.ops.attention import dense_attention_bias, flash_attention_bias
+    from freepose_tpu_torch.ops.attention import (K5_ROWS, _num_sms, dense_attention_bias, flash_attention_bias,
+                                                  k5_config)
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
     h, n, d = K5_SHAPE[1:]
     scale = d ** -0.5
     bias = torch.randn((h, n, n), generator=gen, device=dev)
+    picked = k5_config(K5_SHAPE[0] * h, n, n, _num_sms(dev))
 
     def ratio(x, ref):  # error over the allowed error; at most 1 to pass
         return float(((x - ref).abs() / (K5_TOL["atol"] + K5_TOL["rtol"] * ref.abs())).max())
@@ -756,7 +810,8 @@ def phase_k5(dev) -> dict:
             out = flash_attention_bias(q, k, v, scale, bias, kv_mask=m)
             ref = dense_attention_bias(q, k, v, scale, bias, m)
             torch.cuda.synchronize()
-            res = {"max_abs_err": float((out - ref).abs().max()), "tol_ratio": ratio(out, ref)}
+            res = {"max_abs_err": float((out - ref).abs().max()), "tol_ratio": ratio(out, ref),
+                   "splits": k5_config(b * h, n, n, _num_sms(dev))}
             for name, wrong in (("no_bias", None), ("next_head_bias", bias.roll(1, dims=0))):
                 res[f"{name}_tol_ratio"] = ratio(dense_attention_bias(q, k, v, scale, wrong, m), ref)
             checks[label] = res
@@ -765,11 +820,32 @@ def phase_k5(dev) -> dict:
             if min(res["no_bias_tol_ratio"], res["next_head_bias_tol_ratio"]) <= 1.0:
                 raise AssertionError(f"K5 tolerance {K5_TOL} does not fail a wrong bias: {label} {res}")
         if b == K5_SHAPE[0]:
-            main = (q, k, v)
-    q, k, v = main
-    ms = cuda_ms(lambda: flash_attention_bias(q, k, v, scale, bias), reps=20)
+            main = (q, k, v, mask)
+    q, k, v, mask = main
+    ref = dense_attention_bias(q, k, v, scale, bias)
+    ref_masked = dense_attention_bias(q, k, v, scale, bias, mask)
+    configs = {}
+    for splits in K5_SPLITS:  # each split count, checked, then timed in turns with the rule's pick
+        out = flash_attention_bias(q, k, v, scale, bias, splits=splits)
+        out_masked = flash_attention_bias(q, k, v, scale, bias, kv_mask=mask, splits=splits)
+        torch.cuda.synchronize()
+        rec = {"tol_ratio": max(ratio(out, ref), ratio(out_masked, ref_masked))}
+        if rec["tol_ratio"] > 1.0:
+            raise AssertionError(f"K5 at {splits} splits vs plain version beyond {K5_TOL}: {rec}")
+        rec["ms"], rec["picked_ms"] = in_turns(lambda s=splits: flash_attention_bias(q, k, v, scale, bias, splits=s),
+                                               lambda: flash_attention_bias(q, k, v, scale, bias), reps=50)
+        rec["device"] = device_ms(lambda s=splits: flash_attention_bias(q, k, v, scale, bias, splits=s), reps=20)
+        configs[f"{splits}split"] = rec
+    combine, combine_rec = check_bias_combine(q, k, v, scale, bias, max(2, picked))
+    ms = cuda_ms(lambda: flash_attention_bias(q, k, v, scale, bias), reps=50)
     plain_ms = cuda_ms(lambda: dense_attention_bias(q, k, v, scale, bias), reps=10)
-    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias[None], scale=scale), reps=20)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=bias[None], scale=scale)
+
+    library_ms = cuda_ms(sdpa, reps=50)
+    device = {"kernel": device_ms(lambda: flash_attention_bias(q, k, v, scale, bias), reps=20),
+              "sdpa": device_ms(sdpa, reps=20)}
     flops = 4.0 * q.shape[0] * h * n * n * d
     nbytes = 4 * (4 * q.numel() + bias.numel())  # q, k, v and o, and the bias, once each, fp32
     bound_ms, bound_by = bound(flops, nbytes, PEAK_FP32_FLOPS)
@@ -777,17 +853,37 @@ def phase_k5(dev) -> dict:
                source=TILE_SOURCE, replaces="freepose_tpu/ops/attention.py:317",
                max_abs_err=checks["b1"]["max_abs_err"], ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                bound_by=bound_by, library_ms=library_ms)
-    log("k5", shape=list(K5_SHAPE), bias=[h, n, n], dtype="fp32", checks=checks, tol=K5_TOL, ms=ms,
-        plain_ms=plain_ms, sdpa_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, tflops=flops / ms / 1e9)
+    log("k5", shape=list(K5_SHAPE), bias=[h, n, n], dtype="fp32", rows=K5_ROWS, splits=picked, checks=checks,
+        tol=K5_TOL, configs=configs, combine=combine, ms=ms, device=device, plain_ms=plain_ms, sdpa_ms=library_ms,
+        bound_ms=bound_ms, bound_by=bound_by, bound_share=bound_ms / device["kernel"] if device["kernel"] else None,
+        tflops=flops / ms / 1e9)
     del q, k, v, bias, main
     torch.cuda.empty_cache()
-    return rec
+    return rec, combine_rec
+
+
+def reads_next_pose(rows: torch.Tensor, slots: torch.Tensor, res: int, tile: int, ambient: float,
+                    depth_only: bool) -> torch.Tensor:
+    """Plain stand-in of a wrong K1 that gathers each tile's first slot from
+    the next pose's face rows (a pose stride off by one for that slot)."""
+    from freepose_tpu_torch.ops.rasterizer_cuda import raster_tile_plain
+
+    f = rows.shape[1]
+    both = torch.cat([rows, rows.roll(-1, dims=0)], dim=1)  # [P, 2F, 32]: this pose's rows, then the next's
+    wrong = slots.clone()
+    wrong[..., 0] = torch.where(slots[..., 0] >= 0, slots[..., 0] + f, slots[..., 0])
+    return raster_tile_plain(both, wrong, res, tile, ambient, depth_only)
 
 
 def phase_k1(dev, mesh) -> dict:
+    """K1 on one 128-pose chunk at 420² against its plain version, colour
+    and depth_only; the gate must fail a kernel that gathers a slot from the
+    next pose's rows. The prologue timed by part: projection, binning
+    (select_tile_faces) and face rows."""
     from freepose_tpu_torch.io.mesh import pad_mesh
     from freepose_tpu_torch.ops.rasterizer import RasterSettings
-    from freepose_tpu_torch.ops.rasterizer_cuda import N_ATTRS, _bin_and_pack, _ROWS, raster_tile, raster_tile_plain
+    from freepose_tpu_torch.ops.rasterizer_cuda import (N_ATTRS, _ROWS, bin_faces, face_rows, project_faces,
+                                                         raster_tile, raster_tile_plain, rasterize_cuda)
     from freepose_tpu_torch.pipeline.renderer import RENDERING_SCALE, TemplateRenderer
 
     renderer = TemplateRenderer(n_poses=N_VIEWS, resolution=RES, device=dev)
@@ -798,46 +894,58 @@ def phase_k1(dev, mesh) -> dict:
     poses = renderer.poses[:CHUNK]
     ks = renderer.k.expand(poses.shape[0], 3, 3)
 
-    def prologue():
-        return _bin_and_pack(v, c, f, valid, poses, ks, settings)
+    tri_uv, tri_z, fvalid = project_faces(v, f, valid, poses, ks, settings)
+    prologue_ms = {"projection": cuda_ms(lambda: project_faces(v, f, valid, poses, ks, settings), reps=5),
+                   "binning": cuda_ms(lambda: bin_faces(tri_uv, fvalid, settings), reps=5),
+                   "face_rows": cuda_ms(lambda: face_rows(tri_uv, tri_z, c, f, settings), reps=5)}
+    rows, slots = face_rows(tri_uv, tri_z, c, f, settings), bin_faces(tri_uv, fvalid, settings)
+    del tri_uv, tri_z, fvalid
 
-    prologue_ms = cuda_ms(prologue, reps=3)
-    attrs, origins = prologue()
-    out = raster_tile(attrs, origins, TILE, settings.ambient, False)
-    ref = raster_tile_plain(attrs, origins, TILE, settings.ambient, False)
-    torch.cuda.synchronize()
-    mismatch = int(((out[..., 0] > 0) != (ref[..., 0] > 0)).sum())
-    depth_err = float((out[..., 0] - ref[..., 0]).abs().max())
-    rgb_err = float((out[..., 1:] - ref[..., 1:]).abs().max())
-    dout = raster_tile(attrs, origins, TILE, settings.ambient, True)
-    dref = raster_tile_plain(attrs, origins, TILE, settings.ambient, True)
-    depth_only_err = float((dout - dref).abs().max())
+    def check(out, ref):
+        return (int(((out[..., 0] > 0) != (ref[..., 0] > 0)).sum()), float((out[..., 0] - ref[..., 0]).abs().max()),
+                float((out[..., 1:] - ref[..., 1:]).abs().max()))
+
+    refs = {do: raster_tile_plain(rows, slots, RES, TILE, settings.ambient, do) for do in (False, True)}
+    out = raster_tile(rows, slots, RES, TILE, settings.ambient, False)
+    mismatch, depth_err, rgb_err = check(out, refs[False])
+    dmismatch, depth_only_err, _ = check(raster_tile(rows, slots, RES, TILE, settings.ambient, True), refs[True])
     hit_px = int((out[..., 0] > 0).sum())
-    if mismatch or max(depth_err, rgb_err, depth_only_err) > K1_ATOL or hit_px == 0:
-        raise AssertionError(f"K1 disagrees with its plain version: {mismatch} hit-mask mismatches, "
+    if mismatch or dmismatch or max(depth_err, rgb_err, depth_only_err) > K1_ATOL or hit_px == 0:
+        raise AssertionError(f"K1 disagrees with its plain version: {mismatch} + {dmismatch} hit-mask mismatches, "
                              f"depth {depth_err}, rgb {rgb_err}, depth_only {depth_only_err}, hits {hit_px}")
-    ms = cuda_ms(lambda: raster_tile(attrs, origins, TILE, settings.ambient, False), reps=10)
-    plain_ms = cuda_ms(lambda: raster_tile_plain(attrs, origins, TILE, settings.ambient, False), reps=1)
-    pt, _, m = attrs.shape
+    wrong = check(reads_next_pose(rows, slots, RES, TILE, settings.ambient, False), refs[False])
+    if not (wrong[0] > 0 or max(wrong[1:]) > K1_ATOL):
+        raise AssertionError(f"K1's gate does not fail a kernel that reads the next pose's rows: {wrong}")
+    ms = cuda_ms(lambda: raster_tile(rows, slots, RES, TILE, settings.ambient, False), reps=10)
+    device = device_ms(lambda: raster_tile(rows, slots, RES, TILE, settings.ambient, False), reps=5)
+    chunk_ms = cuda_ms(lambda: rasterize_cuda(v, c, f, valid, poses, renderer.k, settings), reps=5)
+    plain_ms = cuda_ms(lambda: raster_tile_plain(rows, slots, RES, TILE, settings.ambient, False), reps=1)
+    p, n_faces, _ = rows.shape
+    m = slots.shape[2]
     tp = TILE * TILE
     rows_used = _ROWS["c2b"] + 1  # geometry + colour rows; the rest of N_ATTRS is padding
-    nbytes = pt * (rows_used * m * 4 + 2 * 4 + tp * 4 * 4)
-    valid_pairs = int((attrs[:, _ROWS["valid"]] > 0.5).sum()) * tp
+    # Each input read once (the used rows of every face row, the slots), the image written once.
+    nbytes = p * n_faces * rows_used * 4 + slots.numel() * 4 + p * RES * RES * 4 * 4
+    held = slots >= 0
+    face_ok = rows[..., _ROWS["valid"]].gather(1, slots.clamp(min=0).reshape(p, -1).long()).reshape(slots.shape) > 0.5
+    valid_pairs = int((held & face_ok).sum()) * tp
     # Every valid (pixel, face) pair needs its coverage test: three edge
     # functions (5 ops each), three sign products and three compares.
     flops = 21 * valid_pairs
-    bytes_ms, ops_ms = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FP32_FLOPS * 1e3
+    bound_ms, bound_by = bound(flops, nbytes, PEAK_FP32_FLOPS)
     rec = dict(name="K1 raster_tile (tile rasterizer)", route="cuda",
                source="freepose_tpu_torch/csrc/raster_tile.cu",
                replaces="freepose_tpu/ops/rasterizer_pallas.py:44", max_abs_err=max(depth_err, rgb_err),
-               ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
-               bound_by="bytes" if bytes_ms >= ops_ms else "operations", library_ms=None)
-    log("k1", poses=poses.shape[0], tiles=pt, faces_per_tile=m, attrs_rows=N_ATTRS, hit_px=hit_px,
-        hit_mask_mismatches=mismatch, depth_max_err=depth_err, rgb_max_err=rgb_err,
-        depth_only_max_err=depth_only_err, atol=K1_ATOL, prologue_ms=prologue_ms, ms=ms,
-        plain_ms=plain_ms, bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
-        valid_pairs=valid_pairs)
-    del attrs, origins, out, ref, dout, dref
+               ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    log("k1", poses=p, tiles=p * slots.shape[1], faces=n_faces, faces_per_tile=m, row_width=N_ATTRS,
+        hit_px=hit_px, hit_mask_mismatches=mismatch, depth_max_err=depth_err,
+        rgb_max_err=rgb_err, depth_only_max_err=depth_only_err, atol=K1_ATOL,
+        reads_next_pose={"hit_mask_mismatches": wrong[0], "depth_max_err": wrong[1], "rgb_max_err": wrong[2]},
+        prologue_ms=prologue_ms, prologue_total_ms=sum(prologue_ms.values()), ms=ms, device=device,
+        chunk_ms=chunk_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        bound_share=bound_ms / device if device else None, valid_pairs=valid_pairs,
+        input_mb={"face_rows": rows.numel() * 4 / 1e6, "slots": slots.numel() * 4 / 1e6})
+    del rows, slots, out, refs
     torch.cuda.empty_cache()
     return rec
 
@@ -1301,6 +1409,10 @@ def phase_scale(dev) -> tuple[dict, dict]:
     n_blocks = zoedepth.DepthConfig().beit.num_layers
     if not forwards or launches["K5"] < n_blocks * len(forwards) or launches["K5"] <= 0:
         raise AssertionError(f"scale path: {launches['K5']} K5 launches for {len(forwards)} depth forwards")
+    if attention.k5_config(K5_SHAPE[1], K5_SHAPE[2], K5_SHAPE[2], attention._num_sms(dev)) > 1 and \
+            launches["K5_combine"] != launches["K5"]:
+        raise AssertionError(f"scale path: K5 splits its keys at ZoeD_N's shape, but its combine launched "
+                             f"{launches['K5_combine']} times for {launches['K5']} K5 launches")
     if len(scaled) != len(props) or not all(math.isfinite(p["scale"]) and p["scale"] > 0 for p in scaled):
         raise AssertionError(f"scale path: scales not finite and > 0: {scales}")
     if any(len(s) != 1 for s in per_track.values()):
@@ -1328,7 +1440,7 @@ def main() -> int:
     phase_build()
     k2 = phase_k2(dev)
     streams = phase_stream_kernels(dev)
-    k5 = phase_k5(dev)
+    k5, k5_combine = phase_k5(dev)
     mesh = bumpy_torus()
     k1 = phase_k1(dev, mesh)
     _, static = phase_main(dev, mesh)
@@ -1343,11 +1455,13 @@ def main() -> int:
     paths = {"static": static, "video": video, "scale": scale}
     counts = {k1["name"]: lambda p: p["K1"], streams["K3"]["name"]: lambda p: p["K3"],
               streams["K4"]["name"]: lambda p: p["K4"], k5["name"]: lambda p: p["K5"],
+              k5_combine["name"]: lambda p: p["K5_combine"],
               streams["combine"]["name"]: lambda p: p["combine"],
               streams["key_tiles"]["name"]: lambda p: p["key_tiles"]}
     for rec, d in ((k2, 64), (streams["K2_d72"], 72), (streams["K2_d256"], 256)):
         counts[rec["name"]] = lambda p, d=d: p["K2_by_dim"].get(str(d), 0)
-    records = (k1, k2, streams["K2_d72"], streams["K2_d256"], streams["K3"], streams["K4"], k5, streams["combine"],
+    records = (k1, k2, streams["K2_d72"], streams["K2_d256"], streams["K3"], streams["K4"], k5, k5_combine,
+               streams["combine"],
                streams["key_tiles"])
     for rec in records:
         rec["launches_by_path"] = {path: counts[rec["name"]](p) for path, p in paths.items()}

@@ -86,9 +86,9 @@
 //      64 KB each), one block per SM.
 //   7. Key splits. When the blocks leave the card short of a wave, the key
 //      tiles are split over `splits` blocks: each writes its partial
-//      (m, l, acc) in fp32 to scratch from the wrapper, and
-//      sm90_combine_kernel merges them (ops/attention.py:sm90_config picks
-//      the count: [2, 1, 4096, 256] takes 2, K3's shape 4, K4's 4).
+//      (m, l, acc) in fp32 to scratch from the wrapper, and the combine
+//      kernel of split_combine.cuh merges them (ops/attention.py:sm90_config
+//      picks the count: [2, 1, 4096, 256] takes 2, K3's shape 4, K4's 4).
 //   8. The key mask (K4). sm90_key_tiles_kernel turns the byte mask
 //      [batch, nk] into, per batch element, the count of key tiles holding a
 //      valid key, their indices in increasing order and a flag on each that
@@ -119,6 +119,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "split_combine.cuh"
 
 namespace flash {
 
@@ -673,36 +675,6 @@ sm90_key_tiles_kernel(const uint8_t* __restrict__ mask, int nk, int bk, int* __r
   if (threadIdx.x == 0) count[blockIdx.x] = listed == 0 ? n_tiles : listed;
 }
 
-// Merge key splits: out[r] = Σ_s e^(m_s - M)·acc_s / max(Σ_s e^(m_s - M)·l_s,
-// 1e-30) with M = max_s m_s, in bf16. acc [splits, rows, d], m and l
-// [splits, rows], fp32; d / 4 threads per row, each on 4 columns.
-__global__ void __launch_bounds__(256)
-sm90_combine_kernel(const float* __restrict__ acc, const float* __restrict__ m, const float* __restrict__ l,
-                    bf16* __restrict__ o, int splits, int rows, int d) {
-  const int tpr = d / 4;
-  const long idx = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long row = idx / tpr;
-  const int c4 = (int)(idx % tpr);
-  if (row >= rows) return;
-  float mx = -INFINITY;
-  for (int s = 0; s < splits; ++s) mx = fmaxf(mx, m[(long)s * rows + row]);
-  float sum = 0.0f;
-  float4 a = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  for (int s = 0; s < splits; ++s) {
-    const float wgt = expf(m[(long)s * rows + row] - mx);
-    sum += wgt * l[(long)s * rows + row];
-    const float4 x = reinterpret_cast<const float4*>(acc + ((long)s * rows + row) * d)[c4];
-    a.x += wgt * x.x;
-    a.y += wgt * x.y;
-    a.z += wgt * x.z;
-    a.w += wgt * x.w;
-  }
-  const float inv = 1.0f / fmaxf(sum, 1e-30f);
-  __nv_bfloat162* og = reinterpret_cast<__nv_bfloat162*>(o + row * d + 4 * c4);
-  og[0] = __floats2bfloat162_rn(a.x * inv, a.y * inv);
-  og[1] = __floats2bfloat162_rn(a.z * inv, a.w * inv);
-}
-
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
                                   const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
                                   CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
@@ -749,14 +721,6 @@ int allow_smem() {
                              (int)Sm90<D, NWG>::SMEM);
   if (err == cudaSuccess && dev < 64) done[dev] = true;
   return (int)err;
-}
-
-inline int launch_combine(const float* acc, const float* m, const float* l, bf16* o, int splits, int rows, int d,
-                          cudaStream_t stream) {
-  const long blocks = ((long)rows * (d / 4) + 255) / 256;
-  if (blocks > 2147483647L) return (int)cudaErrorInvalidValue;
-  sm90_combine_kernel<<<(unsigned)blocks, 256, 0, stream>>>(acc, m, l, o, splits, rows, d);
-  return (int)cudaGetLastError();
 }
 
 inline int launch_key_tiles(const uint8_t* mask, int batch, int nk, int bk, int* count, int* list, uint8_t* partial,
@@ -810,8 +774,8 @@ int launch_sm90(const void* q, const void* k, const void* v, void* o, void* part
       scale * LOG2E);
   const cudaError_t launched = cudaGetLastError();
   if (launched != cudaSuccess || splits == 1) return (int)launched;
-  return launch_combine((const float*)part_acc, (const float*)part_m, (const float*)part_l, (bf16*)o, splits,
-                        bh * n, D, stream);
+  return split_combine::launch((const float*)part_acc, (const float*)part_m, (const float*)part_l, (bf16*)o, splits,
+                               (long)bh * n, D, stream);
 }
 
 template <int D, int NWG>
@@ -882,6 +846,6 @@ extern "C" int flash_sm90_key_tiles_launch(const void* mask, int batch, int nk, 
 extern "C" int flash_sm90_combine_launch(const void* acc, const void* m, const void* l, void* o, int splits, int rows,
                                          int d, void* stream) {
   if (splits < 1 || rows <= 0 || d <= 0 || d % 4 != 0 || d > 1024) return (int)cudaErrorInvalidValue;
-  return flash::launch_combine((const float*)acc, (const float*)m, (const float*)l, (flash::bf16*)o, splits, rows, d,
+  return split_combine::launch((const float*)acc, (const float*)m, (const float*)l, (flash::bf16*)o, splits, rows, d,
                                (cudaStream_t)stream);
 }

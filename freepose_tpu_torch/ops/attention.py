@@ -23,9 +23,11 @@ every bf16 call, K2, K3 and K4 at d 64, 72 and 256, runs the wgmma + TMA
 kernel of csrc/flash_attention_sm90.cu (with its combine kernel when it
 splits the keys, `sm90_config`; a masked call first lists the key tiles
 that hold a valid key, `key_tiles`, and skips the others); fp32 K2 runs the
-scalar kernel of csrc/flash_attention.cu. K5 is a scalar fp32 kernel of the
-same library, which also keeps the mma.sync tile kernel, the previous
-design of K2 to K4 (`flash_attention_tile`).
+scalar kernel of csrc/flash_attention.cu. K5 is a register-tiled fp32
+kernel of the same library (32-row blocks, key splits merged by the combine
+kernel: `k5_config`), which also keeps the
+mma.sync tile kernel, the previous design of K2 to K4
+(`flash_attention_tile`).
 
 Each wrapper launches its kernel for CUDA tensors (or raises on what the
 kernel does not take) and runs the plain version for CPU tensors; nothing
@@ -39,6 +41,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import heapq
 
 import torch
 
@@ -192,6 +195,45 @@ def sm90_config(bh: int, n: int, nk: int, d: int, key_tile: int, num_sms: int = 
     return wgs, best
 
 
+K5_KEY_TILE = 64  # keys per streamed tile of K5 (csrc/flash_attention.cu:K5_BK)
+K5_ROWS = 32  # query rows per block of K5 (csrc/flash_attention.cu:K5_BQ); two blocks per SM
+K5_MAX_SPLITS = 4
+# K5's cost model, fitted to its device times at 1-4 key splits at the
+# ZoeD_N shape [1, 16, 577, 64] (chip_smoke.py's k5 phase, H100 80GB HBM3 at
+# 700 W: 0.0881, 0.0755, 0.0726 and 0.0713 ms; the model within 7% of each).
+# Units: a query row against a key tile in a block that shares its SM with
+# one other. Every block pays K5_BLOCK_COST units of set-up (Q and the first
+# stage), and a split call K5_COMBINE_COST units per split for the combine.
+K5_BLOCK_COST = 16
+K5_COMBINE_COST = 27
+
+
+@functools.lru_cache(maxsize=1024)
+def k5_config(bh: int, n: int, nk: int, num_sms: int = 132) -> int:
+    """Key splits of K5 for q [bh, n, 64] against nk keys: the least
+    modelled device time. The model deals the grid's blocks, in launch
+    order (x = bh fastest, then row tiles, then splits), to the earliest
+    free of 2·num_sms slots, each block costing K5_ROWS · its split's key
+    tiles + K5_BLOCK_COST; the time is the last slot's, plus the combine.
+    Ties go to fewer splits. Split counts that would leave a split empty
+    are not taken."""
+    tiles = -(-nk // K5_KEY_TILE)
+    best, best_cost = 1, None
+    for s in range(1, min(K5_MAX_SPLITS, tiles) + 1):
+        per = -(-tiles // s)
+        if -(-tiles // per) != s:
+            continue
+        slots = [0] * (2 * num_sms)
+        for z in range(s):
+            work = K5_ROWS * min(per, tiles - z * per) + K5_BLOCK_COST
+            for _ in range(bh * -(-n // K5_ROWS)):
+                heapq.heapreplace(slots, slots[0] + work)
+        cost = max(slots) + (K5_COMBINE_COST * s if s > 1 else 0)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = s, cost
+    return best
+
+
 def key_tile_list(kv_mask: torch.Tensor, key_tile: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of the list kernel (`key_tiles`): for kv_mask [B, Nk]
     (False = masked key) and tiles of `key_tile` keys, per batch element the
@@ -221,18 +263,23 @@ def key_tile_list(kv_mask: torch.Tensor, key_tile: int) -> tuple[torch.Tensor, t
 
 
 def attention_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
-                       kv_mask: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                       kv_mask: torch.Tensor | None = None,
+                       bias: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain (m, l, acc) of one key range, as a key split of the sm90 kernel
     leaves them: m the row max of q·kᵀ·scale, l the row sum of
     p = exp(q·kᵀ·scale - m), acc = p (rounded to v's dtype)·v; all fp32.
     q [..., N, d], k/v [..., Nk, d] -> [..., N], [..., N], [..., N, d].
     kv_mask [B, Nk] as for K4 (q [B, H, N, d]): a masked key's logit is
     -1e30. An empty key range gives m = -1e30, l = 0, acc = 0, what an empty
-    share of a masked call's key tiles leaves."""
+    share of a masked call's key tiles leaves. bias [H, N, Nk] (the key
+    range's columns), added before the mask, gives what a key split of K5
+    leaves."""
     if k.shape[-2] == 0:
         return (torch.full(q.shape[:-1], NEG_INF, device=q.device), q.new_zeros(q.shape[:-1], dtype=torch.float32),
                 q.new_zeros(q.shape[:-1] + v.shape[-1:], dtype=torch.float32))
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if bias is not None:
+        logits = logits + bias.float()[None]
     if kv_mask is not None:
         logits = torch.where(kv_mask.to(torch.bool)[:, None, None, :], logits,
                              torch.full((), NEG_INF, device=logits.device))
@@ -260,7 +307,8 @@ _ARGTYPES = {  # the C entry points of the attention libraries
     ("flash_attention_sm90", "flash_sm90_key_tile"): [_I],
     ("flash_attention", "flash_tile_launch"): [_P] * 5 + [_I] * 5 + [_F, _P],
     ("flash_attention", "flash_f32_launch"): [_P] * 4 + [_I] * 4 + [_F, _P],
-    ("flash_attention", "flash_attention_bias_launch"): [_P] * 6 + [_I] * 5 + [_F, _P],
+    ("flash_attention", "flash_attention_bias_launch"): [_P] * 9 + [_I] * 6 + [_F, _P],
+    ("flash_attention", "flash_bias_combine_launch"): [_P] * 4 + [_I, ctypes.c_long, _P],
 }
 
 
@@ -287,8 +335,9 @@ def sm90_key_tile(d: int) -> int:
 def attention_combine(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
                       dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """Combine wrapper: m and l [S, B, H, N], acc [S, B, H, N, d], fp32 and
-    contiguous -> [B, H, N, d]. CUDA tensors launch sm90_combine_kernel
-    (bf16 output), CPU tensors run `combine_partials`."""
+    contiguous -> [B, H, N, d]. CUDA tensors launch the combine kernel of
+    csrc/split_combine.cuh as built into the sm90 library (bf16 output),
+    CPU tensors run `combine_partials`."""
     name = "attention_combine"
     if _on_cpu(m, l, acc):
         return combine_partials(m, l, acc, dtype)
@@ -527,12 +576,15 @@ def flash_attention_auto(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scal
 
 def flash_attention_bias(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, bias: torch.Tensor,
                          kv_mask: torch.Tensor | None = None, block_q: int = 256, block_k: int = 512,
-                         interpret: bool = False) -> torch.Tensor:
+                         interpret: bool = False, splits: int | None = None) -> torch.Tensor:
     """K5 wrapper. q [B, H, N, 64], k/v [B, H, Nk, 64] fp32 contiguous; bias
     [H, N, Nk] fp32 contiguous, shared across the batch; kv_mask [B, Nk]
     bool (False = masked key). CPU tensors run `dense_attention_bias`.
-    block_q, block_k and interpret are TPU tiling knobs and change nothing
-    here."""
+    `splits` forces a key-split count (chip_smoke.py times each); by default
+    `k5_config` picks. With key splits the same C call launches the kernel
+    into one fp32 scratch tensor (acc, then m, then l) and the combine
+    kernel from it. block_q, block_k and interpret are TPU tiling knobs and
+    change nothing here."""
     name = "flash_attention_bias"
     if _on_cpu(q, k, v, bias):
         return dense_attention_bias(q, k, v, scale, bias, kv_mask)
@@ -545,18 +597,56 @@ def flash_attention_bias(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scal
     if not bias.is_contiguous() or bias.data_ptr() % 16:
         raise ValueError(f"{name} takes a contiguous, 16-byte aligned bias")
     kv_mask = _mask_bytes(name, kv_mask, b, nk, q.device)
+    splits = splits or k5_config(b * h, n, nk, _num_sms(q.device))
     out = torch.empty_like(q)
+    parts = (None, None, None)
+    if splits > 1:
+        total = splits * b * h * n
+        scratch = torch.empty(total * (d + 2), dtype=torch.float32, device=q.device)
+        parts = (scratch.data_ptr(), scratch.data_ptr() + 4 * total * d, scratch.data_ptr() + 4 * total * (d + 1))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = _entry("flash_attention", "flash_attention_bias_launch")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), None if kv_mask is None else kv_mask.data_ptr(),
-            out.data_ptr(), b * h, h, n, nk, d, float(scale), stream)
+            out.data_ptr(), *parts, b * h, h, n, nk, d, splits, float(scale), stream)
     cuda_build.check(status, name)
     flash_attention_bias.launches += 1
+    if splits > 1:
+        bias_combine.launches += 1
     return out
 
 
 flash_attention_bias.launches = 0
+
+
+def bias_combine(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
+    """K5's combine wrapper: m and l [S, B, H, N], acc [S, B, H, N, 64], fp32
+    and contiguous -> [B, H, N, 64] fp32. CUDA tensors launch the combine
+    kernel of csrc/split_combine.cuh as built into K5's library (which a K5
+    call with key splits also launches, inside its own C call), CPU tensors
+    run `combine_partials` in fp32."""
+    name = "bias_combine"
+    if _on_cpu(m, l, acc):
+        return combine_partials(m, l, acc, torch.float32)
+    if any(t.dtype != torch.float32 for t in (m, l, acc)):
+        raise TypeError(f"{name} takes fp32 partials, got {m.dtype}, {l.dtype}, {acc.dtype}")
+    if not (m.device.type == "cuda" and l.device == m.device and acc.device == m.device):
+        raise ValueError(f"{name}: partials on {m.device}, {l.device}, {acc.device}")
+    if m.shape != l.shape or acc.shape[:-1] != m.shape or acc.shape[-1] != 64:
+        raise ValueError(f"{name}: bad shapes {tuple(m.shape)}, {tuple(l.shape)}, {tuple(acc.shape)}")
+    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in (m, l, acc)):
+        raise ValueError(f"{name} takes contiguous, 16-byte aligned partials")
+    out = torch.empty(acc.shape[1:], dtype=torch.float32, device=acc.device)
+    with torch.cuda.device(acc.device):
+        status = _entry("flash_attention", "flash_bias_combine_launch")(
+            acc.data_ptr(), m.data_ptr(), l.data_ptr(), out.data_ptr(), acc.shape[0], out.numel() // 64,
+            torch.cuda.current_stream().cuda_stream)
+    cuda_build.check(status, name)
+    bias_combine.launches += 1
+    return out
+
+
+bias_combine.launches = 0
 
 
 def flash_attention_bias_auto(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,

@@ -2,9 +2,10 @@
 
 Each kernel source under freepose_tpu_torch/csrc/ exposes a plain C entry
 point. At first use it is compiled for Hopper (sm_90a) into
-freepose_tpu_torch/_build/ (git-ignored), named by a hash of the source and
-the flags so an edit rebuilds, and loaded with ctypes. Nothing here runs at
-import time: this module imports on machines without nvcc or a GPU.
+freepose_tpu_torch/_build/ (git-ignored), named by a hash of the source, the
+shared headers (csrc/*.cuh) and the flags so an edit rebuilds, and loaded
+with ctypes. Nothing here runs at import time: this module imports on
+machines without nvcc or a GPU.
 """
 from __future__ import annotations
 
@@ -49,8 +50,11 @@ def _flags(name: str) -> list[str]:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(_flags(name)).encode()).hexdigest()[:12]
+    """The built library of `name`, named by a hash of its source, the
+    shared headers (csrc/*.cuh) and the flags."""
+    sources = [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]
+    text = b"".join(src.read_bytes() for src in sources)
+    digest = hashlib.sha256(text + " ".join(_flags(name)).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -30,6 +30,7 @@ from freepose_tpu_torch.ops.attention import (MIN_SPLIT_TILES, WAVE_COST, attent
                                               flash_attention_k2, flash_attention_k3, flash_attention_stream,
                                               flash_attention_sm90, flash_attention_tile, key_tile_list, key_tiles,
                                               launches_by_kernel, sm90_config)
+from freepose_tpu_torch.ops.attention import K5_KEY_TILE, bias_combine, k5_config
 
 SCALE = 64**-0.5
 # Keys per tile of the sm90 kernel (`Sm90::BK`; on the card `sm90_key_tile` reads
@@ -390,3 +391,56 @@ def test_k5_cpu_tensors_run_the_plain_version_without_launch():
     assert flash_attention_bias.launches == before
     with pytest.raises(ValueError):  # neither CPU nor CUDA
         flash_attention_bias(*(t.to("meta") for t in (q, k, v)), SCALE, bias.to("meta"))
+
+
+@pytest.mark.parametrize("bh", [1, 2, 16, 32, 48, 200])
+@pytest.mark.parametrize("n,nk", [(577, 577), (33, 33), (1, 1), (37, 100), (577, 4096), (4096, 65)])
+def test_k5_config_is_a_build_with_whole_splits(bh, n, nk):
+    """The K5 rule picks a split count that gives every split a non-empty,
+    equal share of the 64-key tiles (the last one ragged), as the kernel
+    computes them; a cached, pure function."""
+    splits = k5_config(bh, n, nk, 132)
+    assert isinstance(splits, int) and splits >= 1
+    tiles = -(-nk // K5_KEY_TILE)
+    per = -(-tiles // splits)
+    assert splits <= tiles and -(-tiles // per) == splits
+    assert k5_config(bh, n, nk, 132) == splits
+
+
+@pytest.mark.parametrize("splits", [2, 4])
+def test_k5_key_split_partials_combine_to_jax(splits):
+    """K5's key split on the CPU: equal shares of the 64-key tiles, each
+    split's fp32 partials (m, l, acc; `attention_partials` with the bias),
+    merged by `bias_combine` (its plain version), match the JAX biased
+    attention (fp32 atol 2e-5, as the test above). Batch 0 masks a run across a share's
+    edge, batch 1 every key of the last share (its partials: m = -1e30)."""
+    from freepose_tpu.ops.attention import flash_attention_bias as jax_flash_bias
+
+    q, k, v = _qkv(37, b=2, h=2, d=64, seed=13, nk=200)
+    bias = np.random.default_rng(14).normal(size=(2, 37, 200)).astype(np.float32)
+    mask = np.ones((2, 200), bool)
+    mask[0, 100:140] = False
+    mask[1, 192:] = False
+    tq, tk, tv, tb, tm = map(torch.as_tensor, (q, k, v, bias, mask))
+    per = -(-(-(-200 // K5_KEY_TILE)) // splits) * K5_KEY_TILE
+    parts = [attention_partials(tq, tk[:, :, s:s + per], tv[:, :, s:s + per], SCALE, tm[:, s:s + per],
+                                tb[:, :, s:s + per]) for s in range(0, 200, per)]
+    assert len(parts) == splits
+    m, l, acc = (torch.stack(x) for x in zip(*parts))
+    before = bias_combine.launches
+    ours = bias_combine(m, l, acc).numpy()  # CPU tensors: combine_partials in fp32
+    assert bias_combine.launches == before
+    ref = np.asarray(jax_flash_bias(*map(jnp.asarray, (q, k, v)), SCALE, jnp.asarray(bias),
+                                    kv_mask=jnp.asarray(mask), block_q=16, block_k=32, interpret=True))
+    np.testing.assert_allclose(ours, ref, atol=2e-5)
+    plain = flash_attention_bias(tq, tk, tv, SCALE, tb, kv_mask=tm).numpy()
+    np.testing.assert_allclose(ours, plain, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("bh,n,nk,splits", [(16, 577, 577, 3), (32, 577, 577, 2), (16, 33, 33, 1), (1, 64, 64, 1)])
+def test_k5_config_at_the_main_path_shapes(bh, n, nk, splits):
+    """The rule's picks: 3 key splits at ZoeD_N's [1, 16, 577, 64] (its
+    model fitted to the k5 phase's device times), 2 at batch 2, none where
+    a split would leave blocks idle."""
+    assert k5_config(bh, n, nk, 132) == splits
+

@@ -37,8 +37,9 @@ from freepose_tpu_torch.ops.attention import (attention_combine, attention_parti
                                               flash_attention_k2, flash_attention_k3, flash_attention_stream,
                                               flash_attention_sm90, flash_attention_tile, key_tile_list, key_tiles,
                                               launches_by_kernel, sm90_config, sm90_key_tile)
+from freepose_tpu_torch.ops.attention import bias_combine
 from freepose_tpu_torch.ops.rasterizer import RasterSettings, rasterize
-from freepose_tpu_torch.ops.rasterizer_cuda import _bin_and_pack, raster_tile, raster_tile_plain
+from freepose_tpu_torch.ops.rasterizer_cuda import prologue, raster_tile, raster_tile_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -343,31 +344,77 @@ def test_k2_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
         flash_attention_stream(q, q, q, SCALE, kv_mask=torch.ones((2, 8), dtype=torch.bool, device=cuda))
 
 
+def _k5_inputs(cuda, b, n, masked, seed=7):
+    q, k, v = (torch.as_tensor(x, device=cuda) for x in _qkv(n, b, 16, 64, seed=seed))
+    bias = torch.randn((16, n, n), generator=torch.Generator(device=cuda).manual_seed(seed), device=cuda)
+    mask = None
+    if masked:  # batch 0 loses a ragged run of keys, batch 1 (if any) every key (a uniform mean of V)
+        mask = torch.ones((b, n), dtype=torch.bool, device=cuda)
+        mask[0, n // 6 : n // 3 + 1] = False
+        mask[1:] = False
+    return q, k, v, bias, mask
+
+
+def _k5_check(out, q, k, v, bias, mask):
+    ref = dense_attention_bias(q, k, v, SCALE, bias, mask)
+    assert out.dtype == torch.float32 and out.shape == q.shape
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)
+    if q.shape[2] > 1:  # with one key the softmax is 1 whatever the bias
+        for wrong in (None, bias.roll(1, dims=0)):
+            x = dense_attention_bias(q, k, v, SCALE, wrong, mask)
+            assert not torch.allclose(x, ref, atol=1e-5, rtol=1e-5)
+
+
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("b", [1, 2])
-def test_k5_matches_plain(cuda, b, masked):
+@pytest.mark.parametrize("n", [577, 33, 1])
+def test_k5_matches_plain(cuda, n, b, masked):
     """The ZoeD_N shape [b, 16, 577, 64] fp32 with a [16, 577, 577] bias
-    N(0, 1); b = 2 shows the bias read at bh % heads. Masked: batch 0 loses
-    a ragged run of keys, batch 1 (if any) every key (a uniform mean of V).
-    The plain version without the bias, or with the next head's, fails the
-    tolerance."""
-    q, k, v = (torch.as_tensor(x, device=cuda) for x in _qkv(577, b, 16, 64, seed=7))
-    bias = torch.randn((16, 577, 577), generator=torch.Generator(device=cuda).manual_seed(7), device=cuda)
-    mask = None
-    if masked:
-        mask = torch.ones((b, 577), dtype=torch.bool, device=cuda)
-        mask[0, 100:181] = False
-        mask[1:] = False
+    N(0, 1), and ragged n = 33 and 1, at the key-split count `k5_config`
+    picks; b = 2 shows the bias read at bh % heads. The plain version
+    without the bias, or with the next head's, fails the tolerance."""
+    q, k, v, bias, mask = _k5_inputs(cuda, b, n, masked)
     before = flash_attention_bias.launches
     out = flash_attention_bias(q, k, v, SCALE, bias, kv_mask=mask)
     torch.cuda.synchronize()
     assert flash_attention_bias.launches == before + 1
-    assert out.dtype == torch.float32 and out.shape == q.shape
-    ref = dense_attention_bias(q, k, v, SCALE, bias, mask)
+    _k5_check(out, q, k, v, bias, mask)
+
+
+@pytest.mark.parametrize("n,splits", [(577, 1), (577, 2), (577, 3), (577, 4), (130, 1), (130, 2), (130, 3)])
+def test_k5_builds_and_splits(cuda, n, splits):
+    """Each key-split count the rule can pick (up to K5_MAX_SPLITS, at most
+    one per key tile), forced, batch 2 with the mask, against the plain
+    version; with splits the combine kernel runs in the same call and is
+    counted."""
+    q, k, v, bias, mask = _k5_inputs(cuda, 2, n, True, seed=11)
+    before = bias_combine.launches
+    out = flash_attention_bias(q, k, v, SCALE, bias, kv_mask=mask, splits=splits)
+    torch.cuda.synchronize()
+    assert bias_combine.launches == before + (splits > 1)
+    _k5_check(out, q, k, v, bias, mask)
+
+
+def test_k5_combine_kernel_matches_plain(cuda):
+    """K5's combine alone against `combine_partials` in fp32 on the plain
+    partials of the ZoeD_N shape's 3 key shares (with the bias and the
+    mask); dropping a split fails the tolerance."""
+    q, k, v, bias, mask = _k5_inputs(cuda, 2, 577, True, seed=5)
+    parts = [attention_partials(q, k[:, :, a:a + 256], v[:, :, a:a + 256], SCALE, mask[:, a:a + 256],
+                                bias[..., a:a + 256]) for a in range(0, 577, 256)]
+    m, l, acc = (torch.stack(x).contiguous() for x in zip(*parts))
+    before = bias_combine.launches
+    out = bias_combine(m, l, acc)
+    torch.cuda.synchronize()
+    assert bias_combine.launches == before + 1
+    ref = combine_partials(m, l, acc, torch.float32)
     torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)
-    for wrong in (None, bias.roll(1, dims=0)):
-        x = dense_attention_bias(q, k, v, SCALE, wrong, mask)
-        assert not torch.allclose(x, ref, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(out, dense_attention_bias(q, k, v, SCALE, bias, mask), atol=1e-5, rtol=1e-5)
+    assert not torch.allclose(combine_partials(m[1:], l[1:], acc[1:], torch.float32), ref, atol=1e-5, rtol=1e-5)
+    with pytest.raises(TypeError):
+        bias_combine(m, l, acc.double())
+    with pytest.raises(ValueError):  # head dim 64
+        bias_combine(m, l, acc[..., :32].contiguous())
 
 
 def test_k5_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
@@ -383,6 +430,11 @@ def test_k5_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
         flash_attention_bias(q, q, q, SCALE, bias.cpu())
     with pytest.raises(ValueError):  # a key mask per batch element
         flash_attention_bias(q, q, q, SCALE, bias, kv_mask=torch.ones((2, 8), dtype=torch.bool, device=cuda))
+    with pytest.raises(RuntimeError):  # one key tile cannot take two splits
+        flash_attention_bias(q, q, q, SCALE, bias, splits=2)
+    k5 = torch.zeros((1, 2, 320, 64), device=cuda)
+    with pytest.raises(RuntimeError):  # 4 splits of 5 key tiles (2 each) would leave one empty
+        flash_attention_bias(q, k5, k5, SCALE, torch.zeros((2, 8, 320), device=cuda), splits=4)
 
 
 def _cube():
@@ -420,25 +472,31 @@ CASES = {
 }
 
 
-@pytest.mark.parametrize("name", list(CASES))
-def test_k1_matches_plain(cuda, name):
-    case = CASES[name]
+def _k1_inputs(cuda, case):
     k = K
     if case["per_pose_k"]:
         k = np.stack([K * np.array([[s], [s], [1.0]], np.float32) for s in (0.8, 1.0, 1.25)])
     v, c, f, valid = (torch.as_tensor(a, device=cuda) for a in pad_mesh(case["mesh"](), 256, 512))
-    poses = template_poses(3, z=case["z"], device=cuda)
-    k = torch.as_tensor(k, device=cuda)
-    settings = RasterSettings(resolution=64, tile=32, max_faces_per_tile=128, depth_only=case["depth_only"])
-    attrs, origins = _bin_and_pack(v, c, f, valid, poses, k.expand(3, 3, 3), settings)
-    before = raster_tile.launches
-    out = raster_tile(attrs, origins, 32, settings.ambient, settings.depth_only)
-    torch.cuda.synchronize()
-    assert raster_tile.launches == before + 1
-    ref = raster_tile_plain(attrs, origins, 32, settings.ambient, settings.depth_only)
+    return v, c, f, valid, template_poses(3, z=case["z"], device=cuda), torch.as_tensor(k, device=cuda)
+
+
+def _k1_check(out, ref):
     assert bool((ref[..., 0] > 0).any())
     torch.testing.assert_close(out[..., 0] > 0, ref[..., 0] > 0, rtol=0, atol=0)
     torch.testing.assert_close(out, ref, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_k1_matches_plain(cuda, name):
+    case = CASES[name]
+    v, c, f, valid, poses, k = _k1_inputs(cuda, case)
+    settings = RasterSettings(resolution=64, tile=32, max_faces_per_tile=128, depth_only=case["depth_only"])
+    rows, slots = prologue(v, c, f, valid, poses, k.expand(3, 3, 3), settings)
+    before = raster_tile.launches
+    out = raster_tile(rows, slots, 64, 32, settings.ambient, settings.depth_only)
+    torch.cuda.synchronize()
+    assert raster_tile.launches == before + 1
+    _k1_check(out, raster_tile_plain(rows, slots, 64, 32, settings.ambient, settings.depth_only))
     # The whole renderer: kernel path ("auto" on a CUDA tensor) vs plain.
     rgb, depth = rasterize(v, c, f, valid, poses, k, settings)
     assert raster_tile.launches == before + 2
@@ -449,12 +507,52 @@ def test_k1_matches_plain(cuda, name):
     torch.testing.assert_close(rgb, rgb_p, rtol=0, atol=1e-6)
 
 
+@pytest.mark.parametrize("depth_only", [False, True])
+@pytest.mark.parametrize("tile,mcap", [(24, 128), (28, 4), (32, 512)])
+def test_k1_builds_at_ragged_tiles_and_caps(cuda, depth_only, tile, mcap):
+    """Tiles that do not divide 64 px (24: the last tile row and column hang
+    over; 28 with a cap of 4 faces per tile, below a tile's face count, so
+    the cap binds) and 32 with more slots than faces (most are -1)."""
+    v, c, f, valid, poses, k = _k1_inputs(cuda, CASES["sphere"])
+    settings = RasterSettings(resolution=64, tile=tile, max_faces_per_tile=mcap, depth_only=depth_only)
+    rows, slots = prologue(v, c, f, valid, poses, k.expand(3, 3, 3), settings)
+    out = raster_tile(rows, slots, 64, tile, settings.ambient, depth_only)
+    torch.cuda.synchronize()
+    _k1_check(out, raster_tile_plain(rows, slots, 64, tile, settings.ambient, depth_only))
+
+
+def test_k1_invalid_slots_read_as_no_face(cuda):
+    """A slot of -1 reads as valid = 0 in the kernel: face 0 of a quad is
+    masked out, and the plain stand-in that reads slot -1 as face 0's row
+    (validity included) changes the hit mask, which the kernel does not."""
+    verts = torch.tensor([[-0.5, -0.5, 0], [0.5, -0.5, 0], [0.5, 0.5, 0], [-0.5, 0.5, 0]], device=cuda)
+    cols = torch.rand((4, 3), generator=torch.Generator(device=cuda).manual_seed(2), device=cuda)
+    faces = torch.tensor([[0, 1, 2], [0, 2, 3]], dtype=torch.int32, device=cuda)
+    poses = torch.eye(4, device=cuda)[None].clone()
+    poses[0, 2, 3] = 2.0
+    settings = RasterSettings(resolution=64, tile=16, max_faces_per_tile=2)
+    rows, slots = prologue(verts, cols, faces, torch.tensor([False, True], device=cuda), poses,
+                           torch.as_tensor(K, device=cuda).expand(1, 3, 3), settings)
+    out = raster_tile(rows, slots, 64, 16, settings.ambient, False)
+    torch.cuda.synchronize()
+    ref = raster_tile_plain(rows, slots, 64, 16, settings.ambient, False)
+    _k1_check(out, ref)
+    wrong = raster_tile_plain(rows, slots.clamp(min=0), 64, 16, settings.ambient, False)
+    assert bool(((wrong[..., 0] > 0) != (out[..., 0] > 0)).any())
+
+
 def test_k1_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
-    attrs = torch.zeros((4, 32, 16), device=cuda)
-    origins = torch.zeros((4, 2), device=cuda)
+    rows = torch.zeros((2, 16, 32), device=cuda)
+    slots = torch.zeros((2, 4, 8), dtype=torch.int32, device=cuda)
     with pytest.raises(TypeError):
-        raster_tile(attrs.double(), origins, 8, 1.0, False)
+        raster_tile(rows.double(), slots, 16, 8, 1.0, False)
+    with pytest.raises(TypeError):
+        raster_tile(rows, slots.long(), 16, 8, 1.0, False)
+    with pytest.raises(ValueError):  # 32 columns per face row
+        raster_tile(rows[..., :16], slots, 16, 8, 1.0, False)
+    with pytest.raises(ValueError):  # T = ceil(16 / 8)² = 4 tiles per pose
+        raster_tile(rows, slots[:, :3], 16, 8, 1.0, False)
     with pytest.raises(ValueError):
-        raster_tile(attrs[:, :16], origins, 8, 1.0, False)
-    with pytest.raises(ValueError):
-        raster_tile(attrs, origins.cpu(), 8, 1.0, False)
+        raster_tile(rows, slots.cpu(), 16, 8, 1.0, False)
+    with pytest.raises(RuntimeError):  # a tile of 80 px takes 20 x 40 = 800 threads, more than a block's 512
+        raster_tile(rows, slots, 160, 80, 1.0, False)

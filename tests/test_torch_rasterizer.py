@@ -19,7 +19,9 @@ from freepose_tpu.ops.rasterizer import select_tile_faces as jax_select
 from freepose_tpu.ops.rasterizer_pallas import rasterize_pallas
 from freepose_tpu_torch.ops.rasterizer import RasterSettings, rasterize, select_tile_faces
 from freepose_tpu_torch.ops.rasterizer_cuda import (
-    _bin_and_pack,
+    N_ATTRS,
+    _ROWS,
+    prologue,
     raster_tile,
     raster_tile_plain,
     rasterize_cuda,
@@ -61,6 +63,11 @@ CASES = {
     "sphere": dict(mesh=_bumpy_sphere, z=1.1, depth_only=False, per_pose_k=False),
     "depth_only": dict(mesh=_bumpy_sphere, z=1.1, depth_only=True, per_pose_k=False),
     "per_pose_k": dict(mesh=_bumpy_sphere, z=1.1, depth_only=False, per_pose_k=True),
+    # The per-tile cap binds: tiles hold more candidates than their 4 slots.
+    # rasterize_pallas rounds the cap up to a multiple of 128 lanes, so there
+    # it does not bind, and only the XLA reference takes part.
+    "cap4": dict(mesh=_bumpy_sphere, z=1.1, depth_only=False, per_pose_k=False, max_faces_per_tile=4,
+                 pallas=False),
 }
 
 
@@ -117,16 +124,19 @@ def test_select_tile_faces_batched_over_poses():
 def test_rasterize_matches_jax(name):
     case = CASES[name]
     v, c, f, valid, poses, k = _inputs(case)
-    settings = dict(resolution=64, tile=32, max_faces_per_tile=128, depth_only=case["depth_only"])
+    settings = dict(resolution=64, tile=32, max_faces_per_tile=case.get("max_faces_per_tile", 128),
+                    depth_only=case["depth_only"])
     jargs = [jnp.asarray(a) for a in (v, c, f, valid, poses, k)]
     targs = [torch.as_tensor(a) for a in (v, c, f, valid, poses, k)]
     rgb_x, d_x = (np.asarray(a) for a in jax_rasterize(*jargs, JaxSettings(backend="xla", **settings)))
-    rgb_p, d_p = (np.asarray(a) for a in rasterize_pallas(*jargs, JaxSettings(**settings), interpret=True))
+    refs = [(rgb_x, d_x)]
+    if case.get("pallas", True):
+        refs.append(tuple(np.asarray(a) for a in rasterize_pallas(*jargs, JaxSettings(**settings), interpret=True)))
     rgb, depth = rasterize(*targs, RasterSettings(**settings))  # CPU tensor: plain version
     rgb_k, depth_k = rasterize_cuda(*targs, RasterSettings(**settings))  # prologue + K1's plain version
     assert (d_x > 0).any()
     for r_ours, d_ours in ((rgb, depth), (rgb_k, depth_k)):
-        for r_ref, d_ref in ((rgb_x, d_x), (rgb_p, d_p)):
+        for r_ref, d_ref in refs:
             np.testing.assert_array_equal(d_ours.numpy() > 0, d_ref > 0)
             np.testing.assert_allclose(d_ours.numpy(), d_ref, atol=1e-5)
             np.testing.assert_allclose(r_ours.numpy(), r_ref, atol=1e-5)
@@ -154,10 +164,63 @@ def test_kernel_backend_on_cpu_tensor_raises():
 def test_raster_tile_cpu_runs_plain_version_without_launch():
     v, c, f, valid, poses, k = (torch.as_tensor(a) for a in _inputs(CASES["sphere"]))
     settings = RasterSettings(resolution=64, tile=32, max_faces_per_tile=128)
-    attrs, origins = _bin_and_pack(v, c, f, valid, poses, k.expand(3, 3, 3), settings)
+    rows, slots = prologue(v, c, f, valid, poses, k.expand(3, 3, 3), settings)
+    assert rows.shape == (3, f.shape[0], N_ATTRS) and slots.shape == (3, 4, 128) and slots.dtype == torch.int32
     before = raster_tile.launches
-    out = raster_tile(attrs, origins, 32, settings.ambient, False)
+    out = raster_tile(rows, slots, 64, 32, settings.ambient, False)
     assert raster_tile.launches == before
-    torch.testing.assert_close(out, raster_tile_plain(attrs, origins, 32, settings.ambient, False),
+    assert out.shape == (3, 64, 64, 4)
+    torch.testing.assert_close(out, raster_tile_plain(rows, slots, 64, 32, settings.ambient, False),
                                rtol=0, atol=0)
 
+
+def _two_triangles():
+    """A quad of two triangles facing the camera; their colours differ."""
+    v = np.array([[-0.5, -0.5, 0], [0.5, -0.5, 0], [0.5, 0.5, 0], [-0.5, 0.5, 0]], np.float32)
+    f = np.array([[0, 1, 2], [0, 2, 3]], np.int32)
+    return TriMesh(v, f, np.random.default_rng(2).random((4, 3)).astype(np.float32))
+
+
+def test_invalid_slots_read_as_no_face():
+    """A slot of -1 reads as valid = 0. Face 0 is masked out (face_valid
+    False), so binning never takes it, and the tiles with spare slots carry
+    -1 there. A stand-in that drops the rule and reads slot -1 as face 0's
+    row, validity included, draws face 0 and changes the hit mask."""
+    mesh = _two_triangles()
+    v, c, f = (torch.as_tensor(a) for a in (mesh.vertices, mesh.vertex_colors, mesh.faces))
+    valid = torch.tensor([False, True])
+    poses = torch.eye(4)[None].clone()
+    poses[0, 2, 3] = 2.0  # the quad faces the camera 2 m away
+    settings = RasterSettings(resolution=64, tile=16, max_faces_per_tile=2)
+    rows, slots = prologue(v, c, f, valid, poses, torch.as_tensor(K).expand(1, 3, 3), settings)
+    assert bool((slots == -1).any()) and not bool((slots == 0).any())
+    out = raster_tile(rows, slots, 64, 16, settings.ambient, False)
+    wrong = raster_tile_plain(rows, slots.clamp(min=0), 64, 16, settings.ambient, False)
+    assert bool((out[..., 0] > 0).any())
+    assert bool(((wrong[..., 0] > 0) & ~(out[..., 0] > 0)).any())
+    # The same image as the plain rasterizer, and as if face 0 had no rows at all.
+    rgb, depth = rasterize(v, c, f, valid, poses, torch.as_tensor(K), settings)
+    torch.testing.assert_close(out[..., 0], depth, rtol=0, atol=0)
+    torch.testing.assert_close(out[..., 1:], rgb, rtol=0, atol=0)
+    cleared = rows.clone()
+    cleared[:, 0] = 0.0
+    torch.testing.assert_close(raster_tile_plain(cleared, slots.clamp(min=0), 64, 16, settings.ambient, False), out,
+                               rtol=0, atol=0)
+
+
+def test_prologue_slots_are_the_selection():
+    """bin_faces' slots are select_tile_faces' indices where a slot holds a
+    face and -1 elsewhere; face rows hold valid = 1 exactly for the faces
+    with a non-degenerate area."""
+    v, c, f, valid, poses, k = (torch.as_tensor(a) for a in _inputs(CASES["cube"]))
+    settings = RasterSettings(resolution=64, tile=32, max_faces_per_tile=64)
+    rows, slots = prologue(v, c, f, valid, poses, k.expand(3, 3, 3), settings)
+    from freepose_tpu_torch.ops.rasterizer import _project_vertices
+
+    uv, z = _project_vertices(v, poses, k.expand(3, 3, 3))
+    tri_uv, tri_z = uv[:, f.long()], z[:, f.long()]
+    idx, ok = select_tile_faces(tri_uv.amin(2), tri_uv.amax(2), valid & (tri_z > settings.znear).all(-1), 2, 32, 64)
+    torch.testing.assert_close(slots, torch.where(ok, idx, -1).int(), rtol=0, atol=0)
+    assert bool((slots >= 0).any()) and bool((slots == -1).any())
+    assert set(rows[..., _ROWS["valid"]].unique().tolist()) <= {0.0, 1.0}
+    assert bool((rows[..., 28:] == 0).all())
