@@ -93,7 +93,28 @@ Phases, one line each on stdout:
              seconds to encode the prior, depth_scales ms per mask, a
              torch.profiler breakdown of one depth forward, and one frame's
              depth against the same forward with every biased attention on
-             its plain version; the video work directory is deleted after it;
+             its plain version;
+  9. refine  the video fine refine at full width through its CLIs: the
+             torus written under each mesh name of the scale phase's
+             scaled.json, render_templates on those names (600 views at
+             420²), then dino_inference_video with its defaults (DINOv2-L
+             layer 22 bf16, a 20,000-pose fine grid, a 15° neighbourhood of
+             at most 32 views, a 256-slot cache per track, each track an
+             AutoRefineChain with a stream miss bucket of 16 and lag 3).
+             Launch counts are zeroed before the CLIs and read after them
+             (K1, K2 at d 64 and the wgmma + TMA kernel must be > 0); one
+             finite row per scaled proposal, R orthonormal, t_z > 0. The
+             same CLI with --chain-refine 0: rows and grid poses against the
+             chain's. Then, on the same functions: ms per hit and per miss
+             frame (median over frames ≥ 2), misses per frame, full
+             re-dispatches and bucket switches, a torch.profiler breakdown
+             of one hit step and one miss step, one view's features alone
+             against inside a 17-crop batch, and frame 1 of the first track
+             from a cold cache with the kernels and with every attention
+             call and K1 on their plain versions: render masks identical,
+             the 32 scores within REFINE_SCORE_ATOL, which scores read one
+             slot off must fail; the video work directory is deleted after
+             it;
 then the kernels JSON line, the card's name and power limit, and last the
 device JSON line. Exits non-zero, printing no result, without a GPU or
 without the rest of the repository beside it.
@@ -1425,6 +1446,338 @@ def phase_scale(dev) -> tuple[dict, dict]:
     return result, launches
 
 
+# Frame 1's 32 neighbourhood scores (mean patch cosines of bf16 DINOv2-L
+# features), kernels vs plain versions: the kernels round attention in bf16
+# against other maxima, and each difference is carried through 22 blocks
+# before 900 patch cosines are averaged. 1e-3 is 85x the difference measured
+# on the H100 (1.2e-5) and 110x below the error of scores read one slot off
+# (0.11), which must fail it.
+REFINE_SCORE_ATOL = 1e-3
+REFINE_ORTH_ATOL = 1e-4
+# The fine refine's defaults (dino_inference_video): the 20,000-pose fine
+# grid, a 15° neighbourhood capped at 32 views, a 256-slot cache per track,
+# the stream miss bucket of AutoRefineChain.
+N_FINE, N_NEIGHBORS, NEIGHBORHOOD, FINE_CACHE, MISS_BUCKET = 20000, 32, 15.0, 256, 16
+BATCH_INVARIANCE_CROPS = 17
+
+
+def phase_refine(dev, mesh) -> tuple[dict, dict]:
+    """render_templates and dino_inference_video through their CLIs on the
+    scale phase's scaled.json (the torus as every retrieved mesh), with the
+    refine defaults: AutoRefineChain on a 256-slot cache per track."""
+    import contextlib
+    import io
+
+    from freepose_tpu_torch.datasets.template import WebTemplateDataset
+    from freepose_tpu_torch.datasets.video import load_frame_dir
+    from freepose_tpu_torch.geometry.boxes import mask_to_bbox
+    from freepose_tpu_torch.geometry.camera import default_video_intrinsics
+    from freepose_tpu_torch.geometry.crop import crop_resize_pad
+    from freepose_tpu_torch.geometry.rotation import template_poses
+    from freepose_tpu_torch.io.bop_csv import read_results_csv
+    from freepose_tpu_torch.io.mesh import load_obj, save_obj
+    from freepose_tpu_torch.io.proposals_json import proposal_bbox_xyxy, proposal_mask
+    from freepose_tpu_torch.models.convert import save_params
+    from freepose_tpu_torch.models.dinov2 import VIT_L14_REG
+    from freepose_tpu_torch.ops import rasterizer_cuda
+    from freepose_tpu_torch.ops.attention import dense_attention, flash_attention_fn
+    from freepose_tpu_torch.ops.rasterizer_cuda import prologue, raster_tile, raster_tile_plain
+    from freepose_tpu_torch.pipeline import fine_cache
+    from freepose_tpu_torch.pipeline.fine_cache import cached_refine_auto_step, init_device_cache
+    from freepose_tpu_torch.pipeline.online_pose_estimator import (AutoRefineChain, OnlinePoseEstimator,
+                                                                   render_view_block, rescore_views,
+                                                                   select_neighborhood)
+    from freepose_tpu_torch.pipeline.proposals import extract_proposals
+    from freepose_tpu_torch.pipeline.renderer import TemplateRenderer
+    from freepose_tpu_torch.pipeline.template_bank import TemplateBank, normalize_feats
+    from freepose_tpu_torch.scripts import dino_inference_video as cli
+    from freepose_tpu_torch.scripts import render_templates
+    from freepose_tpu_torch.scripts.common import load_dino_extractor
+
+    # DINOv2-L weights as in the main phase (LayerScale 0.1, so that each
+    # block, attention included, moves the features), through --weights.
+    t0 = time.perf_counter()
+    save_params(random_dinov2_params(VIT_L14_REG), WORK_DIR / "dinov2.npz")
+    weights_s = time.perf_counter() - t0
+    scaled = json.loads((WORK_DIR / "scaled.json").read_text())
+    names = sorted({p["mesh"] for p in scaled})
+    for name in names:
+        (WORK_DIR / "meshes" / name).mkdir(parents=True, exist_ok=True)
+        save_obj(mesh, WORK_DIR / "meshes" / name / f"{name}.obj")
+    (WORK_DIR / "refine_meshes.txt").write_text("\n".join(names) + "\n")
+    common = ["--filelist", str(WORK_DIR / "refine_meshes.txt"), "--mesh-dir", str(WORK_DIR / "meshes"),
+              "--device", str(dev)]
+    argv = ["--video-dir", str(WORK_DIR / "frames"), "--proposals", str(WORK_DIR / "scaled.json"),
+            "--wds-dir", str(WORK_DIR / "shards"), "--weights", str(WORK_DIR / "dinov2.npz"),
+            "--layer", str(DINO_LAYER), *common]
+
+    # The path, once, through the CLIs a user calls.
+    torch.cuda.synchronize()
+    reset_launches()
+    cli_out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(cli_out):
+        render_templates.main(["--out", str(WORK_DIR / "shards"), *common])
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(cli_out):
+        cli.main([*argv, "--out", str(WORK_DIR / "chain.csv")])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches = read_launches()
+    rows = read_results_csv(WORK_DIR / "chain.csv", t_scale=1.0)
+    orth = max(float(np.abs(r.R @ r.R.T - np.eye(3)).max()) for r in rows)
+    finite = all(np.isfinite(r.R).all() and np.isfinite(r.t).all() and math.isfinite(r.score) for r in rows)
+    t_z_min = min(float(r.t[2]) for r in rows)
+
+    # Chain against the serial cached path, through the CLI.
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(cli_out):
+        cli.main([*argv, "--out", str(WORK_DIR / "serial.csv"), "--chain-refine", "0"])
+    torch.cuda.synchronize()
+    cli_serial_s = time.perf_counter() - t0
+    serial = read_results_csv(WORK_DIR / "serial.csv", t_scale=1.0)
+    same_rows = [(a.im_id, str(a.obj_id)) for a in rows] == [(b.im_id, str(b.obj_id)) for b in serial]
+    pose_agree = sum(bool(np.array_equal(a.R, b.R)) for a, b in zip(rows, serial))
+    score_diff = max(abs(a.score - b.score) for a, b in zip(rows, serial))
+
+    # The same functions, measured: the CLI's estimator and packs, each
+    # frame's crops made once.
+    frames = load_frame_dir(WORK_DIR / "frames")
+    h, w = frames.shape[1:3]
+    k = default_video_intrinsics(w, h, device=dev)
+    extractor = load_dino_extractor(str(WORK_DIR / "dinov2.npz"), device=dev)
+
+    def feature_fn(imgs):
+        return extractor(imgs, layer=DINO_LAYER, feature_type="patch")
+
+    renderer = TemplateRenderer(n_poses=N_VIEWS, device=dev)
+    est = OnlinePoseEstimator(feature_fn, TemplateBank(feature_fn, renderer, cache_size=4, device=dev), renderer,
+                              n_coarse_poses=N_VIEWS, n_fine_poses=N_FINE, n_neighbors=N_NEIGHBORS,
+                              extractor=extractor, feature_layer=DINO_LAYER, fine_cache_capacity=FINE_CACHE)
+    templates = WebTemplateDataset(WORK_DIR / "shards", names)
+    packs, meshes = {}, {}
+    for name in names:
+        item = templates.get_template_by_name(name)
+        rgb = torch.as_tensor(item["rgb"], device=dev).permute(0, 3, 1, 2)
+        crops = crop_resize_pad(rgb, mask_to_bbox(torch.as_tensor(item["masks"], device=dev)), RES)
+        packs[name] = est.coarse.bank.pack_from_views(name, crops, torch.as_tensor(item["depth"], device=dev),
+                                                      template_poses(rgb.shape[0], device=dev),
+                                                      torch.as_tensor(item["intrinsic"], device=dev))
+        meshes[name] = load_obj(WORK_DIR / "meshes" / name / f"{name}.obj").normalized()
+        del item, rgb, crops
+    by_frame: dict = {}
+    for p in scaled:
+        by_frame.setdefault(p["image_id"], []).append(p)
+    objs = {}  # frame -> [(mesh id, crop, crop mask, bbox, scale)]
+    for f, plist in by_frame.items():
+        masks = torch.as_tensor(np.stack([proposal_mask(p) for p in plist]), device=dev)
+        boxes = np.stack([proposal_bbox_xyxy(p).astype(np.float32) for p in plist])
+        crop = extract_proposals(torch.as_tensor(frames[f], device=dev), masks, torch.as_tensor(boxes, device=dev),
+                                 target_size=RES, bbox_extend=0.2)
+        objs[f] = [(p["mesh"], crop.proposals[i], crop.masks[i], boxes[i], float(p.get("scale", 0.1)))
+                   for i, p in enumerate(plist)]
+
+    renders = []
+    serve_render = fine_cache.render_view_block
+
+    def counted_render(*args, **kwargs):
+        renders.append(1)
+        return serve_render(*args, **kwargs)
+
+    def run_chains(sync: bool):
+        """The CLI's loop: frame 0 of a track coarse, later frames submitted
+        to its chain; with sync, each call timed to the card's finish, with
+        the miss batches it rendered and the re-dispatches it made."""
+        chains, prev, steps = {}, {}, []
+        t_all = time.perf_counter()
+        for f in sorted(objs):
+            for mid, crop, cmask, bbox, scale in objs[f]:
+                t0 = time.perf_counter()
+                if mid not in prev:
+                    prev[mid] = est.coarse.estimate(crop, packs[mid], k, bbox, scale).tcos[0]
+                    continue
+                ch, seed = chains.get(mid), None
+                if ch is None:
+                    ch = chains[mid] = AutoRefineChain(est, meshes[mid], mid, neighborhood_deg=NEIGHBORHOOD)
+                    seed = prev[mid]
+                redispatched, rendered = ch.n_full_redispatch, len(renders)
+                ch.submit(crop, cmask, k, bbox, scale, prev_pose=seed)
+                if sync:
+                    torch.cuda.synchronize()
+                    steps.append(dict(frame=f, mesh=mid, ms=(time.perf_counter() - t0) * 1e3,
+                                      miss_batches=len(renders) - rendered,
+                                      redispatch=ch.n_full_redispatch - redispatched))
+        for ch in chains.values():
+            ch.finalize_all()
+        torch.cuda.synchronize()
+        return chains, steps, time.perf_counter() - t_all
+
+    fine_cache.render_view_block = counted_render
+    try:
+        chains, steps, _ = run_chains(sync=True)
+    finally:
+        fine_cache.render_view_block = serve_render
+    # Hit frames render nothing; miss frames one miss batch (a call that
+    # also re-dispatched an earlier frame renders more, and is left out).
+    settled = [s for s in steps if s["frame"] >= 2 and not s["redispatch"]]
+    hit_ms = [s["ms"] for s in settled if s["miss_batches"] == 0]
+    miss_ms = [s["ms"] for s in settled if s["miss_batches"] == 1]
+    # The same loop without a sync per frame: its wall time (the coarse
+    # frame included) per refine frame.
+    _, _, pipelined_s = run_chains(sync=False)
+    n_refine = len(steps)
+
+    # One hit step and one miss step, profiled: the first chain's last frame
+    # again once its whole neighbourhood is cached, then the same crop from
+    # far grid poses (a full neighbourhood of misses, MISS_BUCKET served).
+    mid, ch = next(iter(chains.items()))
+    f_last = max(f for f in objs if any(o[0] == mid for o in objs[f]))
+    _, crop, cmask, bbox, scale = next(o for o in objs[f_last] if o[0] == mid)
+    inputs = (crop, cmask, k, est._f32(bbox), est._f32(scale))
+    prev = est._f32(ch.results[-1][0])
+    ch._step(inputs, prev, N_NEIGHBORS).numpy()  # caches the whole neighbourhood
+    packed = []
+
+    def step(pose):
+        before = read_launches()
+        packed.append(ch._step(inputs, pose, MISS_BUCKET).numpy())
+        after = read_launches()
+        packed.append({key: after[key] - before[key] for key in ("K1", "K2")})
+
+    profile = profile_device_time(lambda: step(prev), "hit_step", top=12)
+    hit_misses, hit_launches = int(packed[-2][18]), packed[-1]
+    far = iter(est.fine_poses[[3000, 9000, 15000, 19000]])
+    profile.update(profile_device_time(lambda: step(next(far)), "miss_step", top=12))
+    miss_misses, miss_launches = int(packed[-2][18]), packed[-1]
+
+    def step_ms(pose):
+        t0 = time.perf_counter()
+        ch._step(inputs, pose, MISS_BUCKET).numpy()
+        return (time.perf_counter() - t0) * 1e3
+
+    # Without the profiler: the hit step again, and miss steps from more far
+    # poses (each serves MISS_BUCKET of its 32 misses, as any stream miss
+    # step renders a full bucket).
+    hit_step_ms = float(np.median([step_ms(prev) for _ in range(5)]))
+    miss_step_ms = float(np.median([step_ms(pose) for pose in est.fine_poses[[1000, 5000, 7000, 11000, 17000]]]))
+    # A miss batch's render at the stream bucket: K1's prologue, K1, and the
+    # whole block (renders, crops, cloud stats).
+    padded = est._padded_mesh(mid, meshes[mid])
+    poses = est.fine_poses[:MISS_BUCKET]
+    ks = renderer.k.expand(MISS_BUCKET, 3, 3)
+    settings = renderer.settings
+    rows16, slots16 = prologue(*padded, poses, ks, settings)
+    miss_render_ms = {
+        "prologue": cuda_ms(lambda: prologue(*padded, poses, ks, settings), reps=5),
+        "K1": cuda_ms(lambda: raster_tile(rows16, slots16, RES, settings.tile, settings.ambient, False), reps=10),
+        "render_view_block": cuda_ms(lambda: render_view_block(*padded, poses, renderer.k, settings,
+                                                               renderer.pose_chunk, RES, False), reps=5)}
+    del rows16, slots16
+
+    # Batch invariance: one view's features alone and inside a 17-crop batch.
+    props, _, _ = render_view_block(*est._padded_mesh(mid, meshes[mid]), est.fine_poses[:BATCH_INVARIANCE_CROPS],
+                                    renderer.k, renderer.settings, renderer.pose_chunk, RES, False)
+    alone = normalize_feats(feature_fn(props[:1]).float())[0]
+    batched = normalize_feats(feature_fn(props).float())[0]
+    batch_invariance = float((alone - batched).abs().max())
+
+    # Frame 1 of the first track from a cold cache (the CLI's prev: frame 0's
+    # coarse pose), with the kernels and with every attention call and K1 on
+    # their plain versions: the neighbourhood's render masks and scores.
+    f1 = sorted(f for f in objs if any(o[0] == mid for o in objs[f]))[:2]
+    _, c0, _, b0, s0 = next(o for o in objs[f1[0]] if o[0] == mid)
+    prev = est.coarse.estimate(c0, packs[mid], k, b0, s0).tcos[0]
+    _, crop, cmask, bbox, scale = next(o for o in objs[f1[1]] if o[0] == mid)
+    grid = RES // extractor.config.patch_size
+    runs = {}
+    for plain in (False, True):
+        before = read_launches()
+        if plain:
+            rasterizer_cuda.raster_tile = raster_tile_plain
+            for blk in extractor.model.blocks:
+                blk.attn.attention_fn = dense_attention
+        try:
+            state = init_device_cache(FINE_CACHE, grid * grid, extractor.config.hidden_size, RES, N_FINE,
+                                      extractor.config.dtype, dev)
+            cached_refine_auto_step(
+                state, est.fine_poses, prev, prev, *est._padded_mesh(mid, meshes[mid]), renderer.k, crop, cmask, k,
+                est._f32(bbox), est._f32(scale), extractor=extractor, layer=DINO_LAYER, settings=renderer.settings,
+                pose_chunk=renderer.pose_chunk, resolution=RES, mask_scores=False,
+                rendering_scale=est.rendering_scale, neighborhood_deg=NEIGHBORHOOD, n_neighbors=N_NEIGHBORS,
+                miss_bucket=N_NEIGHBORS)
+            qf = normalize_feats(feature_fn(crop[None])[0])
+        finally:
+            rasterizer_cuda.raster_tile = raster_tile
+            for blk in extractor.model.blocks:
+                blk.attn.attention_fn = flash_attention_fn
+        after = read_launches()
+        _, idx, valid = select_neighborhood(est.fine_poses, prev, NEIGHBORHOOD, N_NEIGHBORS)
+        slots = state.slot_table[idx].long()
+        assert bool((slots >= 0).all())
+        runs[plain] = dict(state=state, slots=slots, valid=valid, qf=qf,
+                           launches={key: after[key] - before[key] for key in ("K1", "K2")})
+
+    def scores_of(run, shift=0):
+        """The neighbourhood's scores; shift=1 reads each view from the
+        slot of the view before it (the wrong stand-in)."""
+        slots = run["slots"].roll(shift)
+        st = run["state"]
+        return rescore_views(st.feats[slots], run["qf"], run["valid"], st.masks[slots], cmask, grid, False)
+
+    kernel_scores, plain_scores = scores_of(runs[False]), scores_of(runs[True])
+    valid = runs[False]["valid"]
+    mask_mismatch = int((runs[False]["state"].masks[runs[False]["slots"]] !=
+                         runs[True]["state"].masks[runs[True]["slots"]]).sum())
+    score_err = float((kernel_scores - plain_scores)[valid].abs().max())
+    off_by_one = float((scores_of(runs[False], shift=1) - plain_scores)[valid].abs().max())
+    frame1_launches = {"kernels": runs[False]["launches"], "plain": runs[True]["launches"]}
+    del runs, state
+
+    result = dict(meshes=len(names), proposals=len(scaled), rows=len(rows), rows_finite=finite, rot_orth_err=orth,
+                  t_z_min=t_z_min, render_templates_s=render_s, cli_s=cli_s, launches=launches,
+                  cli_last_line=cli_out.getvalue().strip().splitlines()[-1],
+                  chain_vs_serial={"cli_serial_s": cli_serial_s, "same_rows": same_rows, "rows": len(serial),
+                                   "grid_pose_agrees": pose_agree, "score_max_abs_diff": score_diff},
+                  dinov2_weights_write_s=weights_s, hit_step_ms=hit_step_ms, miss_step_ms=miss_step_ms,
+                  miss_render_ms=miss_render_ms,
+                  refine_frames=n_refine, ms_per_hit_frame=float(np.median(hit_ms)) if hit_ms else None,
+                  ms_per_miss_frame=float(np.median(miss_ms)) if miss_ms else None, hit_frames=len(hit_ms),
+                  miss_frames=len(miss_ms), cold_frame_ms=[next(s["ms"] for s in steps if s["mesh"] == m)
+                                                           for m in chains],
+                  steps=steps, chain_ms_per_frame_pipelined=pipelined_s * 1e3 / max(n_refine, 1),
+                  misses_per_frame={m: ch.miss_counts for m, ch in chains.items()},
+                  full_redispatches={m: ch.n_full_redispatch for m, ch in chains.items()},
+                  bucket_switches={m: ch.bucket_switches for m, ch in chains.items()},
+                  launches_per_step={"hit": hit_launches, "miss": miss_launches},
+                  profiled_step_misses={"hit": hit_misses, "miss": miss_misses},
+                  batch_invariance_max_abs=batch_invariance,
+                  frame1_kernel_vs_plain={"render_mask_mismatches": mask_mismatch, "score_max_abs_err": score_err,
+                                          "atol": REFINE_SCORE_ATOL, "one_slot_off_max_abs_err": off_by_one,
+                                          "launches": frame1_launches},
+                  peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, profile=profile)
+    log("refine", **result)
+    if min(launches["K1"], launches["K2_by_dim"].get("64", 0), launches["launches_by_kernel"]["sm90"]) <= 0:
+        raise AssertionError(f"refine path did not launch every kernel: {launches}")
+    if len(rows) != len(scaled) or not finite or orth > REFINE_ORTH_ATOL or t_z_min <= 0:
+        raise AssertionError(f"refine path: {len(rows)} rows for {len(scaled)} proposals, finite {finite}, "
+                             f"R orthonormal within {orth}, least t_z {t_z_min}")
+    if mask_mismatch or not score_err <= REFINE_SCORE_ATOL:
+        raise AssertionError(f"frame 1, kernels vs plain versions: {mask_mismatch} render-mask mismatches, "
+                             f"scores max abs err {score_err} (atol {REFINE_SCORE_ATOL})")
+    if min(frame1_launches["kernels"].values()) <= 0 or max(frame1_launches["plain"].values()) != 0:
+        raise AssertionError(f"frame 1, kernels vs plain versions: launches {frame1_launches}")
+    if hit_misses != 0 or miss_misses <= 0:
+        raise AssertionError(f"profiled steps: {hit_misses} misses in the hit step, {miss_misses} in the miss step")
+    if not off_by_one > REFINE_SCORE_ATOL:
+        raise AssertionError(f"the score tolerance {REFINE_SCORE_ATOL} does not fail scores read one slot off: "
+                             f"{off_by_one}")
+    if not same_rows:
+        raise AssertionError("chain and serial refine wrote different rows")
+    return result, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -1449,10 +1802,12 @@ def main() -> int:
         _, video = phase_video(dev)
         torch.cuda.empty_cache()
         _, scale = phase_scale(dev)
+        torch.cuda.empty_cache()
+        _, refine = phase_refine(dev, mesh)
     finally:
         shutil.rmtree(WORK_DIR, ignore_errors=True)
     # Launches on each main path's run (`launches_by_path`) and their sum.
-    paths = {"static": static, "video": video, "scale": scale}
+    paths = {"static": static, "video": video, "scale": scale, "refine": refine}
     counts = {k1["name"]: lambda p: p["K1"], streams["K3"]["name"]: lambda p: p["K3"],
               streams["K4"]["name"]: lambda p: p["K4"], k5["name"]: lambda p: p["K5"],
               k5_combine["name"]: lambda p: p["K5_combine"],

@@ -28,7 +28,9 @@ def crop_resize_pad(images: torch.Tensor, boxes: torch.Tensor, target: int, exte
     bw = torch.clamp(x2 - x1, min=1)
     bh = torch.clamp(y2 - y1, min=1)
     maxdim = torch.maximum(bw, bh)
-    scale = target / maxdim.to(torch.float32)
+    # A tensor numerator: torch computes `target / t` as target·(1/t), which
+    # rounds differently from the float32 quotient and can lose a row.
+    scale = torch.full_like(maxdim, target, dtype=torch.float32) / maxdim.to(torch.float32)
     out_h = torch.floor(bh * scale).to(torch.int32)
     out_w = torch.floor(bw * scale).to(torch.int32)
     pad_t = torch.clamp(torch.div(target - out_h, 2, rounding_mode="floor"), min=0)

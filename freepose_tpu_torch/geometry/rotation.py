@@ -63,3 +63,27 @@ def template_poses(n: int, z: float = 1.1, device: str | torch.device | None = N
     poses[:, :3, :3] = rots
     poses[:, 2, 3] = z
     return poses
+
+
+# The order in which geodesic_distance sums the trace's nine products; the
+# host copy (pipeline/fine_cache.py:_grid_dists_deg) sums in the same order.
+TRACE_TERMS = tuple((i, j) for i in range(3) for j in range(3))
+
+
+def geodesic_distance(rots: torch.Tensor, ref: torch.Tensor, degrees: bool = True) -> torch.Tensor:
+    """Angle of the relative rotation between an [N, 3, 3] grid and a [3, 3]
+    reference, from the trace identity cos = (tr(R_n refᵀ) - 1) / 2.
+
+    Computed in float64 (returned as float64): the trace is the sum of the
+    nine products R_n[i, j]·ref[i, j] of float32 entries, each exact in
+    float64, added in one fixed order, so the CPU, the card and the numpy
+    copy in pipeline/fine_cache.py give the same cosine bit for bit and
+    order a pose grid alike. The JAX function works in float32; the two
+    agree to float32 rounding."""
+    r = rots.to(torch.float32).to(torch.float64)
+    q = ref.to(torch.float32).to(torch.float64)
+    tr = r[:, 0, 0] * q[0, 0]
+    for i, j in TRACE_TERMS[1:]:
+        tr = tr + r[:, i, j] * q[i, j]
+    ang = torch.arccos(torch.clamp((tr - 1.0) / 2.0, -1.0, 1.0))
+    return torch.rad2deg(ang) if degrees else ang

@@ -138,9 +138,9 @@ def select_tile_faces(
     return _out(top_idx, sel_valid)
 
 
-def _project_vertices(vertices: torch.Tensor, pose: torch.Tensor, k: torch.Tensor):
-    """Object-space vertices [..., V, 3] -> (screen uv [..., V, 2], camera z
-    [..., V]). `pose` [..., 4, 4] and `k` [..., 3, 3] batch over leading dims.
+def camera_points(vertices: torch.Tensor, pose: torch.Tensor) -> torch.Tensor:
+    """Object-space vertices [..., V, 3] -> camera coordinates [..., V, 3]
+    (`pose` [..., 4, 4] batches over leading dims).
 
     The rotation is written out term by term (no matmul, so TF32 never
     enters) and rounds as the fused multiply-add chain that XLA's CPU dot
@@ -156,7 +156,14 @@ def _project_vertices(vertices: torch.Tensor, pose: torch.Tensor, k: torch.Tenso
 
     cam = vertices[..., 0:1] * r[..., 0]
     cam = fma(vertices[..., 1:2], r[..., 1], cam)
-    cam = fma(vertices[..., 2:3], r[..., 2], cam) + t
+    return fma(vertices[..., 2:3], r[..., 2], cam) + t
+
+
+def _project_vertices(vertices: torch.Tensor, pose: torch.Tensor, k: torch.Tensor):
+    """Object-space vertices [..., V, 3] -> (screen uv [..., V, 2], camera z
+    [..., V]). `pose` [..., 4, 4] and `k` [..., 3, 3] batch over leading
+    dims; the camera points as `camera_points`."""
+    cam = camera_points(vertices, pose)
     z = cam[..., 2]
     safe_z = torch.where(z.abs() < 1e-9, torch.full_like(z, 1e-9), z)
     u = k[..., 0, 0, None] * cam[..., 0] / safe_z + k[..., 0, 2, None]
@@ -193,7 +200,11 @@ def _rasterize_plain_one(vertices, colors, faces, face_valid, pose, k, settings)
     bb_min = tri_uv.amin(dim=1)
     bb_max = tri_uv.amax(dim=1)
     top_idx, sel_valid = select_tile_faces(bb_min, bb_max, valid, grid, tile, m, settings.binning)
-    top_idx = top_idx.long()
+    # Each tile's candidates come first (ascending face index); the slots
+    # after the fullest tile's last candidate hold no face in any tile, and
+    # cutting them leaves every z-winner and hit as it is.
+    held = max(1, int(sel_valid.sum(dim=-1).max()))
+    top_idx, sel_valid = top_idx[:, :held].long(), sel_valid[:, :held]
 
     tri_uv_t = tri_uv[top_idx]  # [T, M, 3, 2]
     tri_z_t = tri_z[top_idx]  # [T, M, 3]

@@ -16,7 +16,7 @@ from freepose_tpu_torch.geometry.boxes import mask_to_bbox
 from freepose_tpu_torch.geometry.crop import crop_resize_pad
 from freepose_tpu_torch.geometry.rotation import template_poses
 from freepose_tpu_torch.io.mesh import TriMesh, pad_mesh
-from freepose_tpu_torch.ops.rasterizer import RasterSettings, render_meshes
+from freepose_tpu_torch.ops.rasterizer import RasterSettings, camera_points, render_meshes
 
 TEMPLATE_FOCAL = 600.0
 TEMPLATE_RES = 420
@@ -93,6 +93,64 @@ def generate_proposals(rgb: torch.Tensor, depth: torch.Tensor, target: int, res:
     boxes = mask_to_bbox(masks)
     props = crop_resize_pad(rgb.permute(0, 3, 1, 2), boxes, target)
     return props, masks, boxes
+
+
+def _fma(a, b, c) -> torch.Tensor:
+    """a·b + c rounded once to float32 (exact float64 product and sum): the
+    fused multiply-add that XLA's CPU backend forms where the JAX function
+    writes x / z · f + c and res - b·s, so the zoomed intrinsics agree with
+    it bit for bit (tests/test_torch_online_estimator.py)."""
+    a = torch.as_tensor(a, dtype=torch.float32)
+    return (a.double() * torch.as_tensor(b, dtype=torch.float32, device=a.device).double()
+            + torch.as_tensor(c, dtype=torch.float32, device=a.device).double()).to(torch.float32)
+
+
+def zoom_intrinsics_for_poses(
+    v: torch.Tensor,  # [Vmax, 3] padded (pre-scaled) vertices
+    f: torch.Tensor,  # [Fmax, 3] padded faces
+    face_valid: torch.Tensor,  # [Fmax] bool
+    poses: torch.Tensor,  # [P, 4, 4]
+    k: torch.Tensor,  # [3, 3] base camera
+    res: int,
+) -> torch.Tensor:
+    """Per-pose zoomed intrinsics [P, 3, 3]: map each pose's projected-vertex
+    bbox onto the full res×res canvas with crop_resize_pad's convention
+    (isotropic max-side scale, centred), so a render under k_zoom[p] is the
+    proposal crop at native resolution. A silhouette's extremes are
+    projected vertices, so the bbox needs no rasterization. A pose whose
+    vertices all lie behind the camera keeps the unzoomed k.
+
+    The vertices counted are those of the valid faces. (The JAX function
+    marks them with one scatter of face_valid over all face corners; where
+    a padding face names the same vertex, which write lands is left to the
+    backend, and on the CPU the padding face's False does, so there vertex
+    0 drops out of the bbox whenever the mesh is padded.)"""
+    vmask = torch.zeros(v.shape[0], dtype=torch.bool, device=v.device)
+    vmask[f[face_valid].reshape(-1).long()] = True
+    pc = camera_points(v, poses)  # [P, V, 3]
+    z = pc[..., 2]
+    ok = vmask & (z > 1e-6)
+    zs = torch.clamp(z, min=1e-6)
+    u = _fma(pc[..., 0] / zs, k[0, 0], k[0, 2])
+    w = _fma(pc[..., 1] / zs, k[1, 1], k[1, 2])
+    big = torch.tensor(1e9, dtype=torch.float32, device=v.device)
+    x1 = torch.where(ok, u, big).amin(dim=1).clamp(0.0, res - 1.0)
+    x2 = torch.where(ok, u, -big).amax(dim=1).clamp(0.0, res - 1.0)
+    y1 = torch.where(ok, w, big).amin(dim=1).clamp(0.0, res - 1.0)
+    y2 = torch.where(ok, w, -big).amax(dim=1).clamp(0.0, res - 1.0)
+    bw = torch.clamp(x2 - x1, min=1.0)
+    bh = torch.clamp(y2 - y1, min=1.0)
+    # A tensor numerator: `res / t` would multiply by t's reciprocal.
+    s = torch.full_like(bw, float(res)) / torch.maximum(bw, bh)
+    pad_l = _fma(-bw, s, res) / 2.0
+    pad_t = _fma(-bh, s, res) / 2.0
+    kz = torch.zeros((poses.shape[0], 3, 3), dtype=torch.float32, device=v.device)
+    kz[:, 0, 0] = k[0, 0] * s
+    kz[:, 1, 1] = k[1, 1] * s
+    kz[:, 0, 2] = (k[0, 2] - x1) * s + pad_l
+    kz[:, 1, 2] = (k[1, 2] - y1) * s + pad_t
+    kz[:, 2, 2] = 1.0
+    return torch.where(ok.any(dim=1)[:, None, None], kz, k)
 
 
 def render_template_views(

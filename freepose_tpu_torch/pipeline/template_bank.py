@@ -52,6 +52,13 @@ def depth_stats(depths: torch.Tensor, k: torch.Tensor, chunk: int = 64):
     return tuple(torch.cat(parts) for parts in zip(*outs))
 
 
+def depth_stats_per_k(depths: torch.Tensor, ks: torch.Tensor):
+    """depth_stats with per-view intrinsics [V, 3, 3] (the zoomed-render
+    path): the backprojected cloud is the same object geometry whichever
+    zoom rendered it, so the z-lift takes these stats unchanged."""
+    return depth_stats(depths, ks)
+
+
 def normalize_feats(feats: torch.Tensor) -> torch.Tensor:
     return feats / torch.linalg.norm(feats, dim=-1, keepdim=True).clamp(min=1e-12)
 

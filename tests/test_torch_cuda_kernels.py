@@ -556,3 +556,87 @@ def test_k1_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
         raster_tile(rows, slots.cpu(), 16, 8, 1.0, False)
     with pytest.raises(RuntimeError):  # a tile of 80 px takes 20 x 40 = 800 threads, more than a block's 512
         raster_tile(rows, slots, 160, 80, 1.0, False)
+
+
+# The refine path on the card: the device cache's victim pick and the
+# AutoRefineChain step, against the same functions on the CPU.
+
+
+def test_lru_victims_on_the_card_match_the_cpu(cuda):
+    from freepose_tpu_torch.pipeline.fine_cache import lru_victims
+
+    rng = np.random.default_rng(0)
+    for case in range(100):
+        cap, b = int(rng.integers(8, 300)), int(rng.integers(1, 33))
+        last_used = torch.as_tensor(rng.integers(-1, 8, cap + 1).astype(np.int32))
+        protect = torch.as_tensor(rng.random(cap + 1) < rng.uniform(0, 0.95))
+        protect[cap] = True
+        real = torch.as_tensor(np.arange(b) < rng.integers(0, b + 1))
+        ours = lru_victims(last_used.to(cuda), protect.to(cuda), real.to(cuda))
+        torch.testing.assert_close(ours.cpu(), lru_victims(last_used, protect, real), rtol=0, atol=0)
+
+
+def _refine_setup(device):
+    from freepose_tpu_torch.models.dinov2 import DinoFeatureExtractor, DinoV2Config
+    from freepose_tpu_torch.pipeline.online_pose_estimator import OnlinePoseEstimator
+    from freepose_tpu_torch.pipeline.renderer import TemplateRenderer
+    from freepose_tpu_torch.pipeline.template_bank import TemplateBank
+
+    # Head dim 64 (fp32 K2 on the card), 84² crops: 36 patches.
+    fe = DinoFeatureExtractor(DinoV2Config(hidden_size=128, num_layers=2, num_heads=2, image_size=56), device=device)
+
+    def fn(imgs):
+        return fe(imgs, layer=2, feature_type="patch")
+
+    renderer = TemplateRenderer(n_poses=16, resolution=84, max_vertices=256, max_faces=512,
+                                settings=RasterSettings(resolution=84, tile=28, max_faces_per_tile=128),
+                                device=device)
+    return OnlinePoseEstimator(fn, TemplateBank(fn, renderer), renderer, n_coarse_poses=16, n_fine_poses=200,
+                               n_neighbors=8, extractor=fe, feature_layer=2, fine_cache_capacity=12)
+
+
+def test_auto_chain_on_the_card_matches_the_cpu(cuda):
+    """AutoRefineChain with K1 and K2 on the card (pinned host copies, the
+    per-step miss count read behind the query crop's ViT, in-place cache
+    writes on the card) against the same chain on the CPU and against the
+    serial closed loop on the card, through overflow re-dispatches. Grid
+    poses identical; scores within 1e-4 (fp32 K2 against the plain
+    attention; fp32 ViT sums in another order)."""
+    from freepose_tpu_torch.pipeline.online_pose_estimator import AutoRefineChain
+
+    mesh = _bumpy_sphere()
+    est_cpu = _refine_setup("cpu")
+    frames = []
+    for gi in (5, 6, 7, 60, 61, 5, 120, 121, 6, 7):
+        rgb, depth = est_cpu.renderer.render_from_poses(mesh, est_cpu.fine_poses[gi][None])
+        props, masks, boxes = est_cpu.renderer.generate_proposals(rgb, depth)
+        frames.append((props[0], masks[0], boxes[0].float()))
+    prev0 = est_cpu.fine_poses[5]
+    runs = {}
+    for device in ("cpu", cuda):
+        est = est_cpu if device == "cpu" else _refine_setup(cuda)
+        chain = AutoRefineChain(est, mesh, "ck", neighborhood_deg=40.0, lag=2, miss_bucket=2)
+        launches = raster_tile.launches, flash_attention_k2.launches
+        for i, (prop, mask, box) in enumerate(frames):
+            chain.submit(prop, mask, est.renderer.k, box, 0.25, prev_pose=prev0 if i == 0 else None)
+        runs[str(device)] = chain.finalize_all()
+        assert chain.n_full_redispatch > 0
+        if device != "cpu":
+            assert raster_tile.launches > launches[0] and flash_attention_k2.launches > launches[1]
+            st = chain.state
+            table, grid_of = st.slot_table.cpu().numpy(), st.grid_of.cpu().numpy()
+            assert table[-1] == -1 and (table < 12).all() and grid_of[12] == 200
+            for gi in np.flatnonzero(table >= 0):
+                assert grid_of[table[gi]] == gi
+            serial, prev = [], prev0
+            for prop, mask, box in frames:
+                o = est.refine_cached(prop, mask, mesh, est.renderer.k, box, 0.25, prev, 40.0, cache_key="serial")
+                serial.append((o.tcos[0].cpu().numpy(), float(o.scores[0])))
+                prev = o.tcos[0]
+            runs["serial"] = serial
+    for name in (str(cuda), "serial"):
+        assert len(runs[name]) == len(runs["cpu"]) == len(frames)
+        for (tc, sc), (tr, sr) in zip(runs[name], runs["cpu"]):
+            np.testing.assert_allclose(tc[:3, :3], tr[:3, :3], rtol=0, atol=1e-6)
+            np.testing.assert_allclose(tc, tr, atol=1e-4)
+            assert abs(sc - sr) < 1e-4

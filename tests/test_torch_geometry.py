@@ -62,6 +62,22 @@ def test_crop_resize_pad_matches_jax_exactly(extend):
     np.testing.assert_array_equal(ours.numpy(), ref)
 
 
+def test_crop_resize_pad_upsampling_matches_jax():
+    """Template views (84²) up to the 420² crop, at every box side 1-84: the
+    isotropic scale is target / maxdim in float32 (a reciprocal times
+    target rounds otherwise, and floor(bh·scale) then loses the last row)."""
+    rng = np.random.default_rng(2)
+    side = np.arange(1, 85)
+    images = rng.random((len(side), 3, 84, 84)).astype(np.float32)
+    x1 = rng.integers(0, 84 - side + 1)
+    boxes = np.stack([x1, np.zeros_like(side), x1 + side, np.minimum(side + 3, 84)], 1).astype(np.float32)
+    boxes = np.concatenate([boxes, boxes[:, [1, 0, 3, 2]]])  # tall boxes and wide boxes
+    images = np.concatenate([images, images])
+    ours = crop_resize_pad(torch.as_tensor(images), torch.as_tensor(boxes), 420)
+    ref = np.asarray(jax_crop(jnp.asarray(images), jnp.asarray(boxes), 420))
+    np.testing.assert_array_equal(ours.numpy(), ref)
+
+
 def test_extend_and_clip_boxes():
     b = torch.tensor([[10.0, 5.0, 30.0, 15.0], [0.0, 0.0, 100.0, 50.0]])
     out = extend_and_clip_boxes(b, 0.2, 64, 48).numpy()

@@ -283,6 +283,11 @@ VIDEO_SLICE_MODULES = [
                                                       "video", "predictor", "convert")),
     "freepose_tpu_torch.scripts.extract_proposals_ground_video",
 ]
+REFINE_SLICE_MODULES = [
+    *(f"freepose_tpu_torch.pipeline.{m}" for m in ("online_pose_estimator", "fine_cache")),
+    "freepose_tpu_torch.geometry.rotation", "freepose_tpu_torch.datasets.video",
+    "freepose_tpu_torch.scripts.dino_inference_video",
+]
 SCALE_SLICE_MODULES = [
     *(f"freepose_tpu_torch.models.{m}" for m in ("layers", "beit", "zoedepth", "clip", "tokenizer")),
     *(f"freepose_tpu_torch.ops.{m}" for m in ("connected_components", "erosion", "knn")),
@@ -309,6 +314,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     mods = r.stdout.split()
     assert len(mods) >= 40 and set(VIDEO_SLICE_MODULES) <= set(mods)  # every module of the slices
     assert set(SCALE_SLICE_MODULES) <= set(mods)
+    assert set(REFINE_SLICE_MODULES) <= set(mods)
     # No import of JAX, the JAX package or the tests anywhere in the sources,
     # not even inside a function that this import did not run.
     pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|freepose_tpu|scripts|tests)\b", re.M)
@@ -337,11 +343,15 @@ def test_entry_points_raise_without_a_gpu_unless_asked_for_the_cpu(workspace):
         dino_inference.main(["--dataset", str(ws / "bop"), "--proposals", str(ws / "props.json"),
                              "--wds-dir", str(ws / "shards_nodevice"), "--filelist", str(ws / "filelist.txt"),
                              "--out", str(ws / "nodevice.csv"), "--depth-method", "const-0.1"])
-    from freepose_tpu_torch.scripts import compute_scale, generate_depth_zoe
+    from freepose_tpu_torch.scripts import compute_scale, dino_inference_video, generate_depth_zoe
 
     with pytest.raises(RuntimeError, match="device='cpu'"):
         generate_depth_zoe.main(["--dataset", str(ws / "bop")])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         compute_scale.main(["--dataset", str(ws / "bop"), "--proposals", str(ws / "props.json"),
                             "--scale-file", str(ws / "props.json")])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dino_inference_video.main(["--video-dir", str(ws), "--proposals", str(ws / "props.json"),
+                                   "--wds-dir", str(ws / "shards_nodevice"), "--filelist", str(ws / "filelist.txt"),
+                                   "--mesh-dir", str(ws / "meshes"), "--out", str(ws / "nodevice_video.csv")])
     assert TemplateRenderer(n_poses=2, resolution=RES, device="cpu").poses.device.type == "cpu"
