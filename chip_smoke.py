@@ -113,8 +113,29 @@ Phases, one line each on stdout:
              from a cold cache with the kernels and with every attention
              call and K1 on their plain versions: render masks identical,
              the 32 scores within REFINE_SCORE_ATOL, which scores read one
-             slot off must fail; the video work directory is deleted after
-             it;
+             slot off must fail;
+ 10. proposals the static proposal path at full width through its CLIs:
+             extract_retrieval_features on the refine phase's 600-view
+             template shards, then merge_features; a seeded 3-image BOP
+             test split at 640x480; extract_proposals_ground --detector
+             grounding (GroundingDINO-B at 800², SAM2 Hiera-L at 1024²,
+             DINOv2-L layer 22, all bf16, --topk 0, from .npz files of
+             seeded weights in the JAX layout) against the video phase's
+             46,000 x 1024 bank, its box threshold taken from a first detect
+             on image 0 so that ~16 boxes pass. Launch counts are zeroed
+             before the bank CLI and read after the proposal CLI (K2 at d 64
+             and at d 72 must be > 0); at least one proposal per image,
+             finite boxes of positive size centred in the image, non-empty
+             masks, meshes from the filelist, the bank's [600, 1024] view
+             features. Then, on the same functions: ms per image of
+             detection, SAM2 and retrieval, torch.profiler breakdowns of one
+             GroundingDINO forward (with the device time inside the
+             deformable attention, Swin, BERT and fusion modules) and one
+             SAM2 image step, the same image detected twice (identical
+             boxes), and image 0's SAM2 masks (mean IoU >= 0.9) and
+             retrieval features (min cosine >= 0.99) against the same calls
+             with every attention call on its plain version; the work
+             directory is deleted after it;
 then the kernels JSON line, the card's name and power limit, and last the
 device JSON line. Exits non-zero, printing no result, without a GPU or
 without the rest of the repository beside it.
@@ -1001,6 +1022,45 @@ def profile_device_time(fn, label: str, top: int = 8) -> dict:
                     "top": [[name[:60], ms, count] for name, ms, count in kernels[:top]]}}
 
 
+def module_device_ms(fn, modules: dict) -> dict:
+    """Device ms of the kernels launched inside each module class's forward
+    over one call of `fn` ({label: nn.Module class}, each forward wrapped in
+    a torch.profiler range while it runs), and the call's busy total."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    originals = {label: cls.forward for label, cls in modules.items()}
+
+    def ranged(label, forward):
+        def wrapped(self, *args, **kwargs):
+            with record_function(label):
+                return forward(self, *args, **kwargs)
+        return wrapped
+
+    fn()
+    torch.cuda.synchronize()
+    try:
+        for label, cls in modules.items():
+            cls.forward = ranged(label, originals[label])
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        for label, cls in modules.items():
+            cls.forward = originals[label]
+    # A range's kernels are those of its host-side event and its children;
+    # its device-side annotation (the range's span on the card, gaps
+    # included) counts neither there nor in the busy total.
+    out = dict.fromkeys(modules, 0.0)
+    out["busy"] = 0.0
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.name in modules:
+            out[e.name] += e.device_time_total / 1e3
+        elif e.device_type == DeviceType.CUDA and e.name not in modules and not getattr(e, "is_user_annotation", False):
+            out["busy"] += e.self_device_time_total / 1e3
+    return out
+
+
 def render_frame(renderer, mesh, dev):
     """One RES² frame holding four copies of the mesh at seeded rotations,
     one per image quadrant at z = 2 m: (image [H, W, 3], masks [4, H, W],
@@ -1778,6 +1838,254 @@ def phase_refine(dev, mesh) -> tuple[dict, dict]:
     return result, launches
 
 
+
+# Proposals path: a BOP-layout test split of LM-O / YCB-V sized images, the
+# box threshold's count on image 0, the floor of the mean mask IoU of SAM2
+# image masks kernels vs plain (the video phase's), and of the cosine of each
+# proposal's retrieval feature K2 vs plain (bf16 DINOv2-L to layer 22).
+PROPOSAL_IMAGES, PROPOSAL_HW, PROPOSAL_OBJECTS, PROPOSAL_BOXES = 3, (480, 640), 5, 16
+FEATURE_COS_MIN = 0.99
+
+
+def bop_test_split(root: Path, seed: int = SEED) -> list:
+    """A seeded BOP-layout test split under `root` (scene 000001): PROPOSAL_IMAGES
+    RGB images of PROPOSAL_HW, PROPOSAL_OBJECTS painted ellipses and boxes
+    on a blocky noisy background each, with scene_camera.json (LM-O's
+    intrinsics) and scene_gt.json. Returns the images."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed + 5)
+    h, w = PROPOSAL_HW
+    scene = root / "test" / "000001"
+    (scene / "rgb").mkdir(parents=True)
+    yy, xx = np.mgrid[:h, :w]
+    bg = np.kron(rng.random((12, 16, 3)), np.ones((h // 12, w // 16, 1))) * 110
+    images, cams, gts = [], {}, {}
+    for fid in range(PROPOSAL_IMAGES):
+        img = bg + rng.random((h, w, 3)) * 40
+        gts[str(fid)] = []
+        for obj in range(PROPOSAL_OBJECTS):
+            cy, cx = rng.uniform(0.2, 0.8) * h, rng.uniform(0.15, 0.85) * w
+            ry, rx = rng.uniform(30, 90), rng.uniform(30, 110)
+            inside = (((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1) if obj % 2 else \
+                ((abs(yy - cy) <= ry) & (abs(xx - cx) <= rx))
+            img[inside] = rng.uniform(60, 255, 3)
+            gts[str(fid)].append({"obj_id": obj + 1, "cam_R_m2c": np.eye(3).ravel().tolist(),
+                                  "cam_t_m2c": [0.0, 0.0, 800.0]})
+        images.append(img.clip(0, 255).astype(np.uint8))
+        Image.fromarray(images[-1]).save(scene / "rgb" / f"{fid:06d}.png", compress_level=1)
+        cams[str(fid)] = {"cam_K": [572.4114, 0.0, 325.2611, 0.0, 573.57043, 242.04899, 0.0, 0.0, 1.0],
+                          "depth_scale": 1.0}
+    (scene / "scene_camera.json").write_text(json.dumps(cams))
+    (scene / "scene_gt.json").write_text(json.dumps(gts))
+    return images
+
+
+def phase_proposals(dev) -> tuple[dict, dict]:
+    """The static proposal path at full width through its CLIs: the
+    retrieval bank's features (extract_retrieval_features on the refine
+    phase's 600-view template shards, then merge_features), then
+    extract_proposals_ground --detector grounding (GroundingDINO-B at 800²,
+    SAM2 Hiera-L at 1024², DINOv2-L layer 22, all bf16, --topk 0) on a seeded
+    3-image BOP split against the video phase's 46,000 x 1024 bank, from
+    .npz files of seeded weights in the JAX layout.
+
+    With random weights the detection scores are arbitrary, so --box-threshold
+    is taken halfway between the PROPOSAL_BOXES-th and the next sigmoid score
+    of a first `detect` on image 0: about 16 boxes per image, which sizes
+    the work (a batched 16-box SAM2 prompt set and a 16-crop retrieval) and
+    hides nothing. Neither package clips a detector box to the image, and a
+    box of random weights may reach past its border: the box gate asks for
+    finite boxes of positive size whose centre lies in the image (the
+    detector's sigmoid boxes guarantee no more)."""
+    import contextlib
+    import io
+
+    from freepose_tpu_torch.models.convert import (random_grounding_dino_params, random_sam2_image_params,
+                                                   save_params)
+    from freepose_tpu_torch.models import grounding_dino as gdm
+    from freepose_tpu_torch.models.sam2.model import Sam2Config
+    from freepose_tpu_torch.ops import attention
+    from freepose_tpu_torch.ops.attention import dense_attention, flash_attention_fn
+    from freepose_tpu_torch.io.proposals_json import proposal_mask
+    from freepose_tpu_torch.pipeline.proposals import retrieve_topk
+    from freepose_tpu_torch.scripts import extract_proposals_ground, extract_retrieval_features, merge_features
+    from freepose_tpu_torch.scripts.common import (load_dino_extractor, load_filelist, load_grounding_detector,
+                                                   load_sam2_image_predictor, release_models)
+
+    bop = WORK_DIR / "bop" / "smoke"
+    images = bop_test_split(bop)
+    t0 = time.perf_counter()
+    save_params(random_grounding_dino_params(gdm.GroundingDinoConfig(), seed=SEED), WORK_DIR / "gdino.npz")
+    save_params(random_sam2_image_params(Sam2Config(), seed=SEED), WORK_DIR / "sam2_image.npz")
+    weights_s = time.perf_counter() - t0
+    gd, sam, dino = (str(WORK_DIR / f) for f in ("gdino.npz", "sam2_image.npz", "dinov2.npz"))
+    detector = load_grounding_detector(gd, dev)
+    _, scores0 = detector.detect(images[0], box_threshold=-1.0)
+    ranked = np.sort(scores0)[::-1]
+    threshold = float((ranked[PROPOSAL_BOXES - 1] + ranked[PROPOSAL_BOXES]) / 2)
+    mesh_names = load_filelist(WORK_DIR / "refine_meshes.txt")
+    names = load_filelist(WORK_DIR / "filelist.txt")
+
+    # The path, once, through the CLIs a user calls.
+    torch.cuda.synchronize()
+    reset_launches()
+    cli_out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(cli_out):
+        extract_retrieval_features.main(["--wds-dir", str(WORK_DIR / "shards"), "--filelist",
+                                         str(WORK_DIR / "refine_meshes.txt"), "--out", str(WORK_DIR / "feats"),
+                                         "--weights", dino, "--layer", str(DINO_LAYER), "--device", str(dev)])
+    torch.cuda.synchronize()
+    features_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(cli_out):
+        merge_features.main(["--features-dir", str(WORK_DIR / "feats"), "--filelist",
+                             str(WORK_DIR / "refine_meshes.txt"), "--out", str(WORK_DIR / "bank_refine.npy")])
+    merge_s = time.perf_counter() - t0
+    bank_launches = read_launches()
+    argv = ["--dataset", str(bop), "--bank", str(WORK_DIR / "bank.npy"), "--filelist", str(WORK_DIR / "filelist.txt"),
+            "--out-dir", str(WORK_DIR), "--detector", "grounding", "--box-threshold", repr(threshold),
+            "--grounding-weights", gd, "--sam2-weights", sam, "--weights", dino, "--layer", str(DINO_LAYER),
+            "--device", str(dev)]
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(cli_out):
+        extract_proposals_ground.main(argv)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches = read_launches()
+    view_feats = np.load(WORK_DIR / "feats" / f"{mesh_names[0].replace('_', '')}.npy")
+    bank_refine = np.load(WORK_DIR / "bank_refine.npy")
+    (out_json,) = WORK_DIR.glob("props-ground-*.json")
+    props = json.loads(out_json.read_text())
+
+    # The same functions, measured per image: detection, SAM2 on its boxes,
+    # retrieval of the masks the CLI keeps.
+    predictor = load_sam2_image_predictor(sam, dev)
+    extractor = load_dino_extractor(dino, device=dev)
+    bank = np.load(WORK_DIR / "bank.npy")
+    bank_dev = torch.as_tensor(bank / np.maximum(np.linalg.norm(bank, axis=-1, keepdims=True), 1e-12), device=dev)
+    del bank
+    det_ms, sam_ms, ret_ms, box_counts, kept = [], [], [], [], []
+    per_image = []
+    for img in images:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        boxes, _ = detector.detect(img, box_threshold=threshold)
+        det_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        predictor.set_image(img)
+        masks, _, _ = predictor.predict(box=boxes, multimask_output=False, fetch_low_res_logits=False)
+        sam_ms.append((time.perf_counter() - t0) * 1e3)
+        keep = masks[:, 0].sum(axis=(1, 2)) >= MIN_MASK_PX
+        box_counts.append(len(boxes))
+        kept.append(int(keep.sum()))
+        per_image.append((img, boxes, masks[:, 0]))
+        t0 = time.perf_counter()
+        if keep.any():
+            retrieve_topk(img, masks[keep, 0], torch.as_tensor(boxes[keep]), bank_dev, extractor, DINO_LAYER, k=100)
+        torch.cuda.synchronize()
+        ret_ms.append((time.perf_counter() - t0) * 1e3)
+    profile = profile_device_time(lambda: detector.forward_images([images[0]]), "gdino_forward", top=16)
+    profile["gdino_forward"]["by_module_ms"] = module_device_ms(
+        lambda: detector.forward_images([images[0]]),
+        {"deformable_attention": gdm.MultiScaleDeformableAttention, "swin": gdm.SwinBackbone, "bert": gdm.Bert,
+         "fusion": gdm.BiMultiHeadAttention})
+
+    def sam2_step():
+        predictor.set_image(images[0])
+        predictor.predict(box=per_image[0][1], multimask_output=False, fetch_low_res_logits=False)
+
+    profile.update(profile_device_time(sam2_step, "sam2_image", top=8))
+
+    # The same image twice: the same boxes (the query selection's tie order).
+    again = [detector.detect(images[0], box_threshold=threshold) for _ in range(2)]
+    repeat_identical = all(np.array_equal(a, b) for a, b in zip(*again))
+
+    # SAM2 masks on image 0's boxes, then retrieval features of the kernel
+    # run's masks (the same crops for both), each with the kernels and with
+    # every attention call on its plain version.
+    img, boxes, _ = per_image[0]
+    runs = {}
+    for plain in (False, True):
+        before = read_launches()
+        kernel_auto = attention.flash_attention_auto
+        if plain:
+            attention.flash_attention_auto = plain_attention_auto
+            for blk in extractor.model.blocks:
+                blk.attn.attention_fn = dense_attention
+        try:
+            predictor.set_image(img)
+            masks, _, low = predictor.predict(box=boxes, multimask_output=False)
+            keep = runs[False]["keep"] if plain else masks[:, 0].sum(axis=(1, 2)) >= MIN_MASK_PX
+            crops = runs[False]["masks"][keep] if plain else masks[keep, 0]
+            _, _, feats = retrieve_topk(img, crops, torch.as_tensor(boxes[keep]), bank_dev, extractor, DINO_LAYER,
+                                        k=100)
+        finally:
+            attention.flash_attention_auto = kernel_auto
+            for blk in extractor.model.blocks:
+                blk.attn.attention_fn = flash_attention_fn
+        after = read_launches()
+        runs[plain] = dict(masks=masks[:, 0], low=low, keep=keep, feats=feats.float(),
+                           launches={str(d): after["K2_by_dim"].get(str(d), 0) - before["K2_by_dim"].get(str(d), 0)
+                                     for d in (64, 72)})
+    inter = (runs[False]["masks"] & runs[True]["masks"]).sum(axis=(1, 2))
+    union = (runs[False]["masks"] | runs[True]["masks"]).sum(axis=(1, 2))
+    ious = np.where(union > 0, inter / np.maximum(union, 1), 1.0)
+    cos = (runs[False]["feats"] * runs[True]["feats"]).sum(-1).cpu().numpy()
+    kernel_vs_plain = {"sam2_mask_iou_mean": float(ious.mean()), "sam2_mask_iou_min": float(ious.min()),
+                       "sam2_mask_ious": [float(x) for x in ious],
+                       "low_res_logit_max_abs_diff": float(np.abs(runs[False]["low"] - runs[True]["low"]).max()),
+                       "low_res_logit_max_abs": float(np.abs(runs[True]["low"]).max()),
+                       "feature_cos_min": float(cos.min()), "features_compared": len(cos),
+                       "launches": {"kernels": runs[False]["launches"], "plain": runs[True]["launches"]}}
+    del runs, extractor, predictor, detector, bank_dev
+    release_models()
+
+    h, w = PROPOSAL_HW
+    per_image_props = [sum(p["image_id"] == f for p in props) for f in range(PROPOSAL_IMAGES)]
+    boxes_ok = all(all(math.isfinite(v) for v in p["bbox"]) and p["bbox"][2] > 0 and p["bbox"][3] > 0
+                   and 0 <= p["bbox"][0] + p["bbox"][2] / 2 <= w and 0 <= p["bbox"][1] + p["bbox"][3] / 2 <= h
+                   for p in props)
+    boxes_inside = sum(p["bbox"][0] >= 0 and p["bbox"][1] >= 0 and p["bbox"][0] + p["bbox"][2] <= w
+                       and p["bbox"][1] + p["bbox"][3] <= h for p in props)
+    mask_px = [int(proposal_mask(p).sum()) for p in props]
+    meshes_known = all(p["mesh"] in set(names) for p in props)
+    k2 = {str(d): launches["K2_by_dim"].get(str(d), 0) for d in (64, 72)}
+    result = dict(images=PROPOSAL_IMAGES, image_hw=list(PROPOSAL_HW), bank_rows=len(names),
+                  box_threshold=threshold, boxes_per_image=box_counts, masks_kept_per_image=kept,
+                  proposals=len(props), proposals_per_image=per_image_props, boxes_fully_inside=boxes_inside,
+                  mask_px_min=min(mask_px, default=0), meshes_chosen=len({p["mesh"] for p in props}),
+                  cli_s=cli_s, cli_last_line=cli_out.getvalue().strip().splitlines()[-1],
+                  bank_features_s=features_s, bank_meshes=len(mesh_names),
+                  bank_features_s_per_mesh=features_s / len(mesh_names), merge_features_s=merge_s,
+                  view_features_shape=list(view_feats.shape), bank_refine_shape=list(bank_refine.shape),
+                  weights_write_s=weights_s, detect_ms_per_image=det_ms, sam2_ms_per_image=sam_ms,
+                  retrieval_ms_per_image=ret_ms, detect_repeat_identical=repeat_identical,
+                  kernel_vs_plain=kernel_vs_plain, k2_launches_by_dim=k2,
+                  bank_k2_launches_by_dim={str(d): bank_launches["K2_by_dim"].get(str(d), 0) for d in (64, 72)},
+                  launches=launches, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, profile=profile)
+    log("proposals", **result)
+    if min(k2.values()) <= 0 or launches["launches_by_kernel"]["sm90"] <= 0:
+        raise AssertionError(f"proposals path did not launch K2 at d 64 and d 72: {launches}")
+    if min(per_image_props) < 1:
+        raise AssertionError(f"an image without a proposal: {per_image_props}")
+    if not boxes_ok or min(mask_px, default=0) <= 0 or not meshes_known:
+        raise AssertionError(f"proposals: boxes ok {boxes_ok}, least mask {min(mask_px, default=0)} px, "
+                             f"meshes in the filelist {meshes_known}")
+    if view_feats.shape != (N_VIEWS, BANK_DIM) or not np.isfinite(view_feats).all() \
+            or bank_refine.shape != (len(mesh_names), BANK_DIM):
+        raise AssertionError(f"bank features {view_feats.shape}, bank {bank_refine.shape}")
+    if not repeat_identical:
+        raise AssertionError("detect on the same image twice gave different boxes")
+    if kernel_vs_plain["sam2_mask_iou_mean"] < VIDEO_IOU_MIN or kernel_vs_plain["feature_cos_min"] < FEATURE_COS_MIN:
+        raise AssertionError(f"proposals, kernels vs plain versions: {kernel_vs_plain}")
+    if min(kernel_vs_plain["launches"]["kernels"].values()) <= 0 or \
+            max(kernel_vs_plain["launches"]["plain"].values()) != 0:
+        raise AssertionError(f"proposals, kernels vs plain versions: launches {kernel_vs_plain['launches']}")
+    return result, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -1804,10 +2112,12 @@ def main() -> int:
         _, scale = phase_scale(dev)
         torch.cuda.empty_cache()
         _, refine = phase_refine(dev, mesh)
+        torch.cuda.empty_cache()
+        _, proposals = phase_proposals(dev)
     finally:
         shutil.rmtree(WORK_DIR, ignore_errors=True)
     # Launches on each main path's run (`launches_by_path`) and their sum.
-    paths = {"static": static, "video": video, "scale": scale, "refine": refine}
+    paths = {"static": static, "video": video, "scale": scale, "refine": refine, "proposals": proposals}
     counts = {k1["name"]: lambda p: p["K1"], streams["K3"]["name"]: lambda p: p["K3"],
               streams["K4"]["name"]: lambda p: p["K4"], k5["name"]: lambda p: p["K5"],
               k5_combine["name"]: lambda p: p["K5_combine"],

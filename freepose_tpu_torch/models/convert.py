@@ -4,9 +4,10 @@
 of numpy arrays; the scanned blocks stacked [L, ...] under blocks/block/...)
 onto the port's DinoV2 state_dict: Flax Dense kernels [in, out] become torch
 Linear weights [out, in], the HWIO patch-embedding kernel becomes OIHW, and
-LayerNorm scale/bias become weight/bias. The SAM2, ZoeDepth and CLIP modules
-carry the JAX names, so `state_dict_from_jax` maps their trees leaf by leaf
-(`zoedepth_from_jax` and `clip_from_jax` first unstack the scanned blocks).
+LayerNorm scale/bias become weight/bias. The SAM2, ZoeDepth, CLIP, Swin,
+BERT and GroundingDINO modules carry the JAX names, so `state_dict_from_jax`
+maps their trees leaf by leaf (`zoedepth_from_jax` and `clip_from_jax` first
+unstack the scanned blocks).
 `load_params` reads the flat '/'-joined .npz that the JAX CLIs' `save_params`
 writes, so both packages take the same --weights files. Pure numpy + torch;
 no JAX needed.
@@ -208,7 +209,7 @@ def jax_param_shapes(model: torch.nn.Module) -> dict[tuple, tuple]:
             shape = tuple(p.shape)
             if name == "weight" and isinstance(mod, torch.nn.Linear):
                 name, shape = "kernel", shape[::-1]
-            elif name == "weight" and isinstance(mod, torch.nn.LayerNorm):
+            elif name == "weight" and isinstance(mod, (torch.nn.LayerNorm, torch.nn.GroupNorm)):
                 name = "scale"
             elif name == "weight" and isinstance(mod, torch.nn.ConvTranspose2d):
                 name, shape = "kernel", (shape[2], shape[3], shape[0], shape[1])
@@ -262,3 +263,58 @@ def random_zoedepth_params(cfg, seed: int = 0) -> dict:
     with torch.device("meta"):
         model = ZoeDepthModel(cfg)
     return stack_scanned(random_jax_params(model, seed), "blocks", "block")
+
+
+def random_sam2_image_params(cfg, seed: int = 0) -> dict:
+    """`random_jax_params` of a Sam2ImageModel at `cfg` (the "image" subtree
+    of a Sam2VideoModel's tree)."""
+    from freepose_tpu_torch.models.sam2.model import Sam2ImageModel
+
+    with torch.device("meta"):
+        model = Sam2ImageModel(cfg)
+    return random_jax_params(model, seed)
+
+
+def swin_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """JAX SwinBackbone params -> freepose_tpu_torch SwinBackbone state_dict
+    (`state_dict_from_jax`: the port's names follow the JAX tree)."""
+    return state_dict_from_jax(params)
+
+
+def bert_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """JAX Bert params -> freepose_tpu_torch Bert state_dict."""
+    return state_dict_from_jax(params)
+
+
+def grounding_dino_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """JAX GroundingDino params (text_backbone = Bert, backbone = Swin, the
+    GroupNorm scales mapped like LayerNorm's) -> freepose_tpu_torch
+    GroundingDino state_dict."""
+    return state_dict_from_jax(params)
+
+
+def random_grounding_dino_params(cfg, seed: int = 0) -> dict:
+    """`random_jax_params` of a GroundingDino at `cfg`, with every LayerNorm
+    and GroupNorm scale drawn 1 + N(0, 0.02) (the name rule of
+    `random_jax_params` does not see GroundingDINO's norm names), then the
+    scales of the two norms whose outputs meet the text in the contrastive
+    logits and feed the box heads (enc_output_norm, decoder_ln) divided by
+    sqrt(d_model): the logits, a d_model-wide product of two normalised
+    vectors, are then O(1) as a trained model's are, so the sigmoid scores do
+    not saturate at 1, and the box deltas stay small, so boxes keep near
+    their anchors."""
+    from freepose_tpu_torch.models.grounding_dino import GroundingDino
+
+    with torch.device("meta"):
+        model = GroundingDino(cfg)
+    tree = random_jax_params(model, seed)
+    rng = np.random.default_rng(seed + 1)
+    for name, mod in model.named_modules():
+        if isinstance(mod, (torch.nn.LayerNorm, torch.nn.GroupNorm)):
+            node = tree
+            for key in name.split("."):
+                node = node[key]
+            node["scale"] = (1.0 + 0.02 * rng.standard_normal(node["scale"].shape, np.float32)).astype(np.float32)
+    for name in ("enc_output_norm", "decoder_ln"):
+        tree[name]["scale"] = tree[name]["scale"] / np.float32(np.sqrt(cfg.d_model))
+    return tree

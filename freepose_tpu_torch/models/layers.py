@@ -31,6 +31,17 @@ class LayerNorm(nn.LayerNorm):
         return F.layer_norm(x.to(self.weight.dtype), self.normalized_shape, self.weight, self.bias, self.eps)
 
 
+class GroupNorm(nn.GroupNorm):
+    """flax.linen.GroupNorm on [B, H, W, C]: epsilon 1e-6 unless given."""
+
+    def __init__(self, groups: int, dim: int, eps: float = 1e-6, dtype: torch.dtype = torch.float32):
+        super().__init__(groups, dim, eps=eps, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.weight.dtype).permute(0, 3, 1, 2)
+        return F.group_norm(x, self.num_groups, self.weight, self.bias, self.eps).permute(0, 2, 3, 1)
+
+
 class Conv(nn.Conv2d):
     """flax.linen.Conv on [B, H, W, C]. padding is the symmetric pad per
     side (Flax's "SAME" for the stride = kernel and 1x1 convs used here is 0)."""

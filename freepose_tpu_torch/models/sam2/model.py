@@ -25,6 +25,19 @@ class Sam2Config:
     dtype: torch.dtype = torch.float32
 
 
+# The JAX package's tiny image config (its image-predictor tests and
+# FREEPOSE_TINY_MODELS runs of the static proposal CLI, at 64²).
+SAM2_TEST = Sam2Config(
+    hiera=HieraConfig(
+        embed_dim=8, blocks_per_stage=(1, 1, 1, 1), embed_dim_per_stage=(8, 16, 32, 64),
+        heads_per_stage=(1, 2, 4, 8), window_size_per_stage=(4, 4, 4, 4),
+        global_attention_blocks=(9,), window_pos_bg_size=(2, 2),
+    ),
+    prompt=PromptConfig(hidden_size=16, image_size=64, patch_size=16, mask_input_channels=4),
+    decoder=MaskDecoderConfig(hidden_size=16, num_heads=2, mlp_dim=32, iou_head_hidden=16),
+    fpn_dim=16,
+)
+
 IMAGE_MEAN = (0.485, 0.456, 0.406)
 IMAGE_STD = (0.229, 0.224, 0.225)
 

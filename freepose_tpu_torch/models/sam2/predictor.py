@@ -1,18 +1,24 @@
-"""SAM2 video predictor: init, prompt, propagate.
+"""SAM2 predictors: image (set_image / predict) and video (init, prompt,
+propagate).
 
-Counterpart of freepose_tpu.models.sam2.predictor.Sam2VideoPredictor: the
-same calls and the same per-frame outputs. Objects are grouped by (prompt
-frame, prompt kind); each group's state is stepped once per frame with all
-its objects batched. The JAX predictor scans 8-frame chunks in one program
-and prefetches uploads to pipeline TPU dispatch; on CUDA frames run one by
-one, and `chunk` is accepted and changes nothing in the output.
+Counterpart of freepose_tpu.models.sam2.predictor's Sam2ImagePredictor and
+Sam2VideoPredictor: the same calls and the same outputs. The image predictor
+embeds an image once and decodes every prompt set against the cached
+pyramid; all boxes of an image decode as one batched prompt set. The JAX
+predictor bit-packs binary masks on the device to cut the host transfer;
+here bool masks come back directly (the same masks). For video, objects are
+grouped by (prompt frame, prompt kind); each group's state is stepped once
+per frame with all its objects batched. The JAX predictor scans 8-frame
+chunks in one program and prefetches uploads to pipeline TPU dispatch; on
+CUDA frames run one by one, and `chunk` is accepted and changes nothing in
+the output.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from freepose_tpu_torch.models.sam2.model import sam2_normalize
+from freepose_tpu_torch.models.sam2.model import Sam2Config, Sam2ImageModel, sam2_normalize
 from freepose_tpu_torch.models.sam2.video import Sam2VideoConfig, Sam2VideoModel, init_object_state
 from freepose_tpu_torch.ops.sampling import resize_bilinear
 
@@ -46,6 +52,87 @@ def postprocess_video_masks(low: torch.Tensor, high: torch.Tensor, orig_hw: tupl
     if binarize:
         return low > 0, high > 0
     return low.float(), high
+
+
+def scale_coords(coords: torch.Tensor, orig_hw: tuple[int, int], size: int) -> torch.Tensor:
+    """Pixel coordinates (x, y) in the original image -> model input coordinates."""
+    h, w = orig_hw
+    return coords * torch.tensor([size / w, size / h], dtype=coords.dtype, device=coords.device)
+
+
+class Sam2ImagePredictor:
+    """Prompted masks on one image. params: the JAX package's Sam2ImageModel
+    parameter tree (the "image" subtree of a video model's), converted by
+    models/convert.py:state_dict_from_jax; None gives seeded random weights.
+    Runs on `device` ("cuda" unless the caller asks for the CPU)."""
+
+    def __init__(self, config: Sam2Config, params=None, image_size: int = 1024, device=None, seed: int = 0):
+        from freepose_tpu_torch.device import resolve_device
+        from freepose_tpu_torch.models.convert import random_sam2_image_params, state_dict_from_jax
+
+        self.config = config
+        self.device = resolve_device(device)
+        self.image_size = image_size
+        if params is None:
+            params = random_sam2_image_params(config, seed=seed)
+        model = Sam2ImageModel(config)
+        missing, unexpected = model.load_state_dict(state_dict_from_jax(params), strict=False)
+        # A tree from the JAX model's own init lacks the mask-prompt encoder,
+        # which no image prompt here reaches.
+        if unexpected or any(not k.startswith("prompt_encoder.mask_embed.") for k in missing):
+            raise ValueError(f"SAM2 image parameters do not fit: missing {missing}, unexpected {unexpected}")
+        self.model = model.to(self.device).eval()
+        self._pyramid = None
+        self._orig_hw = None
+
+    @torch.inference_mode()
+    def set_image(self, image) -> None:
+        """image [H, W, 3] uint8 or float in [0, 1] (numpy or a tensor)."""
+        image = torch.as_tensor(image if torch.is_tensor(image) else np.array(image), device=self.device)
+        self._orig_hw = (int(image.shape[0]), int(image.shape[1]))
+        self._pyramid, _ = self.model.embed_image(prepare_image(image, self.image_size))
+
+    def _scale_prompts(self, point_coords, point_labels, box):
+        """Prompts in original pixels -> (points [1, P, N, 2], labels
+        [1, P, N], boxes [1, P, 4]) in model coordinates, or None each."""
+        pts = labels = boxes = None
+        dev, hw, size = self.device, self._orig_hw, self.image_size
+        if point_coords is not None:
+            pts = scale_coords(torch.as_tensor(np.asarray(point_coords), dtype=torch.float32, device=dev), hw, size)
+            pts = pts.reshape(1, -1, pts.shape[-2] if pts.ndim > 2 else pts.shape[0], 2)
+            labels = torch.as_tensor(np.asarray(point_labels), device=dev).long().reshape(1, pts.shape[1], -1)
+        if box is not None:
+            b = torch.as_tensor(box if torch.is_tensor(box) else np.asarray(box), dtype=torch.float32, device=dev)
+            boxes = scale_coords(b.reshape(1, -1, 2, 2), hw, size).reshape(1, -1, 4)
+        return pts, labels, boxes
+
+    @torch.inference_mode()
+    def _decode(self, point_coords, point_labels, box, multimask_output: bool):
+        if self._pyramid is None:
+            raise RuntimeError("call set_image first")
+        pts, labels, boxes = self._scale_prompts(point_coords, point_labels, box)
+        masks, iou, _, _ = self.model.decode_masks(self._pyramid, points=pts, labels=labels, boxes=boxes,
+                                                   multimask_output=multimask_output)
+        return masks[0], iou[0]
+
+    def predict(self, point_coords=None, point_labels=None, box=None, multimask_output: bool = True,
+                return_logits: bool = False, fetch_low_res_logits: bool = True):
+        """Returns (masks [P, M, H, W] at the original resolution, iou
+        [P, M], low-res logits [P, M, g, g]) as numpy arrays: bool masks
+        (logits > 0), or float logits with return_logits; the low-res logits
+        are None when fetch_low_res_logits is False."""
+        logits, iou = self._decode(point_coords, point_labels, box, multimask_output)
+        full = resize_bilinear(logits, self._orig_hw)
+        full = full if return_logits else full > 0
+        low = logits.float().cpu().numpy() if fetch_low_res_logits else None
+        return full.cpu().numpy(), iou.float().cpu().numpy(), low
+
+    def predict_device(self, point_coords=None, point_labels=None, box=None, multimask_output: bool = True):
+        """`predict` with device outputs: (bool masks [P, M, H, W] at the
+        original resolution, iou [P, M]); box prompts may be device tensors
+        (GroundingDinoDetector.detect_topk_device's boxes)."""
+        logits, iou = self._decode(point_coords, point_labels, box, multimask_output)
+        return resize_bilinear(logits, self._orig_hw) > 0, iou
 
 
 class Sam2VideoPredictor:

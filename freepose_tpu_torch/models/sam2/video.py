@@ -64,7 +64,8 @@ class ObjectState:
 def init_object_state(cfg: Sam2VideoConfig, n_objects: int = 1, device=None) -> ObjectState:
     m = cfg.mem
     if m.memory_temporal_stride != 1:
-        raise NotImplementedError("memory_temporal_stride > 1 is not ported (the production stride is 1)")
+        raise NotImplementedError("memory_temporal_stride > 1 is not ported (the production stride is 1; "
+                                  "ROADMAP queue 1, item 3, slice C-rest)")
     hw = cfg.mem_grid * cfg.mem_grid
     o = n_objects
     return ObjectState(

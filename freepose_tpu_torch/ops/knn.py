@@ -9,11 +9,20 @@ from __future__ import annotations
 import torch
 
 
+def topk_lowest_index(scores: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k along the last axis, ties broken by the lowest index as
+    jax.lax.top_k orders them (torch.topk leaves the order of ties
+    unspecified): (values, indices), each [..., k]."""
+    values, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
+    return values[..., :k], idx[..., :k]
+
+
 def topk_search(bank: torch.Tensor, queries: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     """bank [M, D] (rows L2-normalised for cosine), queries [N, D] ->
-    (scores [N, k], indices [N, k]) by inner product in fp32."""
+    (scores [N, k], indices [N, k]) by inner product in fp32; ties go to
+    the lower bank row."""
     scores = torch.matmul(queries.float(), bank.float().T)
-    return torch.topk(scores, k, dim=-1)
+    return topk_lowest_index(scores, k)
 
 
 def fine_rerank_scores(fine_feats: torch.Tensor, query: torch.Tensor, topk: int) -> torch.Tensor:

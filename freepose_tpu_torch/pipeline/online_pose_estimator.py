@@ -38,7 +38,7 @@ from freepose_tpu_torch.pipeline.renderer import (
 )
 from freepose_tpu_torch.pipeline.template_bank import depth_stats, depth_stats_per_k, normalize_feats
 
-SLICE_G = "the multi-GPU slice G, which is not ported yet"
+SLICE_G = "the multi-GPU slice G (ROADMAP queue 1, item 6), which is not ported yet"
 
 
 def select_neighborhood(

@@ -1,8 +1,8 @@
 """Proposal container: detection crops + masks, device-resident.
 
 Counterpart of freepose_tpu.pipeline.proposals (`Proposals`,
-`extract_proposals`): the N-proposal crop is one batched gather; RLE / BOP
-dict export happens at the host boundary only.
+`extract_proposals`, `retrieve_topk`): the N-proposal crop is one batched
+gather; RLE / BOP dict export happens at the host boundary only.
 """
 from __future__ import annotations
 
@@ -78,3 +78,44 @@ def extract_proposals(
         frame_id=frame_id,
     )
 
+
+
+def retrieve_topk(
+    image: torch.Tensor,  # [H, W, 3]
+    masks: torch.Tensor,  # [N, H, W] bool
+    boxes: torch.Tensor,  # [N, 4] xyxy
+    bank: torch.Tensor,  # [M, D] L2-normalised retrieval bank
+    extractor,  # DinoFeatureExtractor
+    layer: int,
+    feature_type: str = "ffa",
+    k: int = 100,
+    target_size: int = 420,
+    bbox_extend: float = 0.1,
+):
+    """A frame's retrieval: proposal crops, DINOv2 features at `layer`, FFA
+    pooling of the patch tokens (or the normalised cls token), and the bank
+    top-k (ties to the lower row). The proposal count is padded to the next
+    power of two (empty masks, the last box repeated), as the JAX function
+    pads it, so that a frame's detection count reuses a few crop batches;
+    results are sliced back to N. Returns (scores [N, k], indices [N, k],
+    features [N, D]) on the extractor's device."""
+    from freepose_tpu_torch.ops.knn import topk_search
+    from freepose_tpu_torch.ops.sampling import ffa_pool
+    from freepose_tpu_torch.pipeline.template_bank import normalize_feats
+
+    dev = extractor.device
+    image, masks = torch.as_tensor(image, device=dev), torch.as_tensor(masks, device=dev)
+    boxes = torch.as_tensor(boxes, device=dev)
+    n = masks.shape[0]
+    n_pad = 1 << max(n - 1, 0).bit_length()
+    if n_pad != n:
+        masks = torch.cat([masks, torch.zeros((n_pad - n,) + masks.shape[1:], dtype=masks.dtype, device=dev)])
+        boxes = torch.cat([boxes, boxes[-1:].expand(n_pad - n, -1)])
+    prop = extract_proposals(image, masks, boxes, target_size, bbox_extend)
+    if feature_type == "cls":
+        feats = normalize_feats(extractor(prop.proposals, layer=layer, feature_type="cls").float())
+    else:
+        patch = extractor(prop.proposals, layer=layer, feature_type="patch")
+        feats = ffa_pool(patch.float(), prop.masks, grid=target_size // extractor.config.patch_size)
+    scores, idx = topk_search(bank, feats, k)
+    return scores[:n], idx[:n], feats[:n]

@@ -69,7 +69,7 @@ class TemplateRenderer:
         if self.texture_mode == "auto" and mesh.texture is not None and mesh.uv is not None:
             raise NotImplementedError(
                 "textured template renders (texture_mode='auto' on a textured mesh) are not "
-                "ported yet (ROADMAP queue 1, item 18: ops/texture.py); use texture_mode='bake'"
+                "ported yet (ROADMAP queue 1, item 6: ops/texture.py); use texture_mode='bake'"
             )
         v, c, f, valid = self._padded(mesh, scale)
         return render_meshes(v, c, f, valid, poses.to(self.device), self.k, self.settings,

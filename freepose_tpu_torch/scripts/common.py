@@ -1,6 +1,7 @@
 """Shared CLI plumbing for the port's entry points: device and shard args,
-filelists, DINOv2 loading. Counterpart of the JAX package's scripts/common.py;
-the --weights files are the same flat .npz of JAX-layout params."""
+filelists, artifact names, model configs and loaders. Counterpart of the JAX
+package's scripts/common.py; the --weights files are the same flat .npz of
+JAX-layout params."""
 from __future__ import annotations
 
 import argparse
@@ -8,6 +9,15 @@ import os
 from pathlib import Path
 
 from freepose_tpu_torch.models.convert import load_params
+
+
+def proposals_filename(box_thresh, text_thresh, feature_type, layer, topk, dataset_name) -> str:
+    """The proposal JSON's name, from its settings (the reference's name
+    template, so artifacts interoperate)."""
+    return (
+        f"props-ground-box-{box_thresh}-text-{text_thresh}-{feature_type}-{layer}"
+        f"-top-{topk}_{dataset_name}.json"
+    )
 
 
 def add_device_arg(ap: argparse.ArgumentParser) -> None:
@@ -101,15 +111,18 @@ def tiny_sam2_video_config():
 def production_sam2_config(device=None):
     """SAM2 Hiera-L image config at the production dtype. On the card: bf16
     trunk, neck, prompt encoder and decoder, with the global-attention blocks
-    on kernel K2. On the CPU: fp32 and plain attention. Returns (config,
+    on kernel K2. On the CPU: fp32 and plain attention.
+    FREEPOSE_TINY_MODELS=1 swaps in SAM2_TEST at 64². Returns (config,
     image_size)."""
     import dataclasses
 
     import torch
 
     from freepose_tpu_torch.device import resolve_device
-    from freepose_tpu_torch.models.sam2.model import Sam2Config
+    from freepose_tpu_torch.models.sam2.model import SAM2_TEST, Sam2Config
 
+    if os.environ.get("FREEPOSE_TINY_MODELS"):
+        return SAM2_TEST, 64
     cfg = Sam2Config()
     if resolve_device(device).type == "cuda":
         bf = torch.bfloat16
@@ -142,3 +155,64 @@ def production_sam2_video_config(device=None):
     if resolve_device(device).type == "cuda":
         vcfg = dataclasses.replace(vcfg, mem=dataclasses.replace(vcfg.mem, use_flash=True, dtype=torch.bfloat16))
     return vcfg
+
+
+def production_gdino_config(device=None):
+    """GroundingDINO-B config at the production dtype: on the card bf16 for
+    the model, Swin and BERT; fp32 on the CPU. FREEPOSE_TINY_MODELS=1 swaps
+    in GDINO_TEST."""
+    import dataclasses
+
+    import torch
+
+    from freepose_tpu_torch.device import resolve_device
+    from freepose_tpu_torch.models.grounding_dino import GDINO_TEST, GroundingDinoConfig
+
+    if os.environ.get("FREEPOSE_TINY_MODELS"):
+        return GDINO_TEST
+    cfg = GroundingDinoConfig()
+    if resolve_device(device).type == "cuda":
+        bf = torch.bfloat16
+        cfg = dataclasses.replace(cfg, dtype=bf, swin=dataclasses.replace(cfg.swin, dtype=bf),
+                                  text=dataclasses.replace(cfg.text, dtype=bf))
+    return cfg
+
+
+_MODELS: dict = {}
+
+
+def _cached(key: tuple, build):
+    """One model per (kind, weights, device, config) for the process, as
+    the JAX CLIs keep theirs."""
+    if key not in _MODELS:
+        _MODELS[key] = build()
+    return _MODELS[key]
+
+
+def load_grounding_detector(weights: str | None, device=None):
+    """GroundingDinoDetector at `production_gdino_config` on `device`, from
+    a .npz of JAX-layout params or seeded random weights; cached."""
+    from freepose_tpu_torch.device import resolve_device
+    from freepose_tpu_torch.models.grounding_dino import GroundingDinoDetector
+
+    dev, cfg = resolve_device(device), production_gdino_config(device)
+    return _cached(("grounding", weights, str(dev), cfg),
+                   lambda: GroundingDinoDetector.from_weights(weights, config=cfg, device=dev))
+
+
+def load_sam2_image_predictor(weights: str | None, device=None):
+    """Sam2ImagePredictor at `production_sam2_config` on `device`, from a
+    .npz of JAX-layout params or seeded random weights; cached."""
+    from freepose_tpu_torch.device import resolve_device
+    from freepose_tpu_torch.models.sam2.predictor import Sam2ImagePredictor
+
+    dev = resolve_device(device)
+    cfg, size = production_sam2_config(device)
+    return _cached(("sam2", weights, str(dev), cfg),
+                   lambda: Sam2ImagePredictor(cfg, load_params(weights) if weights else None, image_size=size,
+                                              device=dev))
+
+
+def release_models() -> None:
+    """Drop the cached detector and SAM2 predictor."""
+    _MODELS.clear()

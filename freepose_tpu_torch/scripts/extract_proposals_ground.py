@@ -1,0 +1,148 @@
+"""Static-image proposals and CAD retrieval.
+
+Counterpart of the JAX package's scripts/extract_proposals_ground.py, with
+the same arguments (plus --device) and the same proposal JSON: per BOP
+image, open-vocabulary boxes (GroundingDINO-B, prompt "objects.") -> SAM2
+Hiera-L masks, all boxes of an image decoded as one prompt set (on the card
+the trunk's global attention runs on kernel K2 at d 72) -> masks under
+--min-mask-px dropped -> per proposal a 420² crop, DINOv2-L patch features
+at --layer (kernel K2 at d 64) and FFA pooling (or the cls token) -> the
+top-k of the retrieval bank -> optionally a per-view fine rerank over the
+top candidates -> proposal JSON.
+
+Detectors: grounding (GroundingDINO boxes + SAM2 masks), gt-boxes (the
+ground-truth boxes + SAM2 masks), gt-masks (the ground-truth visible masks).
+Without --grounding-weights / --sam2-weights / --weights the models take
+seeded random weights; without a WordPiece vocabulary the prompt becomes the
+placeholder ids of models/grounding_dino.py.
+
+Usage: python -m freepose_tpu_torch.scripts.extract_proposals_ground \
+         --dataset BOP_DIR --bank bank.npy --filelist meshes.txt --out-dir OUT \
+         [--detector grounding|gt-boxes|gt-masks] [--grounding-weights gd.npz] \
+         [--sam2-weights sam2.npz] [--weights dinov2.npz] [--device cpu]
+"""
+from __future__ import annotations
+
+import argparse
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from freepose_tpu_torch.datasets.bop import BOPDataset
+from freepose_tpu_torch.io.proposals_json import proposal_entry, save_proposals
+from freepose_tpu_torch.ops.knn import fine_rerank_scores
+from freepose_tpu_torch.pipeline.proposals import retrieve_topk
+from freepose_tpu_torch.scripts.common import (
+    add_device_arg,
+    add_shard_args,
+    get_shard,
+    load_dino_extractor,
+    load_filelist,
+    load_grounding_detector,
+    load_sam2_image_predictor,
+    proposals_filename,
+)
+
+
+def detect(args, entry):
+    """-> (masks [N, H, W] bool, boxes [N, 4] xyxy, det_scores [N]), numpy."""
+    if args.detector == "gt-masks":
+        return entry["masks"], entry["boxes"], np.ones(len(entry["boxes"]))
+    if args.detector == "grounding":
+        boxes, det_scores = load_grounding_detector(args.grounding_weights, args.device).detect(
+            entry["image"], text=args.text_prompt, box_threshold=args.box_threshold,
+            text_threshold=args.text_threshold)
+    elif args.detector == "gt-boxes":
+        boxes, det_scores = entry["boxes"], np.ones(len(entry["boxes"]))
+    else:
+        raise ValueError(args.detector)
+    if len(boxes) == 0:
+        return np.zeros((0,) + entry["image"].shape[:2], bool), boxes, det_scores
+    predictor = load_sam2_image_predictor(args.sam2_weights, args.device)
+    predictor.set_image(entry["image"])
+    masks, _, _ = predictor.predict(box=np.asarray(boxes), multimask_output=False, fetch_low_res_logits=False)
+    return masks[:, 0], np.asarray(boxes), np.asarray(det_scores)
+
+
+def fine_candidates(args, names: list[str], fine_bank, rows: np.ndarray) -> np.ndarray:
+    """[C, V, D] L2-normalised per-view features of the candidate meshes:
+    from the consolidated bank, or one .npy per mesh."""
+    if fine_bank is not None:
+        return fine_bank.gather(rows)
+    cand = []
+    for row in rows:
+        f = np.load(Path(args.fine_features_dir) / f"{names[row]}.npy")
+        cand.append(f / np.maximum(np.linalg.norm(f, axis=-1, keepdims=True), 1e-12))
+    return np.stack(cand)
+
+
+def main(argv: list[str] | None = None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--dataset", required=True)
+    ap.add_argument("--split", default="test")
+    ap.add_argument("--bank", required=True, help="[N, D] retrieval bank .npy")
+    ap.add_argument("--filelist", required=True)
+    ap.add_argument("--out-dir", default=".")
+    ap.add_argument("--detector", choices=["grounding", "gt-boxes", "gt-masks"], default="grounding")
+    ap.add_argument("--text-prompt", default="objects.")
+    ap.add_argument("--box-threshold", type=float, default=0.15)
+    ap.add_argument("--text-threshold", type=float, default=0.15)
+    ap.add_argument("--weights", default=None, help="DINOv2 params (.npz)")
+    ap.add_argument("--sam2-weights", default=None)
+    ap.add_argument("--grounding-weights", default=None)
+    ap.add_argument("--layer", type=int, default=22)
+    ap.add_argument("--feature-type", choices=["ffa", "cls"], default="ffa")
+    ap.add_argument("--topk", type=int, default=0, help=">0 enables per-view fine rerank")
+    ap.add_argument("--fine-features-dir", default=None, help="per-mesh [V, D] .npy dir")
+    ap.add_argument("--fine-bank", default=None, help="consolidated memmap bank (io.npy_bank)")
+    ap.add_argument("--min-mask-px", type=int, default=400)
+    add_shard_args(ap)
+    add_device_arg(ap)
+    args = ap.parse_args(argv)
+
+    dataset = BOPDataset(args.dataset, args.split)
+    names = load_filelist(args.filelist)
+    extractor = load_dino_extractor(args.weights, device=args.device)
+    bank = np.load(args.bank).astype(np.float32)
+    bank /= np.maximum(np.linalg.norm(bank, axis=-1, keepdims=True), 1e-12)
+    bank_dev = torch.as_tensor(bank, device=extractor.device)
+    rerank = args.topk > 0 and bool(args.fine_bank or args.fine_features_dir)
+    fine_bank = None
+    if rerank and args.fine_bank:
+        from freepose_tpu_torch.io.npy_bank import FineFeatureBank
+
+        fine_bank = FineFeatureBank(args.fine_bank)
+
+    out = []
+    for idx in get_shard(args).slice(len(dataset)):
+        entry = dataset[idx]
+        masks, boxes, _ = detect(args, entry)
+        keep = [i for i, m in enumerate(masks) if m.sum() >= args.min_mask_px]
+        if not keep:
+            continue
+        masks, boxes = masks[keep], np.asarray(boxes)[keep]
+        scores, indices, feats = retrieve_topk(
+            np.array(entry["image"]), masks, torch.as_tensor(boxes, dtype=torch.float32), bank_dev, extractor,
+            layer=args.layer, feature_type=args.feature_type, k=min(100, len(names)), target_size=420,
+            bbox_extend=0.1)
+        scores, indices = scores.cpu().numpy(), indices.cpu().numpy()
+        for i in range(len(masks)):
+            if rerank:
+                fine = torch.as_tensor(fine_candidates(args, names, fine_bank, indices[i]), device=feats.device)
+                fine_scores = fine_rerank_scores(fine, feats[i], args.topk).cpu().numpy()
+                best = int(np.argmax(fine_scores))
+                mesh, score = names[indices[i][best]], float(fine_scores[best])
+            else:
+                mesh, score = names[indices[i][0]], float(scores[i][0])
+            out.append(proposal_entry(boxes[i], masks[i], mesh, score, entry["scene_id"], entry["frame_id"]))
+
+    name = proposals_filename(args.box_threshold, args.text_threshold, args.feature_type, args.layer, args.topk,
+                              Path(args.dataset).name)
+    path = Path(args.out_dir) / name
+    save_proposals(out, path)
+    print(f"{len(out)} proposals -> {path}")
+
+
+if __name__ == "__main__":
+    main()

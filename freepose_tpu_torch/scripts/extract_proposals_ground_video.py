@@ -1,21 +1,21 @@
 """Video proposals: boxes on frame 0, SAM2 mask propagation, retrieval.
 
 Counterpart of the JAX package's scripts/extract_proposals_ground_video.py,
-with the same arguments and the same proposal JSON: frame-0 boxes -> SAM2
-Hiera-L video mask propagation over all frames (all objects batched; on the
-card the attention runs on kernels K2 and K4) -> per tracked mask a crop,
-DINOv2-L patch features (kernel K2) and FFA pooling, scored against the
-mesh bank -> temporal soft voting (the mean of per-frame bank scores per
-track) -> one mesh id per track.
+with the same arguments and the same proposal JSON: frame-0 boxes (from
+GroundingDINO-B, `--detector grounding`, the default, or given with
+`--detector boxes`) -> SAM2 Hiera-L video mask propagation over all frames
+(all objects batched; on the card the attention runs on kernels K2 and K4)
+-> per tracked mask a crop, DINOv2-L patch features (kernel K2) and FFA
+pooling, scored against the mesh bank -> temporal soft voting (the mean of
+per-frame bank scores per track) -> one mesh id per track.
 
-Only `--detector boxes` is ported: GroundingDINO (`--detector grounding`)
-is ROADMAP queue 1 item 12, and object-sharded propagation
-(`--shard-objects`) belongs to the multi-GPU slice G; both raise.
+Object-sharded propagation (`--shard-objects`) belongs to the multi-GPU
+slice G (ROADMAP queue 1, item 6) and raises.
 
 Usage: python -m freepose_tpu_torch.scripts.extract_proposals_ground_video \
          --video-dir FRAMES --bank bank.npy --filelist meshes.txt --out props.json \
-         --detector boxes --boxes boxes.npy [--sam2-weights sam2.npz] \
-         [--weights dinov2.npz] [--device cpu]
+         [--detector boxes --boxes boxes.npy] [--grounding-weights gd.npz] \
+         [--sam2-weights sam2.npz] [--weights dinov2.npz] [--device cpu]
 """
 from __future__ import annotations
 
@@ -34,6 +34,7 @@ from freepose_tpu_torch.scripts.common import (
     add_shard_args,
     load_dino_extractor,
     load_filelist,
+    load_grounding_detector,
     load_params,
     production_sam2_video_config,
 )
@@ -128,15 +129,16 @@ def main(argv: list[str] | None = None) -> None:
     add_shard_args(ap)
     add_device_arg(ap)
     args = ap.parse_args(argv)
-    if args.detector == "grounding":
-        raise NotImplementedError("--detector grounding needs GroundingDINO, which is not ported yet "
-                                  "(ROADMAP queue 1, item 12); pass --detector boxes --boxes BOXES.npy")
     if args.shard_objects:
         raise NotImplementedError("--shard-objects (object-sharded propagation over several GPUs) belongs "
-                                  "to the multi-GPU slice G, which is not ported yet")
+                                  "to the multi-GPU slice G (ROADMAP queue 1, item 6), which is not ported yet")
 
     frames = load_frame_dir(args.video_dir)
-    boxes0 = np.load(args.boxes).reshape(-1, 4)
+    if args.detector == "boxes":
+        boxes0 = np.load(args.boxes).reshape(-1, 4)
+    else:
+        boxes0, _ = load_grounding_detector(args.grounding_weights, args.device).detect(
+            frames[0], text=args.text_prompt, box_threshold=args.box_threshold, text_threshold=args.text_threshold)
     if len(boxes0) == 0:
         save_proposals([], args.out)
         print("no detections on frame 0")

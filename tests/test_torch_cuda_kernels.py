@@ -640,3 +640,73 @@ def test_auto_chain_on_the_card_matches_the_cpu(cuda):
             np.testing.assert_allclose(tc[:3, :3], tr[:3, :3], rtol=0, atol=1e-6)
             np.testing.assert_allclose(tc, tr, atol=1e-4)
             assert abs(sc - sr) < 1e-4
+
+
+# The static proposal path on the card: SAM2 image masks through K2 at d 72
+# against the plain attention, and the GroundingDINO-B bf16 forward.
+
+
+def _boxed_image(seed: int = 0):
+    """A seeded 480x640 uint8 image with 8 painted rectangles, and their boxes."""
+    rng = np.random.default_rng(seed)
+    image = (rng.random((480, 640, 3)) * 90).astype(np.uint8)
+    boxes = []
+    for i in range(8):
+        x0, y0 = int(rng.integers(0, 520)), int(rng.integers(0, 380))
+        x1, y1 = x0 + int(rng.integers(40, 120)), y0 + int(rng.integers(40, 100))
+        image[y0:y1, x0:x1] = rng.integers(100, 255, 3)
+        boxes.append([x0, y0, x1, y1])
+    return image, np.asarray(boxes, np.float32)
+
+
+def test_sam2_image_masks_with_k2_match_plain(cuda):
+    """Sam2ImagePredictor at the production config (Hiera-L at 1024², bf16,
+    the global blocks on K2 at d 72), 8 boxes as one prompt set, seeded
+    random weights: the masks with every attention call on the kernels and
+    on the plain versions, mean IoU >= 0.9 (bf16 sums in another order)."""
+    from chip_smoke import plain_attention_auto
+    from freepose_tpu_torch.models.sam2.predictor import Sam2ImagePredictor
+    from freepose_tpu_torch.ops import attention
+    from freepose_tpu_torch.scripts.common import production_sam2_config
+
+    cfg, size = production_sam2_config(cuda)
+    pred = Sam2ImagePredictor(cfg, image_size=size, device=cuda)
+    image, boxes = _boxed_image()
+    runs, kernel_auto = [], attention.flash_attention_auto
+    for plain in (False, True):
+        before = flash_attention_k2.launches
+        if plain:
+            attention.flash_attention_auto = plain_attention_auto
+        try:
+            pred.set_image(image)
+            masks, iou, _ = pred.predict(box=boxes, multimask_output=False, fetch_low_res_logits=False)
+        finally:
+            attention.flash_attention_auto = kernel_auto
+        assert (flash_attention_k2.launches > before) != plain
+        assert masks.shape == (8, 1, 480, 640) and np.isfinite(iou).all()
+        runs.append(masks[:, 0])
+    inter = (runs[0] & runs[1]).sum(axis=(1, 2))
+    union = (runs[0] | runs[1]).sum(axis=(1, 2))
+    assert np.mean(np.where(union > 0, inter / np.maximum(union, 1), 1.0)) >= 0.9
+
+
+def test_grounding_dino_bf16_forward_is_finite_and_repeats(cuda):
+    """GroundingDINO-B (Swin-B, BERT-base, 900 queries) at 800² in bf16 on
+    the card with seeded random weights: finite boxes in [0, 1], logits
+    finite on the prompt's tokens and -inf past them, and a second forward
+    on the same image identical, bit for bit (the query selection's tie
+    order included)."""
+    from freepose_tpu_torch.models.grounding_dino import GroundingDinoDetector
+    from freepose_tpu_torch.scripts.common import production_gdino_config
+
+    det = GroundingDinoDetector(production_gdino_config(cuda), device=cuda)
+    image, _ = _boxed_image(1)
+    (logits, boxes), (logits2, boxes2) = det.forward_images([image]), det.forward_images([image])
+    assert logits.shape == (1, 900, 256) and boxes.shape == (1, 900, 4)
+    assert torch.isfinite(logits[..., :4]).all() and torch.isinf(logits[..., 4:]).all()
+    assert torch.isfinite(boxes).all() and float(boxes.min()) >= 0.0 and float(boxes.max()) <= 1.0
+    assert torch.equal(logits, logits2) and torch.equal(boxes, boxes2)
+    b1, s1 = det.detect(image, box_threshold=0.0)
+    b2, s2 = det.detect(image, box_threshold=0.0)
+    np.testing.assert_array_equal(b1, b2)
+    np.testing.assert_array_equal(s1, s2)

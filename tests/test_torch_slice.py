@@ -296,6 +296,14 @@ SCALE_SLICE_MODULES = [
     *(f"freepose_tpu_torch.scripts.{m}" for m in ("compute_scale", "compute_scale_video", "generate_depth_zoe")),
 ]
 
+PROPOSALS_SLICE_MODULES = [
+    *(f"freepose_tpu_torch.models.{m}" for m in ("wordpiece", "bert", "swin", "grounding_dino")),
+    "freepose_tpu_torch.models.sam2.predictor", "freepose_tpu_torch.pipeline.proposals",
+    "freepose_tpu_torch.io.npy_bank", "freepose_tpu_torch.ops.knn",
+    *(f"freepose_tpu_torch.scripts.{m}" for m in ("extract_proposals_ground", "extract_proposals_ground_video",
+                                                  "extract_retrieval_features", "merge_features")),
+]
+
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     code = (
@@ -315,6 +323,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert len(mods) >= 40 and set(VIDEO_SLICE_MODULES) <= set(mods)  # every module of the slices
     assert set(SCALE_SLICE_MODULES) <= set(mods)
     assert set(REFINE_SLICE_MODULES) <= set(mods)
+    assert set(PROPOSALS_SLICE_MODULES) <= set(mods)
     # No import of JAX, the JAX package or the tests anywhere in the sources,
     # not even inside a function that this import did not run.
     pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|freepose_tpu|scripts|tests)\b", re.M)
@@ -354,4 +363,12 @@ def test_entry_points_raise_without_a_gpu_unless_asked_for_the_cpu(workspace):
         dino_inference_video.main(["--video-dir", str(ws), "--proposals", str(ws / "props.json"),
                                    "--wds-dir", str(ws / "shards_nodevice"), "--filelist", str(ws / "filelist.txt"),
                                    "--mesh-dir", str(ws / "meshes"), "--out", str(ws / "nodevice_video.csv")])
+    from freepose_tpu_torch.scripts import extract_proposals_ground, extract_retrieval_features
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        extract_proposals_ground.main(["--dataset", str(ws / "bop"), "--bank", str(ws / "bank_nodevice.npy"),
+                                       "--filelist", str(ws / "filelist.txt"), "--detector", "gt-masks"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        extract_retrieval_features.main(["--wds-dir", str(ws / "shards_nodevice"), "--filelist",
+                                         str(ws / "filelist.txt"), "--out", str(ws / "feats_nodevice")])
     assert TemplateRenderer(n_poses=2, resolution=RES, device="cpu").poses.device.type == "cpu"

@@ -91,10 +91,12 @@ def test_video_cli_refuses_what_is_not_ported(workspace):
     from freepose_tpu_torch.scripts import extract_proposals_ground_video
 
     argv = _argv(workspace, "x.json") + ["--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="item 12"):
-        extract_proposals_ground_video.main([a if a != "boxes" else "grounding" for a in argv])
-    with pytest.raises(NotImplementedError, match="slice G"):
+    # --detector grounding is ported (tests/test_torch_proposals_slice.py);
+    # object-sharded propagation is not, and names its ROADMAP item.
+    with pytest.raises(NotImplementedError, match=r"slice G \(ROADMAP queue 1, item 6\)"):
         extract_proposals_ground_video.main(argv + ["--shard-objects"])
+    with pytest.raises(NotImplementedError, match=r"slice G \(ROADMAP queue 1, item 6\)"):
+        extract_proposals_ground_video.main([a if a != "boxes" else "grounding" for a in argv] + ["--shard-objects"])
 
 
 @pytest.mark.parametrize("reverse", [False, True])
