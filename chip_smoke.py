@@ -114,7 +114,32 @@ Phases, one line each on stdout:
              call and K1 on their plain versions: render masks identical,
              the 32 scores within REFINE_SCORE_ATOL, which scores read one
              slot off must fail;
- 10. proposals the static proposal path at full width through its CLIs:
+ 10. smooth  the track refine at full width through its CLIs on the earlier
+             phases' files: the frames that the scale phase's longest track
+             covers from frame 0 on (one proposal each) and that object's
+             GT boxes, filter_predictions on scaled.json (one track kept,
+             one proposal per frame), dino_inference_video on it (one
+             coarse row per frame), then
+             smooth_poses_video with the ZNCC chain (its default) and with
+             CoTracker2 (COTRACKER2: 384x512, windows of 8, hidden 384, 6
+             iterations, fp32) from a .npz of seeded random parameters;
+             DINOv2-B at 518² bf16, K1 at 518² with tile 37, --interval 12,
+             --cap 512. Launch counts are zeroed before the CLIs and read
+             after them (K1 and K2 at d 64 must be > 0); one row per frame
+             in each tracked CSV, R orthonormal, t finite with t_z > 0.
+             Then, on the same functions: confidence ms per frame,
+             correspondences, ZNCC, CoTracker2 and EPnP ms per interval,
+             smoothing ms, torch.profiler breakdowns of one confidence
+             chunk and one CoTracker2 interval; one 8-frame confidence
+             chunk with the kernels against every attention call and K1 on
+             their plain versions (render masks identical, depth within
+             K1_ATOL, DINOv2-B patch features of min cosine >= 0.99, the
+             chunk's inlier counts of both); K1 on that chunk against its
+             plain version (the next-pose stand-in must fail) and K2 at
+             [16, 12, 1374, 64] against its plain version (the dropped-keys
+             and next-head stand-ins must fail), each with its times, bound
+             and, for K2, SDPA's;
+ 11. proposals the static proposal path at full width through its CLIs:
              extract_retrieval_features on the refine phase's 600-view
              template shards, then merge_features; a seeded 3-image BOP
              test split at 640x480; extract_proposals_ground --detector
@@ -1183,21 +1208,22 @@ def synthetic_video(seed: int = SEED):
     """Seeded VIDEO_FRAMES-frame uint8 video of VIDEO_HW (1280x720): a
     blocky low-frequency background with pixel noise, a red ellipse drifting
     right and a blue rectangle drifting down-left. Returns (frames
-    [T, H, W, 3], frame-0 boxes [2, 4] xyxy)."""
+    [T, H, W, 3], boxes [T, 2, 4] xyxy: each object's box on each frame)."""
     rng = np.random.default_rng(seed + 3)
     h, w = VIDEO_HW
     sy, sx = h / 720, w / 1280  # the layout is drawn for 1280x720
     bg = np.kron(rng.random((9, 16, 3)), np.ones((h // 9, w // 16, 1))) * 120
     yy, xx = np.mgrid[:h, :w]
-    frames = []
+    frames, boxes = [], []
     for t in range(VIDEO_FRAMES):
         img = bg + rng.random((h, w, 3)) * 30
-        img[((xx - (380 + 12 * t) * sx) / (170 * sx)) ** 2 + ((yy - 360 * sy) / (120 * sy)) ** 2 <= 1] = [230, 70, 50]
-        img[int((250 + 6 * t) * sy):int((510 + 6 * t) * sy), int((820 - 8 * t) * sx):int((1120 - 8 * t) * sx)] = \
-            [50, 110, 235]
+        cx, cy, rx, ry = (380 + 12 * t) * sx, 360 * sy, 170 * sx, 120 * sy
+        x1, y1, x2, y2 = (820 - 8 * t) * sx, (250 + 6 * t) * sy, (1120 - 8 * t) * sx, (510 + 6 * t) * sy
+        img[((xx - cx) / rx) ** 2 + ((yy - cy) / ry) ** 2 <= 1] = [230, 70, 50]
+        img[int(y1):int(y2), int(x1):int(x2)] = [50, 110, 235]
         frames.append(img.clip(0, 255).astype(np.uint8))
-    boxes = np.array([[210 * sx, 240 * sy, 550 * sx, 480 * sy], [820 * sx, 250 * sy, 1120 * sx, 510 * sy]], np.float32)
-    return np.stack(frames), boxes
+        boxes.append([[cx - rx, cy - ry, cx + rx, cy + ry], [x1, y1, x2, y2]])
+    return np.stack(frames), np.asarray(boxes, np.float32)
 
 
 def plain_attention_auto(q, k, v, scale, kv_mask=None):
@@ -1220,10 +1246,12 @@ def phase_video(dev) -> tuple[dict, dict]:
 
     shutil.rmtree(WORK_DIR, ignore_errors=True)
     (WORK_DIR / "frames").mkdir(parents=True)
-    frames, boxes0 = synthetic_video()
+    frames, boxes = synthetic_video()
+    boxes0 = boxes[0]
     for t, frame in enumerate(frames):
         Image.fromarray(frame).save(WORK_DIR / "frames" / f"{t:05d}.png", compress_level=1)
     np.save(WORK_DIR / "boxes.npy", boxes0)
+    np.save(WORK_DIR / "boxes_by_frame.npy", boxes)
     bank = np.random.default_rng(SEED + 4).standard_normal((BANK_ROWS, BANK_DIM), np.float32)
     np.save(WORK_DIR / "bank.npy", bank)
     names = [f"mesh_{i:05d}" for i in range(BANK_ROWS)]
@@ -1327,6 +1355,7 @@ def phase_video(dev) -> tuple[dict, dict]:
             union = int((high_k[o] | high_p[o]).sum())
             ious.append(int((high_k[o] & high_p[o]).sum()) / union if union else 1.0)
     mask_px = [[int(m.sum()) for m in masks] for masks in masks_k]
+    np.save(WORK_DIR / "mask_px.npy", np.asarray(mask_px))
 
     result = dict(frames=VIDEO_FRAMES, frame_hw=list(VIDEO_HW), objects=VIDEO_OBJECTS, bank_rows=BANK_ROWS,
                   cli_s=cli_s, cli_last_line=cli_out.getvalue().strip().splitlines()[-1], launches=launches,
@@ -1839,6 +1868,312 @@ def phase_refine(dev, mesh) -> tuple[dict, dict]:
 
 
 
+# Smooth path: the released CoTracker2 width (COTRACKER2, fp32) and DINOv2-B
+# (bf16) at 518²; K1 at 518², tile 37 on one 8-pose confidence chunk; K2 at
+# DINOv2-B's [16, 12, 1374, 64] (8 crops + 8 renders). The confidence
+# chunk's patch features with the kernels against those with every
+# attention call and K1 on their plain versions: bf16 attention in 12
+# blocks, so a cosine floor as the proposals phase's; render masks
+# identical and depth within K1_ATOL; R orthonormal within SMOOTH_ORTH_ATOL.
+SMOOTH_CHUNK, SMOOTH_RES, SMOOTH_TILE = 8, 518, 37
+SMOOTH_ORTH_ATOL = 1e-3
+
+
+def video_gt_boxes(boxes: np.ndarray, obj: int) -> np.ndarray:
+    """[T, 4] xywh boxes of object `obj` from `synthetic_video`'s per-frame
+    xyxy boxes [T, 2, 4], clipped to the frame."""
+    h, w = VIDEO_HW
+    b = boxes[:, obj].copy()
+    b[:, :2] = np.maximum(b[:, :2], 0.0)
+    b[:, 2:] = np.minimum(b[:, 2:], [w - 1.0, h - 1.0])
+    return np.concatenate([b[:, :2], b[:, 2:] - b[:, :2]], axis=1).astype(np.float32)
+
+
+def phase_smooth(dev) -> tuple[dict, dict]:
+    """filter_predictions, dino_inference_video and smooth_poses_video
+    through their CLIs on the earlier phases' files: the frames that the
+    scaled proposals' longest track covers from frame 0 on, one proposal
+    each (its object's boxes as the video GT), one coarse row per frame,
+    then the track refine with the ZNCC chain (the default) and with
+    CoTracker2 (--tracker-weights of seeded random parameters at the
+    released width); DINOv2-B from a .npz of seeded weights; --interval 12,
+    --cap 512. A track lacks a proposal exactly on the frames where its
+    tracked mask (the video phase's) is below the video CLI's
+    --min-mask-px."""
+    import contextlib
+    import io
+
+    import torch.nn.functional as F
+
+    from freepose_tpu_torch.datasets.video import load_frame_dir, stage_frames
+    from freepose_tpu_torch.geometry.camera import crop_bbox_around_projection, default_video_intrinsics, \
+        update_k_with_crop
+    from freepose_tpu_torch.geometry.se3 import smooth_transforms
+    from freepose_tpu_torch.io.bop_csv import read_results_csv
+    from freepose_tpu_torch.io.mesh import load_obj
+    from freepose_tpu_torch.models.convert import random_cotracker2_params, save_params
+    from freepose_tpu_torch.models.cotracker import PointTracker
+    from freepose_tpu_torch.models.cotracker2 import COTRACKER2, CoTracker2Predictor
+    from freepose_tpu_torch.models.dinov2 import VIT_B14_REG
+    from freepose_tpu_torch.ops import rasterizer_cuda
+    from freepose_tpu_torch.ops.attention import (bf16_error_bound, dense_attention, flash_attention_fn,
+                                                  flash_attention_k2, sm90_key_tile)
+    from freepose_tpu_torch.ops.rasterizer_cuda import _ROWS, prologue, raster_tile, raster_tile_plain
+    from freepose_tpu_torch.pipeline.template_bank import normalize_feats
+    from freepose_tpu_torch.pipeline.tracking_refiner import RES, TrackingRefiner, quantile_threshold
+    from freepose_tpu_torch.scripts import dino_inference_video, filter_predictions
+    from freepose_tpu_torch.scripts import smooth_poses_video as cli
+    from freepose_tpu_torch.scripts.common import load_dino_extractor
+
+    t0 = time.perf_counter()
+    save_params(random_dinov2_params(VIT_B14_REG, seed=SEED + 9), WORK_DIR / "dinov2_vitb.npz")
+    save_params(random_cotracker2_params(COTRACKER2, seed=SEED + 10), WORK_DIR / "cotracker2.npz")
+    weights_s = time.perf_counter() - t0
+    scaled = json.loads((WORK_DIR / "scaled.json").read_text())
+    frames_of = {tid: sorted(p["image_id"] for p in scaled if p["track_id"] == tid)
+                 for tid in sorted({p["track_id"] for p in scaled})}
+    # The CLI takes one coarse row per frame of its video: the video is the
+    # frames that the longest track covers from frame 0 on, one proposal each.
+    prefix = {tid: fr for tid, fr in frames_of.items() if fr == list(range(len(fr)))}
+    if not prefix or max(len(fr) for fr in prefix.values()) < SMOOTH_CHUNK:
+        raise AssertionError(f"no track of scaled.json covers frames 0-{SMOOTH_CHUNK - 1}, one proposal each: "
+                             f"{frames_of}")
+    mask_px = np.load(WORK_DIR / "mask_px.npy")
+    big_enough = {tid: [t for t in range(VIDEO_FRAMES) if mask_px[t, tid] >= MIN_MASK_PX] for tid in frames_of}
+    if frames_of != big_enough:
+        raise AssertionError(f"frames with a proposal per track {frames_of}, frames whose tracked mask holds at "
+                             f"least {MIN_MASK_PX} px {big_enough}")
+    track = max(prefix, key=lambda tid: len(prefix[tid]))
+    n_frames = len(prefix[track])
+    (WORK_DIR / "smooth_frames").mkdir(exist_ok=True)
+    for path in sorted((WORK_DIR / "frames").glob("*.png"))[:n_frames]:
+        shutil.copy(path, WORK_DIR / "smooth_frames" / path.name)
+    gt = video_gt_boxes(np.load(WORK_DIR / "boxes_by_frame.npy"), track)[:n_frames]
+    np.save(WORK_DIR / "video_gt.npy", {"bboxes": gt}, allow_pickle=True)
+    cli_out = io.StringIO()
+
+    # The coarse rows the smooth path reads, through the CLIs a user calls.
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(cli_out):
+        filter_predictions.main(["--proposals", str(WORK_DIR / "scaled.json"), "--gt", str(WORK_DIR / "video_gt.npy"),
+                                 "--out", str(WORK_DIR / "kept.json")])
+    kept = json.loads((WORK_DIR / "kept.json").read_text())
+    if sorted(p["image_id"] for p in kept) != list(range(n_frames)):
+        raise AssertionError(f"filter_predictions kept {len(kept)} proposals of track "
+                             f"{kept[0]['track_id'] if kept else None}, not one per frame")
+    with contextlib.redirect_stdout(cli_out):
+        dino_inference_video.main(["--video-dir", str(WORK_DIR / "smooth_frames"),
+                                   "--proposals", str(WORK_DIR / "kept.json"),
+                                   "--wds-dir", str(WORK_DIR / "shards"), "--weights", str(WORK_DIR / "dinov2.npz"),
+                                   "--layer", str(DINO_LAYER), "--filelist", str(WORK_DIR / "refine_meshes.txt"),
+                                   "--mesh-dir", str(WORK_DIR / "meshes"), "--device", str(dev),
+                                   "--out", str(WORK_DIR / "coarse.csv")])
+    torch.cuda.synchronize()
+    coarse_s = time.perf_counter() - t0
+    coarse_launches = read_launches()
+
+    # The path, once: smooth_poses_video through its CLI with each tracker.
+    argv = ["--video-dir", str(WORK_DIR / "smooth_frames"), "--poses", str(WORK_DIR / "coarse.csv"),
+            "--mesh-dir", str(WORK_DIR / "meshes"), "--weights", str(WORK_DIR / "dinov2_vitb.npz"),
+            "--interval", "12", "--device", str(dev)]
+    cli_s, rows, tracker_launches = {}, {}, {}
+    torch.cuda.synchronize()
+    reset_launches()
+    for tracker, extra in (("zncc", []), ("cotracker2", ["--tracker", "cotracker2", "--tracker-weights",
+                                                         str(WORK_DIR / "cotracker2.npz")])):
+        before = read_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(cli_out):
+            cli.main([*argv, *extra, "--out", str(WORK_DIR / f"tracked_{tracker}.csv")])
+        torch.cuda.synchronize()
+        cli_s[tracker] = time.perf_counter() - t0
+        after = read_launches()
+        tracker_launches[tracker] = {"K1": after["K1"] - before["K1"],
+                                     "K2_d64": after["K2_by_dim"].get("64", 0) - before["K2_by_dim"].get("64", 0)}
+        rows[tracker] = read_results_csv(WORK_DIR / f"tracked_{tracker}.csv", t_scale=1.0)
+    launches = read_launches()
+    row_checks = {name: {"rows": len(rs), "frames": sorted(r.im_id for r in rs) == list(range(n_frames)),
+                         "rot_orth_err": max(float(np.abs(r.R @ r.R.T - np.eye(3)).max()) for r in rs),
+                         "t_finite": all(np.isfinite(r.t).all() for r in rs),
+                         "t_z_min": min(float(r.t[2]) for r in rs)} for name, rs in rows.items()}
+
+    # The same functions, measured: the CLI's refiner, trackers and video.
+    coarse = sorted(read_results_csv(WORK_DIR / "coarse.csv", t_scale=1.0), key=lambda r: r.im_id)
+    frames = load_frame_dir(WORK_DIR / "smooth_frames")
+    h, w = frames.shape[1:3]
+    k = default_video_intrinsics(w, h)
+    mesh = load_obj(WORK_DIR / "meshes" / str(coarse[0].obj_id) / f"{coarse[0].obj_id}.obj").normalized().scaled(
+        coarse[0].scale)
+    poses = np.stack([np.vstack([np.hstack([r.R, r.t[:, None]]), [0, 0, 0, 1]]) for r in coarse]).astype(np.float32)
+    extractor = load_dino_extractor(str(WORK_DIR / "dinov2_vitb.npz"), model="vitb", device=dev)
+
+    def feature_fn(imgs):
+        return extractor(imgs, layer=None, feature_type="patch")
+
+    zncc = PointTracker(device=dev)
+    ct2 = CoTracker2Predictor(random_cotracker2_params(COTRACKER2, seed=SEED + 10), COTRACKER2, device=dev)
+    refiner = TrackingRefiner(feature_fn=feature_fn, tracker=zncc, device=dev)
+    staged = stage_frames(frames, dev)
+    n = len(frames)
+
+    def timed(fn, reps=3):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3 / reps
+
+    (inliers, _), conf_ms = timed(lambda: refiner.n_inliers_per_pose(mesh, staged, k, poses, channels_last=True))
+    best = int(np.argmax(inliers))
+    (query, surface, valid), corr_ms = timed(
+        lambda: refiner.compute_2d3d_correspondences(mesh, None, k, poses[best], fetch=False))
+    order = torch.argsort(torch.where(valid, 0, valid.shape[0] + 1)
+                          + torch.arange(valid.shape[0], device=dev))[:512]
+    qs, ss, vs = query[order], surface[order], valid[order]
+    idxs = [min(i, n - 1) for i in range(best, best + 12)]
+    sub = staged[torch.as_tensor(idxs, device=dev)]
+    # ZNCC at the cap the CLI picks with its default --cap-buckets, and at 512.
+    zncc_cap = cli.cap_set(512, (128, 256, 512))
+    zncc_cap = next((b for b in zncc_cap if b >= int(valid.sum())), zncc_cap[-1])
+    _, zncc_cap_ms = timed(lambda: zncc.track_device(sub, qs[:zncc_cap], 0))
+    (tr_z, sc_z), zncc_ms = timed(lambda: zncc.track_device(sub, qs, 0))
+    (tr_c, vis_c), ct2_ms = timed(lambda: ct2.track(sub, qs.cpu().numpy(), 0), reps=2)
+    vis_z = (sc_z > 0.5).cpu().numpy() & vs.cpu().numpy()[None]
+    _, pnp_ms = timed(lambda: refiner.compute_pnp_batch(tr_z, ss, vis_z, k), reps=5)
+    _, smooth_ms = timed(lambda: smooth_transforms(torch.as_tensor(poses)), reps=5)
+    trackers = {"zncc": {"visible_share": float(vis_z.mean()), "ms": zncc_cap_ms, "points": zncc_cap,
+                         "ms_at_512": zncc_ms},
+                "cotracker2": {"visible_share": float((vis_c & vs.cpu().numpy()[None]).mean()), "ms": ct2_ms,
+                               "points": len(order) + ct2.support_grid_size ** 2}}
+    chunk = torch.as_tensor(np.minimum(np.arange(SMOOTH_CHUNK), n - 1), device=dev)
+    chunk_poses = poses[chunk.cpu().numpy()]
+    profile = profile_device_time(lambda: refiner.pose_confidence_batch(mesh, staged[chunk], k, chunk_poses,
+                                                                        fetch=False, channels_last=True),
+                                  "confidence_chunk", top=10)
+    profile.update(profile_device_time(lambda: ct2.track(sub, qs.cpu().numpy(), 0), "cotracker2_interval", top=10))
+
+    # One confidence chunk with the kernels, then with every attention call
+    # and K1 on their plain versions: renders, features, confidence.
+    kd, pd = torch.as_tensor(k, device=dev), torch.as_tensor(chunk_poses, device=dev)
+    pts = torch.as_tensor(mesh.sample_surface(100, seed=42), device=dev)
+    new_ks = update_k_with_crop(kd, crop_bbox_around_projection(pd, pts, kd, RES, RES, lamb=1.4), RES, RES)
+    padded = refiner._padded(mesh)
+    settings = refiner.settings
+    rows_, slots = prologue(*padded, pd, new_ks, settings)
+    runs = {}
+    for plain in (False, True):
+        before = read_launches()
+        if plain:
+            rasterizer_cuda.raster_tile = raster_tile_plain
+            for blk in extractor.model.blocks:
+                blk.attn.attention_fn = dense_attention
+        try:
+            img = rasterizer_cuda.raster_tile(rows_, slots, SMOOTH_RES, SMOOTH_TILE, settings.ambient, False)
+            conf = refiner.pose_confidence_batch(mesh, staged[chunk], k, chunk_poses, fetch=False,
+                                                 channels_last=True)
+            crops_renders = torch.cat([torch.stack([refiner._crop_and_k(
+                staged[i].permute(2, 0, 1).float() / 255.0, pts, kd, pd[j])[0] for j, i in enumerate(chunk.tolist())]),
+                img[..., 1:4].permute(0, 3, 1, 2)])
+            feats = normalize_feats(feature_fn(crops_renders).float())
+        finally:
+            rasterizer_cuda.raster_tile = raster_tile
+            for blk in extractor.model.blocks:
+                blk.attn.attention_fn = flash_attention_fn
+        after = read_launches()
+        runs[plain] = dict(img=img, conf=conf, feats=feats,
+                           launches={key: after[key] - before[key] for key in ("K1", "K2")})
+    img_k, img_p = runs[False]["img"], runs[True]["img"]
+    mask_mismatch = int(((img_k[..., 0] > 0) != (img_p[..., 0] > 0)).sum())
+    depth_err = float((img_k[..., 0] - img_p[..., 0]).abs().max())
+    feature_cos_min = float((runs[False]["feats"] * runs[True]["feats"]).sum(-1).min())
+    confs = {plain: runs[plain]["conf"].cpu() for plain in runs}
+    inliers_chunk = {("plain" if plain else "kernels"): (c > float(quantile_threshold(c))).sum(dim=(1, 2)).tolist()
+                     for plain, c in confs.items()}
+    chunk_launches = {"kernels": runs[False]["launches"], "plain": runs[True]["launches"]}
+    del runs, img_k, img_p
+
+    # K1 at 518², tile 37 on that chunk, against its plain version; the gate
+    # must fail a kernel that reads a slot from the next pose's rows.
+    def k1_check(out, ref):
+        return (int(((out[..., 0] > 0) != (ref[..., 0] > 0)).sum()), float((out[..., 0] - ref[..., 0]).abs().max()),
+                float((out[..., 1:] - ref[..., 1:]).abs().max()))
+
+    k1_ref = raster_tile_plain(rows_, slots, SMOOTH_RES, SMOOTH_TILE, settings.ambient, False)
+    k1 = k1_check(raster_tile(rows_, slots, SMOOTH_RES, SMOOTH_TILE, settings.ambient, False), k1_ref)
+    k1_wrong = k1_check(reads_next_pose(rows_, slots, SMOOTH_RES, SMOOTH_TILE, settings.ambient, False), k1_ref)
+    k1_ms = cuda_ms(lambda: raster_tile(rows_, slots, SMOOTH_RES, SMOOTH_TILE, settings.ambient, False), reps=10)
+    k1_device = device_ms(lambda: raster_tile(rows_, slots, SMOOTH_RES, SMOOTH_TILE, settings.ambient, False))
+    k1_plain_ms = cuda_ms(lambda: raster_tile_plain(rows_, slots, SMOOTH_RES, SMOOTH_TILE, settings.ambient, False),
+                          reps=1)
+    p_, n_faces, _ = rows_.shape
+    held = slots >= 0
+    face_ok = rows_[..., _ROWS["valid"]].gather(1, slots.clamp(min=0).reshape(p_, -1).long()).reshape(
+        slots.shape) > 0.5
+    k1_bound, k1_bound_by = bound(21 * int((held & face_ok).sum()) * SMOOTH_TILE ** 2,
+                                  p_ * n_faces * (_ROWS["c2b"] + 1) * 4 + slots.numel() * 4
+                                  + p_ * SMOOTH_RES ** 2 * 16, PEAK_FP32_FLOPS)
+    k1_line = {"poses": p_, "tiles": slots.shape[1], "faces_per_tile": slots.shape[2],
+               "hit_mask_mismatches": k1[0], "depth_max_err": k1[1], "rgb_max_err": k1[2], "atol": K1_ATOL,
+               "reads_next_pose": {"hit_mask_mismatches": k1_wrong[0], "depth_max_err": k1_wrong[1],
+                                   "rgb_max_err": k1_wrong[2]},
+               "ms": k1_ms, "device_ms": k1_device, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
+               "bound_by": k1_bound_by, "hit_px": int((k1_ref[..., 0] > 0).sum())}
+    del k1_ref, rows_, slots
+
+    # K2 at DINOv2-B's confidence-chunk shape against its plain version.
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    b, heads, ntok, d = 2 * SMOOTH_CHUNK, VIT_B14_REG.num_heads, 1 + 4 + (RES // 14) ** 2, 64
+    q, kk, v = (torch.randn((b, heads, ntok, d), generator=gen, device=dev) for _ in range(3))
+    q, kk, v = (q * QUERY_STD).to(torch.bfloat16), kk.to(torch.bfloat16), v.to(torch.bfloat16)
+    scale = d ** -0.5
+    ref = dense_attention(q, kk, v, scale)
+    k2 = check_attention(flash_attention_k2(q, kk, v, scale), ref, bf16_error_bound(q, kk, v, scale, ref), {
+        "drops_last_keys": dense_attention(q, kk[:, :, :-DROPPED_KEYS], v[:, :, :-DROPPED_KEYS], scale),
+        "reads_next_head": reads_next_head(q, kk, v, scale, sm90_key_tile(d))})
+    k2_bound, k2_bound_by = bound(4 * b * heads * ntok * ntok * d, 4 * b * heads * ntok * d * 2)
+    k2_line = {"shape": [b, heads, ntok, d], **k2, "tol": ATTN_TOL,
+               "ms": cuda_ms(lambda: flash_attention_k2(q, kk, v, scale), reps=10),
+               "device_ms": device_ms(lambda: flash_attention_k2(q, kk, v, scale)),
+               "plain_ms": cuda_ms(lambda: dense_attention(q, kk, v, scale), reps=3),
+               "sdpa_ms": cuda_ms(lambda: F.scaled_dot_product_attention(q, kk, v, scale=scale), reps=10),
+               "sdpa_device_ms": device_ms(lambda: F.scaled_dot_product_attention(q, kk, v, scale=scale)),
+               "bound_ms": k2_bound, "bound_by": k2_bound_by}
+    del q, kk, v, ref
+
+    result = dict(frames=n, frames_by_track=frames_of, kept_track=kept[0]["track_id"], coarse_rows=len(coarse),
+                  rows=row_checks,
+                  cli_s=cli_s, coarse_cli_s=coarse_s, weights_write_s=weights_s, launches=launches,
+                  launches_by_tracker=tracker_launches, coarse_cli_launches=coarse_launches,
+                  cli_last_lines=cli_out.getvalue().strip().splitlines()[-3:], inliers=inliers.tolist(),
+                  start_frame=best, valid_correspondences=int(valid.sum()),
+                  confidence_ms_per_frame=conf_ms / n, correspondences_ms_per_interval=corr_ms,
+                  tracker_ms_per_interval={name: t["ms"] for name, t in trackers.items()}, trackers=trackers,
+                  epnp_ms_per_interval=pnp_ms, smoothing_ms=smooth_ms,
+                  chunk_kernel_vs_plain={"render_mask_mismatches": mask_mismatch, "depth_max_err": depth_err,
+                                         "depth_atol": K1_ATOL, "feature_cos_min": feature_cos_min,
+                                         "feature_cos_floor": FEATURE_COS_MIN, "inliers": inliers_chunk,
+                                         "launches": chunk_launches},
+                  k1_518=k1_line, k2_b16_1374=k2_line,
+                  peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, profile=profile)
+    log("smooth", **result)
+    if min(min(c.values()) for c in tracker_launches.values()) <= 0:
+        raise AssertionError(f"a smooth_poses_video run did not launch K1 and K2 at d 64: {tracker_launches}")
+    for name, c in row_checks.items():
+        if c["rows"] != n_frames or not c["frames"] or c["rot_orth_err"] > SMOOTH_ORTH_ATOL \
+                or not c["t_finite"] or c["t_z_min"] <= 0:
+            raise AssertionError(f"smooth path, {name}: {c}")
+    if mask_mismatch or depth_err > K1_ATOL or feature_cos_min < FEATURE_COS_MIN:
+        raise AssertionError(f"confidence chunk, kernels vs plain versions: {result['chunk_kernel_vs_plain']}")
+    if min(chunk_launches["kernels"].values()) <= 0 or max(chunk_launches["plain"].values()) != 0:
+        raise AssertionError(f"confidence chunk, kernels vs plain versions: launches {chunk_launches}")
+    if k1[0] or max(k1[1:]) > K1_ATOL or not (k1_wrong[0] > 0 or max(k1_wrong[1:]) > K1_ATOL):
+        raise AssertionError(f"K1 at {SMOOTH_RES}², tile {SMOOTH_TILE}: {k1_line}")
+    return result, launches
+
 # Proposals path: a BOP-layout test split of LM-O / YCB-V sized images, the
 # box threshold's count on image 0, the floor of the mean mask IoU of SAM2
 # image masks kernels vs plain (the video phase's), and of the cosine of each
@@ -2113,11 +2448,14 @@ def main() -> int:
         torch.cuda.empty_cache()
         _, refine = phase_refine(dev, mesh)
         torch.cuda.empty_cache()
+        _, smooth = phase_smooth(dev)
+        torch.cuda.empty_cache()
         _, proposals = phase_proposals(dev)
     finally:
         shutil.rmtree(WORK_DIR, ignore_errors=True)
     # Launches on each main path's run (`launches_by_path`) and their sum.
-    paths = {"static": static, "video": video, "scale": scale, "refine": refine, "proposals": proposals}
+    paths = {"static": static, "video": video, "scale": scale, "refine": refine, "smooth": smooth,
+             "proposals": proposals}
     counts = {k1["name"]: lambda p: p["K1"], streams["K3"]["name"]: lambda p: p["K3"],
               streams["K4"]["name"]: lambda p: p["K4"], k5["name"]: lambda p: p["K5"],
               k5_combine["name"]: lambda p: p["K5_combine"],

@@ -1,9 +1,12 @@
 """Video frame loading: a directory of JPEG/PNG frames -> [T, H, W, 3] uint8.
 
 A copy of freepose_tpu.datasets.video's eager loader and its
-AsyncVideoFrameLoader (numpy, PIL and a thread; the JAX module's TPU staging
-is not ported). Frames stay uint8 RGB; resizing and normalisation happen on the
-device in the consumers (models/sam2/predictor.py:prepare_image).
+AsyncVideoFrameLoader (numpy, PIL and a thread), and `stage_frames`, the
+port's counterpart of the JAX module's StagedVideo: the whole video as one
+uint8 tensor on the device (no padding to a frame bucket, since no compiled
+program is shared across lengths). Frames stay uint8 RGB; resizing and
+normalisation happen on the device in the consumers
+(models/sam2/predictor.py:prepare_image).
 """
 from __future__ import annotations
 
@@ -34,6 +37,14 @@ def load_frame_dir(video_dir: str | Path) -> np.ndarray:
     if not paths:
         raise FileNotFoundError(f"no frames under {video_dir}")
     return np.stack([_decode(p) for p in paths])
+
+
+def stage_frames(frames: np.ndarray, device) -> "torch.Tensor":
+    """[T, H, W, 3] uint8 -> the same uint8 tensor on `device`, uploaded once;
+    consumers slice chunks and gather interval frames there."""
+    import torch
+
+    return torch.as_tensor(np.asarray(frames, np.uint8)).to(device)
 
 
 class AsyncVideoFrameLoader:

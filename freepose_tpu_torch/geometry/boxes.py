@@ -29,3 +29,15 @@ def extend_and_clip_boxes(boxes: torch.Tensor, extend: float, w: int, h: int) ->
     y1 = torch.clamp(boxes[..., 1] - extend * bh, min=0.0)
     y2 = torch.clamp(boxes[..., 3] + extend * bh, max=float(h))
     return torch.stack([x1, y1, x2, y2], dim=-1)
+
+
+def bbox_iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """IoU of xywh boxes, broadcasting over leading dims; 0 where the union
+    is empty."""
+    tlx = torch.maximum(a[..., 0], b[..., 0])
+    tly = torch.maximum(a[..., 1], b[..., 1])
+    w = torch.minimum(a[..., 0] + a[..., 2], b[..., 0] + b[..., 2]) - tlx
+    h = torch.minimum(a[..., 1] + a[..., 3], b[..., 1] + b[..., 3]) - tly
+    inter = torch.where((w > 0) & (h > 0), w * h, 0.0)
+    union = a[..., 2] * a[..., 3] + b[..., 2] * b[..., 3] - inter
+    return torch.where(union > 0, inter / union, 0.0)

@@ -87,3 +87,64 @@ def geodesic_distance(rots: torch.Tensor, ref: torch.Tensor, degrees: bool = Tru
         tr = tr + r[:, i, j] * q[i, j]
     ang = torch.arccos(torch.clamp((tr - 1.0) / 2.0, -1.0, 1.0))
     return torch.rad2deg(ang) if degrees else ang
+
+
+def matrix_to_quat(m: torch.Tensor) -> torch.Tensor:
+    """[..., 3, 3] rotation matrix -> [..., 4] scalar-last unit quaternion,
+    by Shepperd's method without branches: all four candidates, the one
+    whose pivot (trace, m00, m11, m22) is largest kept."""
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def two_sqrt(x):
+        return torch.sqrt(torch.clamp(x, min=1e-12)) * 2.0
+
+    s_w = two_sqrt(1.0 + tr)
+    q_w = torch.stack([(m21 - m12) / s_w, (m02 - m20) / s_w, (m10 - m01) / s_w, s_w / 4.0], -1)
+    s_x = two_sqrt(1.0 + m00 - m11 - m22)
+    q_x = torch.stack([s_x / 4.0, (m01 + m10) / s_x, (m02 + m20) / s_x, (m21 - m12) / s_x], -1)
+    s_y = two_sqrt(1.0 - m00 + m11 - m22)
+    q_y = torch.stack([(m01 + m10) / s_y, s_y / 4.0, (m12 + m21) / s_y, (m02 - m20) / s_y], -1)
+    s_z = two_sqrt(1.0 - m00 - m11 + m22)
+    q_z = torch.stack([(m02 + m20) / s_z, (m12 + m21) / s_z, s_z / 4.0, (m10 - m01) / s_z], -1)
+    cand = torch.stack([q_w, q_x, q_y, q_z], dim=-2)  # [..., 4, 4]
+    idx = torch.stack([tr, m00, m11, m22], dim=-1).argmax(dim=-1)
+    q = torch.take_along_dim(cand, idx[..., None, None], dim=-2)[..., 0, :]
+    return q / torch.linalg.norm(q, dim=-1, keepdim=True)
+
+
+def average_quaternions(quats: torch.Tensor, weights: torch.Tensor | None = None) -> torch.Tensor:
+    """Markley eigen-average of [..., N, 4] quaternions -> [..., 4]: the
+    eigenvector of the largest eigenvalue of the weighted outer-product
+    mean (its sign is arbitrary; q and -q are one rotation)."""
+    if weights is None:
+        weights = torch.ones(quats.shape[:-1], dtype=quats.dtype, device=quats.device)
+    a = torch.einsum("...n,...ni,...nj->...ij", weights, quats, quats) / weights.sum(dim=-1)[..., None, None]
+    return torch.linalg.eigh(a)[1][..., -1]
+
+
+def rotvec_to_matrix(rotvec: torch.Tensor) -> torch.Tensor:
+    """[..., 3] axis-angle -> [..., 3, 3] by Rodrigues' formula, safe at 0."""
+    theta = torch.linalg.norm(rotvec, dim=-1, keepdim=True)
+    axis = rotvec / torch.clamp(theta, min=1e-12)
+    x, y, z = axis[..., 0], axis[..., 1], axis[..., 2]
+    zero = torch.zeros_like(x)
+    k = torch.stack([zero, -z, y, z, zero, -x, -y, x, zero], -1).reshape(rotvec.shape[:-1] + (3, 3))
+    th = theta[..., None]
+    eye = torch.eye(3, dtype=rotvec.dtype, device=rotvec.device).expand(k.shape)
+    return eye + torch.sin(th) * k + (1.0 - torch.cos(th)) * (k @ k)
+
+
+def matrix_to_rotvec(m: torch.Tensor) -> torch.Tensor:
+    """[..., 3, 3] -> [..., 3] axis-angle (the SO(3) log map); within 1e-3
+    of pi the axis comes from the quaternion's vector part."""
+    cos = torch.clamp((m.diagonal(dim1=-2, dim2=-1).sum(-1) - 1.0) / 2.0, -1.0, 1.0)
+    theta = torch.arccos(cos)[..., None]
+    skew = torch.stack([m[..., 2, 1] - m[..., 1, 2], m[..., 0, 2] - m[..., 2, 0], m[..., 1, 0] - m[..., 0, 1]], -1)
+    scale = torch.where(theta < 1e-6, 0.5, theta / torch.clamp(2.0 * torch.sin(theta), min=1e-12))
+    q = matrix_to_quat(m)
+    v = q[..., :3] * torch.where(q[..., 3:4] < 0, -1.0, 1.0)
+    near_pi = v / torch.clamp(torch.linalg.norm(v, dim=-1, keepdim=True), min=1e-12) * theta
+    return torch.where(theta > torch.pi - 1e-3, near_pi, skew * scale)

@@ -318,3 +318,126 @@ def random_grounding_dino_params(cfg, seed: int = 0) -> dict:
     for name in ("enc_output_norm", "decoder_ln"):
         tree[name]["scale"] = tree[name]["scale"] / np.float32(np.sqrt(cfg.d_model))
     return tree
+
+
+# Added to the CoTracker2 visibility probe's bias in random parameters, so
+# that random weights keep tracked points visible (above the predictor's 0.9
+# threshold): with no visible point an interval has nothing to solve EPnP on.
+VISIBILITY_BIAS = 10.0
+
+
+def _cotracker2_leaves(depth: int):
+    """(released state-dict name, JAX tree path, kind, scanned layer or None)
+    for every CoTracker2 parameter. kind: "conv" (OIHW <-> HWIO), "dense"
+    (weight [out, in] <-> kernel [in, out]), "norm" (weight <-> scale),
+    "virtual" ([1, V, 1, D] <-> [V, 1, D])."""
+    out = []
+
+    def add(name, path, kind, layer=None, bias=True):
+        w = {"conv": "kernel", "dense": "kernel", "norm": "scale"}[kind]
+        out.append((f"{name}.weight", path + (w,), kind, layer))
+        if bias:
+            out.append((f"{name}.bias", path + ("bias",), "bias", layer))
+
+    for conv in ("conv1", "conv2", "conv3"):
+        add(f"fnet.{conv}", ("fnet", conv), "conv")
+    for stage in range(1, 5):
+        for blk in range(2):
+            p, jp = f"fnet.layer{stage}.{blk}", ("fnet", f"layer{stage}_{blk}")
+            add(f"{p}.conv1", jp + ("conv1",), "conv")
+            add(f"{p}.conv2", jp + ("conv2",), "conv")
+            if stage > 1 and blk == 0:
+                add(f"{p}.downsample.0", jp + ("down",), "conv")
+    add("updateformer.input_transform", ("updateformer", "input_transform"), "dense")
+    add("updateformer.flow_head", ("updateformer", "flow_head"), "dense")
+    out.append(("updateformer.virual_tracks", ("updateformer", "virtual_tracks"), "virtual", None))
+    blocks = (("time_blocks", "time", "attn"), ("space_virtual_blocks", "virtual", "attn"),
+              ("space_point2virtual_blocks", "point2virtual", "cross_attn"),
+              ("space_virtual2point_blocks", "virtual2point", "cross_attn"))
+    for i in range(depth):
+        for torch_list, jax_name, attn in blocks:
+            p, jp = f"updateformer.{torch_list}.{i}", ("updateformer", "layers", jax_name)
+            for lin in ("to_q", "to_kv", "to_out"):
+                add(f"{p}.{attn}.{lin}", jp + (attn, lin), "dense", i)
+            for fc in ("fc1", "fc2"):
+                add(f"{p}.mlp.{fc}", jp + ("mlp", fc), "dense", i)
+            if attn == "cross_attn":
+                add(f"{p}.norm_context", jp + ("norm_context",), "norm", i)
+    add("norm", ("norm",), "norm")
+    add("track_feat_updater.0", ("track_feat_updater",), "dense")
+    add("vis_predictor.0", ("vis_predictor",), "dense")
+    return out
+
+
+def _to_torch_layout(x: np.ndarray, kind: str) -> np.ndarray:
+    return {"conv": lambda a: a.transpose(3, 2, 0, 1), "dense": lambda a: a.T,
+            "virtual": lambda a: a[None]}.get(kind, lambda a: a)(x)
+
+
+def _to_jax_layout(x: np.ndarray, kind: str) -> np.ndarray:
+    return {"conv": lambda a: a.transpose(2, 3, 1, 0), "dense": lambda a: a.T,
+            "virtual": lambda a: a[0]}.get(kind, lambda a: a)(x)
+
+
+def cotracker2_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """The JAX CoTracker2 parameter tree (its 6 layers scanned, stacked
+    [depth, ...] under updateformer/layers) -> the state dict of the port's
+    CoTracker2, whose names are the released checkpoint's."""
+    depth = np.asarray(params["updateformer"]["layers"]["time"]["mlp"]["fc1"]["bias"]).shape[0]
+    sd = {}
+    for name, path, kind, layer in _cotracker2_leaves(depth):
+        node = params
+        for key in path:
+            node = node[key]
+        x = np.asarray(node)
+        sd[name] = _f32(_to_torch_layout(x if layer is None else x[layer], kind))
+    return sd
+
+
+def cotracker2_to_jax(sd: dict) -> dict:
+    """The inverse of `cotracker2_from_jax`: a CoTracker2 state dict (the
+    released names) -> the JAX tree."""
+    depth = len({k.split(".")[2] for k in sd if k.startswith("updateformer.time_blocks.")})
+    tree: dict = {}
+    stacked: dict = {}
+    for name, path, kind, layer in _cotracker2_leaves(depth):
+        x = _to_jax_layout(np.asarray(sd[name], dtype=np.float32), kind)
+        if layer is not None:
+            stacked.setdefault(path, [None] * depth)[layer] = x
+            continue
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = x
+    for path, xs in stacked.items():
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = np.stack(xs)
+    return tree
+
+
+def random_cotracker2_params(cfg, seed: int = 0) -> dict:
+    """Seeded random CoTracker2 parameters at `cfg` in the JAX package's tree
+    layout: lecun-normal weights, N(0, 0.02) biases, norm scales
+    1 + N(0, 0.02), virtual tracks N(0, 1), and VISIBILITY_BIAS added to the
+    visibility probe's bias."""
+    from freepose_tpu_torch.models.cotracker2 import CoTracker2
+
+    with torch.device("meta"):
+        model = CoTracker2(cfg)
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for name, p in model.state_dict().items():
+        shape = tuple(p.shape)
+        if name == "updateformer.virual_tracks":
+            val = rng.standard_normal(shape, np.float32)
+        elif name.endswith(".bias"):
+            val = 0.02 * rng.standard_normal(shape, np.float32)
+        elif len(shape) == 1:  # a norm's scale
+            val = 1.0 + 0.02 * rng.standard_normal(shape, np.float32)
+        else:
+            val = rng.standard_normal(shape, np.float32) / np.float32(np.sqrt(np.prod(shape[1:])))
+        sd[name] = val.astype(np.float32)
+    sd["vis_predictor.0.bias"] = sd["vis_predictor.0.bias"] + np.float32(VISIBILITY_BIAS)
+    return cotracker2_to_jax(sd)

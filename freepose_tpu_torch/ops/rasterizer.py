@@ -204,7 +204,9 @@ def _rasterize_plain_one(vertices, colors, faces, face_valid, pose, k, settings)
     # after the fullest tile's last candidate hold no face in any tile, and
     # cutting them leaves every z-winner and hit as it is.
     held = max(1, int(sel_valid.sum(dim=-1).max()))
-    top_idx, sel_valid = top_idx[:, :held].long(), sel_valid[:, :held]
+    # Only tiles that hold a face are shaded; the others stay empty (0).
+    busy = sel_valid.any(dim=-1).nonzero()[:, 0]
+    top_idx, sel_valid = top_idx[busy, :held].long(), sel_valid[busy, :held]
 
     tri_uv_t = tri_uv[top_idx]  # [T, M, 3, 2]
     tri_z_t = tri_z[top_idx]  # [T, M, 3]
@@ -212,7 +214,7 @@ def _rasterize_plain_one(vertices, colors, faces, face_valid, pose, k, settings)
     px = torch.arange(tile, dtype=torch.float32, device=vertices.device) + 0.5
     pyy, pxx = torch.meshgrid(px, px, indexing="ij")
     pix = torch.stack([pxx.reshape(-1), pyy.reshape(-1)], dim=-1)  # [tp, 2]
-    pix_t = _tile_origins(grid, tile, vertices.device)[:, None, :] + pix[None]  # [T, tp, 2]
+    pix_t = _tile_origins(grid, tile, vertices.device)[busy, None, :] + pix[None]  # [T, tp, 2]
 
     a = tri_uv_t[:, :, 0, :]  # [T, M, 2]
     b = tri_uv_t[:, :, 1, :]
@@ -266,7 +268,9 @@ def _rasterize_plain_one(vertices, colors, faces, face_valid, pose, k, settings)
         rgb = (lw[0] * coz[0] + lw[1] * coz[1] + lw[2] * coz[2]) * zsel
         rgb = torch.clamp(rgb * settings.ambient, 0.0, 1.0)
         out[..., 1:] = torch.where(hit[..., None], rgb, 0.0)
-    return out  # [T, tp, 4]
+    full = torch.zeros((grid * grid,) + out.shape[1:], dtype=out.dtype, device=out.device)
+    full[busy] = out
+    return full  # [T, tp, 4]
 
 
 def rasterize_plain(vertices, colors, faces, face_valid, poses, k, settings=RasterSettings()):

@@ -14,6 +14,23 @@ import torch
 import torch.nn.functional as F
 
 
+def hat_taps(pos: torch.Tensor, size: int, border: bool = False):
+    """The two source indices along one axis of each position [...] and
+    their bilinear hat weights max(0, 1 - |i - pos|): [(i0, w0), (i0 + 1,
+    w1)]. border=True clamps the position to the axis (grid_sample
+    padding_mode="border"); otherwise an index off the axis gets weight 0
+    (padding_mode="zeros"). The weighted sum over both axes' taps is the
+    JAX package's hat-weight matrix product, read by index."""
+    if border:
+        pos = pos.clamp(0.0, size - 1.0)
+    i0 = torch.floor(pos)
+    taps = []
+    for idx, wt in ((i0, 1.0 - (pos - i0)), (i0 + 1.0, 1.0 - (i0 + 1.0 - pos))):
+        inside = (idx >= 0) & (idx < size)
+        taps.append((idx.clamp(0, size - 1).long(), torch.where(inside, wt, 0.0)))
+    return taps
+
+
 def resize_area(img: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
     """Area-averaging resize of [..., H, W] to fp32 (cv2.INTER_AREA for
     downsampling). Integer factors take the exact box mean; other sizes an

@@ -1,0 +1,242 @@
+"""Track-and-refine a coarse video pose track: point tracking, EPnP and SE(3)
+smoothing.
+
+Every frame's coarse pose is scored by render-and-compare inliers (DINOv2-B
+at 518²: kernel K2 on the card; the renders at 518², tile 37: kernel K1);
+from the best frame, intervals of --interval frames are walked outward; in
+each, 2D-3D correspondences are generated at the start pose, tracked over
+the interval (CoTracker2 with --tracker-weights, else the weight-free ZNCC
+chain) and solved per frame with EPnP on the host CPU. The coarse
+translations are kept and the track is smoothed -> `{video}-tracked.csv`.
+The flag set is the JAX package's scripts/smooth_poses_video.py plus
+--device.
+
+Two behaviours differ from the JAX script on purpose: --cap-buckets adapts
+the cap only for the ZNCC tracker, whose points are tracked independently
+(CoTracker2's attention couples them, so a smaller query set changes every
+track), and the buckets are those at most --cap plus --cap itself (the JAX
+script clamps a --cap above 512 to 512).
+
+Usage: python -m freepose_tpu_torch.scripts.smooth_poses_video --video-dir FRAMES \
+         --poses coarse.csv --mesh-dir meshes [--tracker-weights cotracker2.npz] \
+         [--weights dinov2_vitb.npz] [--device cpu]
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from freepose_tpu_torch.datasets.video import load_frame_dir, stage_frames
+from freepose_tpu_torch.device import resolve_device
+from freepose_tpu_torch.geometry.camera import default_video_intrinsics
+from freepose_tpu_torch.geometry.se3 import smooth_transforms
+from freepose_tpu_torch.io.bop_csv import PoseResult, read_results_csv, write_results_csv
+from freepose_tpu_torch.io.mesh import load_obj
+from freepose_tpu_torch.models.cotracker import PointTracker
+from freepose_tpu_torch.pipeline.tracking_refiner import _SLICE_G, TrackingRefiner
+from freepose_tpu_torch.scripts.common import add_device_arg, full_fp32, load_dino_extractor
+
+
+def predict_interval(refiner, mesh, frames, k, start_pose, start_idx, indices):
+    """Track the correspondences of `start_idx` across `indices` (host
+    frames) and solve EPnP for each frame -> {frame: [4, 4]}."""
+    photo0 = frames[start_idx].transpose(2, 0, 1) / 255.0
+    query, surface, valid = refiner.compute_2d3d_correspondences(mesh, photo0, k, start_pose)
+    if valid.sum() < 4:
+        return {i: start_pose for i in indices}
+    sub = frames[[min(max(i, 0), len(frames) - 1) for i in indices]].astype(np.float32) / 255.0
+    tracks, vis = refiner.track_frames(sub, query[valid], query_frame=indices.index(start_idx))
+    poses = refiner.compute_pnp_batch(tracks, surface[valid], vis, k)
+    return {frame_idx: poses[li] for li, frame_idx in enumerate(indices)}
+
+
+def cap_set(cap: int, cap_buckets) -> tuple:
+    """The adaptive caps: the buckets at most `cap`, and `cap` itself as the
+    largest."""
+    return tuple(sorted({int(b) for b in cap_buckets if int(b) <= cap} | {int(cap)}))
+
+
+def smooth_track(refiner, mesh, frames, k, poses, interval: int = 12, pipelined: bool = True, cap: int = 512,
+                 keep_coarse_translation: bool = True, device_mesh=None, cap_buckets=None, telemetry=None):
+    """The track-refine pass over one video -> (smoothed [N, 4, 4], inliers
+    [N]).
+
+    `frames` is the host [T, H, W, 3] uint8 video, or (pipelined only) the
+    video staged on the device as one uint8 tensor (datasets/video.py:
+    stage_frames): confidence chunks and interval frames are then sliced
+    there.
+
+    pipelined=True: each interval tracks the first `cap` valid
+    correspondences in grid order, with padded rows masked out of EPnP, and
+    every interval's correspondences and tracks are enqueued before any
+    result is read. pipelined=False tracks each interval's valid subset,
+    anchored on the refined pose of its start where there is one (the JAX
+    script's exact path).
+
+    `cap_buckets` (pipelined, ZNCC only) sizes each interval's cap to the
+    smallest of `cap_set(cap, cap_buckets)` that holds its valid count: the
+    same result as the static cap, since ZNCC tracks each point on its own.
+    For CoTracker2 the cap stays static. `telemetry` (a dict) records the
+    caps chosen under "cap_choices"."""
+    if device_mesh is not None:
+        raise NotImplementedError(f"batched intervals over a device mesh {_SLICE_G}")
+    staged = torch.is_tensor(frames)
+    if staged and not pipelined:
+        raise ValueError("a device-staged video takes the pipelined path")
+    n = len(frames)
+    if staged:
+        inliers, _ = refiner.n_inliers_per_pose(mesh, frames, k, poses, channels_last=True)
+    else:
+        inliers, _ = refiner.n_inliers_per_pose(mesh, frames.transpose(0, 3, 1, 2), k, poses)
+    best = int(np.argmax(inliers))
+    step = interval
+    refined: dict[int, np.ndarray] = {}
+    starts = [s for s in sorted(set(range(best, n, step)) | set(range(best, -1, -step))) if s < n]
+    if not pipelined:
+        for s in starts:
+            idxs = list(range(s, min(s + step, n)))
+            if idxs:
+                refined.update(predict_interval(refiner, mesh, frames, k, refined.get(s, poses[s]), s, idxs))
+    else:
+        track_dev = getattr(refiner.tracker, "track_device", None)
+        caps = cap_set(cap, cap_buckets) if cap_buckets is not None and track_dev is not None else None
+        pre = []
+        for s in starts:
+            idxs = list(range(s, min(s + step, n)))
+            if not idxs:
+                continue
+            photo = np.zeros((3, 2, 2), np.float32)  # never read
+            query, surface, valid = refiner.compute_2d3d_correspondences(mesh, photo, k, poses[s], fetch=False)
+            pre.append((s, idxs, query, surface, valid, valid.sum() if caps is not None else None))
+        jobs = []
+        for s, idxs, query, surface, valid, nv in pre:
+            icap = cap
+            if nv is not None:
+                icap = next((b for b in caps if b >= int(nv)), caps[-1])
+                if telemetry is not None:
+                    telemetry.setdefault("cap_choices", []).append((s, icap))
+            # Valid correspondences first, in grid order, then padding.
+            g2 = valid.shape[0]
+            order = torch.argsort(torch.where(valid, 0, g2 + 1) + torch.arange(g2, device=valid.device))[:min(icap, g2)]
+            qs, ss, vs = query[order], surface[order], valid[order]
+            # Every interval padded to `step` frames (repeats of its last).
+            pad_idxs = [min(max(i, 0), n - 1) for i in idxs] + [idxs[-1]] * (step - len(idxs))
+            sub = frames[torch.as_tensor(pad_idxs, device=frames.device)] if staged else frames[pad_idxs]
+            if track_dev is not None:
+                tracks, scores = track_dev(sub, qs, 0)
+                vis = None
+            else:
+                tracks, vis = refiner.track_frames(sub, qs.cpu().numpy(), 0)
+                scores = None
+            jobs.append((s, idxs, ss, vs, tracks, vis, scores))
+        for s, idxs, ss, vs, tracks, vis, scores in jobs:
+            vs_np = vs.cpu().numpy()
+            if vs_np.sum() < 4:
+                for i in idxs:
+                    refined[i] = poses[s]
+                continue
+            if vis is None:
+                vis = (scores > 0.5).cpu().numpy()
+            pv = refiner.compute_pnp_batch(tracks, ss, np.asarray(vis) & vs_np[None], k)
+            for li, fi in enumerate(idxs):
+                refined[fi] = pv[li]
+    out_poses = np.stack([refined.get(i, poses[i]) for i in range(n)]).astype(np.float32)
+    if keep_coarse_translation:
+        out_poses[:, :3, 3] = poses[:, :3, 3]
+    return smooth_transforms(torch.as_tensor(out_poses)).numpy(), inliers
+
+
+def tracker_config(path: str | None):
+    """COTRACKER2 with the field overrides of a --tracker-config JSON (the
+    JAX script's file; its `precision` is not a field here: the port runs
+    CoTracker2 in full fp32, TF32 off)."""
+    from freepose_tpu_torch.models.cotracker2 import COTRACKER2
+
+    if not path:
+        return COTRACKER2
+    over = json.loads(Path(path).read_text())
+    over.pop("precision", None)
+    if "model_resolution" in over:
+        over["model_resolution"] = tuple(over["model_resolution"])
+    return dataclasses.replace(COTRACKER2, **over)
+
+
+def main(argv: list[str] | None = None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--video-dir", required=True)
+    ap.add_argument("--poses", required=True, help="coarse CSV from dino_inference_video")
+    ap.add_argument("--mesh-dir", required=True)
+    ap.add_argument("--out", default=None)
+    ap.add_argument("--weights", default=None, help="DINOv2-B params (.npz)")
+    ap.add_argument("--tracker", default=None, choices=["zncc", "cotracker2"],
+                    help="point tracker; default: cotracker2 when --tracker-weights is given, else the "
+                         "weight-free ZNCC chain")
+    ap.add_argument("--tracker-weights", default=None, help="CoTracker2 params (.npz, JAX layout)")
+    ap.add_argument("--tracker-config", default=None,
+                    help="JSON file of CoTracker2Config field overrides (default: the released COTRACKER2)")
+    ap.add_argument("--interval", type=int, default=12)
+    ap.add_argument("--keep-coarse-translation", action="store_true", default=True)
+    ap.add_argument("--exact-intervals", action="store_true",
+                    help="track each interval's valid correspondence subset from host frames instead of the "
+                         "default pipelined, capped intervals on the device-staged video")
+    ap.add_argument("--cap", type=int, default=512,
+                    help="pipelined mode: most tracked correspondences per interval (valid first, grid order)")
+    ap.add_argument("--cap-buckets", type=int, nargs="+", default=[128, 256, 512],
+                    help="adaptive per-interval caps for the ZNCC tracker (those at most --cap, and --cap); "
+                         "pass one value equal to --cap to disable")
+    add_device_arg(ap)
+    args = ap.parse_args(argv)
+    dev = resolve_device(args.device)
+    full_fp32()
+
+    frames = load_frame_dir(args.video_dir)
+    h, w = frames.shape[1:3]
+    k = default_video_intrinsics(w, h)
+    coarse = sorted(read_results_csv(args.poses, t_scale=1.0), key=lambda r: r.im_id)
+    mesh_id, scale = coarse[0].obj_id, coarse[0].scale
+    mesh = load_obj(Path(args.mesh_dir) / str(mesh_id) / f"{mesh_id}.obj").normalized().scaled(scale)
+
+    extractor = load_dino_extractor(args.weights, model="vitb", device=dev)
+
+    def feature_fn(imgs):
+        return extractor(imgs, layer=None, feature_type="patch")
+
+    if args.tracker is None:
+        args.tracker = "cotracker2" if args.tracker_weights else "zncc"
+    if args.tracker == "cotracker2":
+        from freepose_tpu_torch.models.convert import load_params, random_cotracker2_params
+        from freepose_tpu_torch.models.cotracker2 import CoTracker2Predictor
+
+        tcfg = tracker_config(args.tracker_config)
+        params = load_params(args.tracker_weights) if args.tracker_weights else random_cotracker2_params(tcfg)
+        tracker = CoTracker2Predictor(params, tcfg, device=dev)
+    else:
+        tracker = PointTracker(mode="correlation", device=dev)
+    refiner = TrackingRefiner(feature_fn=feature_fn, tracker=tracker, device=dev)
+
+    poses = np.stack([np.vstack([np.hstack([r.R, r.t[:, None]]), [0, 0, 0, 1]]) for r in coarse]).astype(np.float32)
+    n = len(frames)
+    video = frames if args.exact_intervals else stage_frames(frames, dev)
+    t0 = time.perf_counter()
+    smoothed, inliers = smooth_track(
+        refiner, mesh, video, k, poses, interval=args.interval, pipelined=not args.exact_intervals, cap=args.cap,
+        keep_coarse_translation=args.keep_coarse_translation,
+        cap_buckets=tuple(args.cap_buckets) if args.cap_buckets else None)
+    print(f"inliers per frame: {inliers.tolist()} -> start at {int(np.argmax(inliers))}")
+    dt = time.perf_counter() - t0
+    results = [PoseResult(scene_id=0, im_id=r.im_id, obj_id=mesh_id, score=r.score, R=smoothed[i, :3, :3],
+                          t=smoothed[i, :3, 3], bbox_visib=r.bbox_visib, scale=scale, time=dt / n)
+               for i, r in enumerate(coarse)]
+    out = args.out or str(Path(args.poses).with_suffix("")) + "-tracked.csv"
+    write_results_csv(results, out, t_scale=1.0)
+    print(f"refined track -> {out}")
+
+
+if __name__ == "__main__":
+    main()

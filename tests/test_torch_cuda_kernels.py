@@ -437,6 +437,19 @@ def test_k5_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
         flash_attention_bias(q, k5, k5, SCALE, torch.zeros((2, 8, 320), device=cuda), splits=4)
 
 
+def test_k2_at_the_dinov2_b_confidence_chunk(cuda):
+    """K2 at the smooth path's shape: DINOv2-B at 518² (1,374 tokens, a
+    ragged 21·64 + 30 query tail), 12 heads, 8 crops + 8 renders."""
+    q, k, v = (torch.as_tensor(x, device=cuda).to(torch.bfloat16) for x in _qkv(1374, b=16, h=12))
+    before = flash_attention_k2.launches_by_dim.get(64, 0)
+    out = flash_attention(q, k, v, SCALE)
+    torch.cuda.synchronize()
+    assert flash_attention_k2.launches_by_dim[64] == before + 1
+    ref = dense_attention(q, k, v, SCALE)
+    assert _within_bound(out, ref, q, k, v, SCALE)
+    assert not _within_bound(dense_attention(q, k[:, :, :-64], v[:, :, :-64], SCALE), ref, q, k, v, SCALE)
+
+
 def _cube():
     h = 0.5
     v = np.array([[-h, -h, -h], [h, -h, -h], [h, h, -h], [-h, h, -h],
@@ -519,6 +532,22 @@ def test_k1_builds_at_ragged_tiles_and_caps(cuda, depth_only, tile, mcap):
     out = raster_tile(rows, slots, 64, tile, settings.ambient, depth_only)
     torch.cuda.synchronize()
     _k1_check(out, raster_tile_plain(rows, slots, 64, tile, settings.ambient, depth_only))
+
+
+@pytest.mark.parametrize("depth_only", [False, True])
+def test_k1_at_518_with_tile_37(cuda, depth_only):
+    """The track refiner's renders: 518² in 14² tiles of 37 px (190 threads
+    a block), 256 slots, 8 poses with their own crop intrinsics."""
+    v, c, f, valid = (torch.as_tensor(a, device=cuda) for a in pad_mesh(_bumpy_sphere(20, 28), 2048, 4096))
+    ks = torch.as_tensor(np.stack([K * np.array([[s], [s], [1.0]], np.float32) * np.array([[8.0], [8.0], [1.0]],
+                                                                                           np.float32)
+                                   for s in np.linspace(0.8, 1.2, 8)]), device=cuda)
+    ks[:, :2, 2] = 259.0
+    settings = RasterSettings(resolution=518, tile=37, max_faces_per_tile=256, depth_only=depth_only)
+    rows, slots = prologue(v, c, f, valid, template_poses(8, z=1.1, device=cuda), ks, settings)
+    out = raster_tile(rows, slots, 518, 37, settings.ambient, depth_only)
+    torch.cuda.synchronize()
+    _k1_check(out, raster_tile_plain(rows, slots, 518, 37, settings.ambient, depth_only))
 
 
 def test_k1_invalid_slots_read_as_no_face(cuda):

@@ -286,7 +286,8 @@ def _flags(path) -> set[str]:
 @pytest.mark.parametrize("name", PORTED_CLIS)
 def test_cli_flags_equal_the_jax_scripts(name):
     """Every ported entry point takes the JAX script's options, plus --device
-    where it runs a model (merge_features is numpy only)."""
+    where it runs a model (merge_features and filter_predictions run on the
+    host only)."""
     ours, ref = _flags(REPO / "freepose_tpu_torch" / "scripts" / f"{name}.py"), _flags(REPO / "scripts" / f"{name}.py")
-    assert ours - ref == ({"--device"} if name != "merge_features" else set())
+    assert ours - ref == ({"--device"} if name not in ("merge_features", "filter_predictions") else set())
     assert ref <= ours

@@ -87,6 +87,30 @@ def test_video_proposals_cli_matches_jax(workspace, monkeypatch):
         assert differ <= MASK_PX, f"{key(p)}: {differ} mask pixels differ"
 
 
+def test_video_proposals_cli_drops_small_masks_as_jax(workspace, monkeypatch):
+    """A tracked mask below --min-mask-px gives no proposal on its frame, the
+    last frame included, in both CLIs: the tracked masks here hold 3,076 to
+    4,080 px on track 0 and 740 to 3,362 px on track 1, so a floor of 3,264
+    px drops (track, frame) (0, 1), (0, 3) and (1, 0), more than MASK_PX from
+    any mask's size."""
+    import importlib
+
+    from freepose_tpu_torch.scripts import extract_proposals_ground_video
+
+    ws = workspace
+    argv = [a if a != "30" else "3264" for a in _argv(ws, "jax_floor.json")]
+    monkeypatch.setenv("FREEPOSE_TINY_MODELS", "1")
+    monkeypatch.setattr(sys, "argv", ["extract_proposals_ground_video", *argv])
+    importlib.import_module("scripts.extract_proposals_ground_video").main()
+    extract_proposals_ground_video.main([a.replace("jax_floor", "torch_floor") for a in argv] + ["--device", "cpu"])
+
+    key = lambda p: (p["track_id"], p["image_id"])  # noqa: E731
+    ref = sorted(map(key, json.loads((ws / "jax_floor.json").read_text())))
+    ours = sorted(map(key, json.loads((ws / "torch_floor.json").read_text())))
+    assert ours == ref
+    assert ref == [(0, 0), (0, 2), (1, 1), (1, 2), (1, 3)]
+
+
 def test_video_cli_refuses_what_is_not_ported(workspace):
     from freepose_tpu_torch.scripts import extract_proposals_ground_video
 
