@@ -159,7 +159,42 @@ Phases, one line each on stdout:
              SAM2 image step, the same image detected twice (identical
              boxes), and image 0's SAM2 masks (mean IoU >= 0.9) and
              retrieval features (min cosine >= 0.99) against the same calls
-             with every attention call on its plain version; the work
+             with every attention call on its plain version;
+ 12. eval    the BOP evaluation path at full width through its CLI
+             (eval_bop_pose --errors cus chamfer chamfer_proj mssd mspd
+             vsd): a seeded 3-image BOP split at 640x480 with LM-O's
+             intrinsics, two instances per image of the torus (8,192
+             vertices, 16,384 faces: the MaskRenderer's caps) as
+             models/obj_000001.ply in mm, depth PNGs rendered at the GT
+             poses, visib_fract, and a CSV of 4 estimates of instance 0
+             per image (the GT pose, 5° and 30° off, shifted 5 cm; the unit
+             torus with its scale). The CLI runs with the MaskRenderer on
+             K1 (one pose per render at 640², tile 32, 256 faces per tile,
+             depth only) and again on the plain rasterizer: launches
+             zeroed before and read after the K1 run (K1 > 0, one launch
+             per render, none in the plain run); every per-pair cus
+             identical; AR_cus, AR_chamfer,
+             AR_chamfer_proj, AR_mssd and AR_mspd equal, every per-pair vsd
+             within EVAL_VSD_ATOL and AR_vsd within EVAL_AR_VSD_ATOL, the
+             GT estimate's cus < 0.01 and the 30° one's > 0.1, 0 < AR < 1.
+             Then K1 at that shape against its plain version (identical
+             hit masks, depth within K1_ATOL; a stand-in that drops each
+             tile's first slot must fail), timed: CUDA events, profiler
+             device time, the prologue by part, one render, the plain
+             version and the bound;
+ 13. vos     semi-supervised VOS at full width through its CLI
+             (vos_inference: SAM2 Hiera-L at 1024², bf16, seeded random
+             weights with the object-score bias) on the video phase's 10
+             frames at 1280x720, prompted with the two objects' frame-0
+             masks as drawn in one palette PNG, on the kernels: launches
+             zeroed before and read after (K2 d 72, K2 d 256 and K4 > 0);
+             every frame's PNG holds both object ids; then mask-prompted
+             propagation per frame on the same functions with the kernels
+             and with plain attention, gated on frames 1-9 (frame 0 is the
+             prompt): each object's own mask (before the non-overlap
+             constraint) with mean IoU >= VIDEO_IOU_MIN and every IoU >=
+             VOS_IOU_FLOOR, each object's J&F (the CLI's metric) >=
+             VOS_JF_MIN, low-res logits within VIDEO_LOGIT_ATOL; the work
              directory is deleted after it;
 then the kernels JSON line, the card's name and power limit, and last the
 device JSON line. Exits non-zero, printing no result, without a GPU or
@@ -236,6 +271,9 @@ K1_ATOL = 1e-5
 # back through 10 frames of memory; logits compared at the low resolution.
 VIDEO_IOU_MIN = 0.9
 VIDEO_LOGIT_ATOL = 1.0  # low-res mask logits of O(10); bf16 steps there are 0.03-0.06
+# The VOS path's own masks on frames 1-9, kernels vs plain attention: every
+# object on every frame, and each object's J&F over the track.
+VOS_IOU_FLOOR, VOS_JF_MIN = 0.8, 0.9
 
 SEED = 0
 RES, TILE, MFACES, CHUNK = 420, 28, 256, 128
@@ -361,6 +399,29 @@ def bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS) -> t
     and which of the two bounds it."""
     bytes_ms, ops_ms = nbytes / PEAK_BYTES_PER_S * 1e3, flops / peak_flops * 1e3
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def k1_bound(rows: torch.Tensor, slots: torch.Tensor, res: int, tile: int, depth_only: bool) -> dict:
+    """K1's bound on this run's data. Bytes: the slots read once, the rows
+    the function uses (geometry, plus colour unless depth_only) of each
+    distinct face the slots hold, and the image written once (depth alone
+    when depth_only, else depth and colour). Operations: 21 per valid
+    (pixel, face) pair, its coverage test: three edge functions (5 each),
+    three sign products and three compares."""
+    from freepose_tpu_torch.ops.rasterizer_cuda import _ROWS
+
+    p, n_faces, _ = rows.shape
+    held = slots >= 0
+    idx = slots.clamp(min=0).reshape(p, -1).long()
+    face_ok = rows[..., _ROWS["valid"]].gather(1, idx).reshape(slots.shape) > 0.5
+    valid_pairs = int((held & face_ok).sum()) * tile * tile
+    pose_of = torch.arange(p, device=slots.device).reshape(p, 1, 1).expand_as(slots)
+    faces_held = int(torch.unique((pose_of * n_faces + slots)[held]).numel())
+    row_floats = (_ROWS["valid"] if depth_only else _ROWS["c2b"]) + 1
+    nbytes = faces_held * row_floats * 4 + slots.numel() * 4 + p * res * res * (1 if depth_only else 4) * 4
+    bound_ms, bound_by = bound(21 * valid_pairs, nbytes, PEAK_FP32_FLOPS)
+    return dict(bound_ms=bound_ms, bound_by=bound_by, bound_bytes=nbytes, valid_pairs=valid_pairs,
+                faces_held=faces_held)
 
 
 def bumpy_torus(seed: int = SEED, n_u: int = 128, n_v: int = 64):
@@ -949,7 +1010,7 @@ def phase_k1(dev, mesh) -> dict:
     (select_tile_faces) and face rows."""
     from freepose_tpu_torch.io.mesh import pad_mesh
     from freepose_tpu_torch.ops.rasterizer import RasterSettings
-    from freepose_tpu_torch.ops.rasterizer_cuda import (N_ATTRS, _ROWS, bin_faces, face_rows, project_faces,
+    from freepose_tpu_torch.ops.rasterizer_cuda import (N_ATTRS, bin_faces, face_rows, project_faces,
                                                          raster_tile, raster_tile_plain, rasterize_cuda)
     from freepose_tpu_torch.pipeline.renderer import RENDERING_SCALE, TemplateRenderer
 
@@ -989,17 +1050,8 @@ def phase_k1(dev, mesh) -> dict:
     plain_ms = cuda_ms(lambda: raster_tile_plain(rows, slots, RES, TILE, settings.ambient, False), reps=1)
     p, n_faces, _ = rows.shape
     m = slots.shape[2]
-    tp = TILE * TILE
-    rows_used = _ROWS["c2b"] + 1  # geometry + colour rows; the rest of N_ATTRS is padding
-    # Each input read once (the used rows of every face row, the slots), the image written once.
-    nbytes = p * n_faces * rows_used * 4 + slots.numel() * 4 + p * RES * RES * 4 * 4
-    held = slots >= 0
-    face_ok = rows[..., _ROWS["valid"]].gather(1, slots.clamp(min=0).reshape(p, -1).long()).reshape(slots.shape) > 0.5
-    valid_pairs = int((held & face_ok).sum()) * tp
-    # Every valid (pixel, face) pair needs its coverage test: three edge
-    # functions (5 ops each), three sign products and three compares.
-    flops = 21 * valid_pairs
-    bound_ms, bound_by = bound(flops, nbytes, PEAK_FP32_FLOPS)
+    kb = k1_bound(rows, slots, RES, TILE, False)
+    bound_ms, bound_by = kb["bound_ms"], kb["bound_by"]
     rec = dict(name="K1 raster_tile (tile rasterizer)", route="cuda",
                source="freepose_tpu_torch/csrc/raster_tile.cu",
                replaces="freepose_tpu/ops/rasterizer_pallas.py:44", max_abs_err=max(depth_err, rgb_err),
@@ -1010,8 +1062,8 @@ def phase_k1(dev, mesh) -> dict:
         reads_next_pose={"hit_mask_mismatches": wrong[0], "depth_max_err": wrong[1], "rgb_max_err": wrong[2]},
         prologue_ms=prologue_ms, prologue_total_ms=sum(prologue_ms.values()), ms=ms, device=device,
         chunk_ms=chunk_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-        bound_share=bound_ms / device if device else None, valid_pairs=valid_pairs,
-        input_mb={"face_rows": rows.numel() * 4 / 1e6, "slots": slots.numel() * 4 / 1e6})
+        bound_share=bound_ms / device if device else None, valid_pairs=kb["valid_pairs"],
+        faces_held=kb["faces_held"], bound_bytes=kb["bound_bytes"], input_mb={"face_rows": rows.numel() * 4 / 1e6, "slots": slots.numel() * 4 / 1e6})
     del rows, slots, out, refs
     torch.cuda.empty_cache()
     return rec
@@ -1208,22 +1260,28 @@ def synthetic_video(seed: int = SEED):
     """Seeded VIDEO_FRAMES-frame uint8 video of VIDEO_HW (1280x720): a
     blocky low-frequency background with pixel noise, a red ellipse drifting
     right and a blue rectangle drifting down-left. Returns (frames
-    [T, H, W, 3], boxes [T, 2, 4] xyxy: each object's box on each frame)."""
+    [T, H, W, 3], boxes [T, 2, 4] xyxy: each object's box on each frame,
+    masks [T, 2, H, W] bool: each object's pixels as drawn, the ellipse less
+    what the rectangle covers)."""
     rng = np.random.default_rng(seed + 3)
     h, w = VIDEO_HW
     sy, sx = h / 720, w / 1280  # the layout is drawn for 1280x720
     bg = np.kron(rng.random((9, 16, 3)), np.ones((h // 9, w // 16, 1))) * 120
     yy, xx = np.mgrid[:h, :w]
-    frames, boxes = [], []
+    frames, boxes, masks = [], [], []
     for t in range(VIDEO_FRAMES):
         img = bg + rng.random((h, w, 3)) * 30
         cx, cy, rx, ry = (380 + 12 * t) * sx, 360 * sy, 170 * sx, 120 * sy
         x1, y1, x2, y2 = (820 - 8 * t) * sx, (250 + 6 * t) * sy, (1120 - 8 * t) * sx, (510 + 6 * t) * sy
-        img[((xx - cx) / rx) ** 2 + ((yy - cy) / ry) ** 2 <= 1] = [230, 70, 50]
-        img[int(y1):int(y2), int(x1):int(x2)] = [50, 110, 235]
+        ellipse = ((xx - cx) / rx) ** 2 + ((yy - cy) / ry) ** 2 <= 1
+        rect = np.zeros((h, w), bool)
+        rect[int(y1):int(y2), int(x1):int(x2)] = True
+        img[ellipse] = [230, 70, 50]
+        img[rect] = [50, 110, 235]
         frames.append(img.clip(0, 255).astype(np.uint8))
         boxes.append([[cx - rx, cy - ry, cx + rx, cy + ry], [x1, y1, x2, y2]])
-    return np.stack(frames), np.asarray(boxes, np.float32)
+        masks.append([ellipse & ~rect, rect])
+    return np.stack(frames), np.asarray(boxes, np.float32), np.asarray(masks)
 
 
 def plain_attention_auto(q, k, v, scale, kv_mask=None):
@@ -1246,12 +1304,14 @@ def phase_video(dev) -> tuple[dict, dict]:
 
     shutil.rmtree(WORK_DIR, ignore_errors=True)
     (WORK_DIR / "frames").mkdir(parents=True)
-    frames, boxes = synthetic_video()
+    frames, boxes, drawn = synthetic_video()
     boxes0 = boxes[0]
     for t, frame in enumerate(frames):
         Image.fromarray(frame).save(WORK_DIR / "frames" / f"{t:05d}.png", compress_level=1)
     np.save(WORK_DIR / "boxes.npy", boxes0)
     np.save(WORK_DIR / "boxes_by_frame.npy", boxes)
+    np.save(WORK_DIR / "drawn_masks0.npy", drawn[0])
+    del drawn
     bank = np.random.default_rng(SEED + 4).standard_normal((BANK_ROWS, BANK_DIM), np.float32)
     np.save(WORK_DIR / "bank.npy", bank)
     names = [f"mesh_{i:05d}" for i in range(BANK_ROWS)]
@@ -1918,7 +1978,7 @@ def phase_smooth(dev) -> tuple[dict, dict]:
     from freepose_tpu_torch.ops import rasterizer_cuda
     from freepose_tpu_torch.ops.attention import (bf16_error_bound, dense_attention, flash_attention_fn,
                                                   flash_attention_k2, sm90_key_tile)
-    from freepose_tpu_torch.ops.rasterizer_cuda import _ROWS, prologue, raster_tile, raster_tile_plain
+    from freepose_tpu_torch.ops.rasterizer_cuda import prologue, raster_tile, raster_tile_plain
     from freepose_tpu_torch.pipeline.template_bank import normalize_feats
     from freepose_tpu_torch.pipeline.tracking_refiner import RES, TrackingRefiner, quantile_threshold
     from freepose_tpu_torch.scripts import dino_inference_video, filter_predictions
@@ -2109,19 +2169,14 @@ def phase_smooth(dev) -> tuple[dict, dict]:
     k1_device = device_ms(lambda: raster_tile(rows_, slots, SMOOTH_RES, SMOOTH_TILE, settings.ambient, False))
     k1_plain_ms = cuda_ms(lambda: raster_tile_plain(rows_, slots, SMOOTH_RES, SMOOTH_TILE, settings.ambient, False),
                           reps=1)
-    p_, n_faces, _ = rows_.shape
-    held = slots >= 0
-    face_ok = rows_[..., _ROWS["valid"]].gather(1, slots.clamp(min=0).reshape(p_, -1).long()).reshape(
-        slots.shape) > 0.5
-    k1_bound, k1_bound_by = bound(21 * int((held & face_ok).sum()) * SMOOTH_TILE ** 2,
-                                  p_ * n_faces * (_ROWS["c2b"] + 1) * 4 + slots.numel() * 4
-                                  + p_ * SMOOTH_RES ** 2 * 16, PEAK_FP32_FLOPS)
-    k1_line = {"poses": p_, "tiles": slots.shape[1], "faces_per_tile": slots.shape[2],
+    kb = k1_bound(rows_, slots, SMOOTH_RES, SMOOTH_TILE, False)
+    k1_line = {"poses": rows_.shape[0], "tiles": slots.shape[1], "faces_per_tile": slots.shape[2],
                "hit_mask_mismatches": k1[0], "depth_max_err": k1[1], "rgb_max_err": k1[2], "atol": K1_ATOL,
                "reads_next_pose": {"hit_mask_mismatches": k1_wrong[0], "depth_max_err": k1_wrong[1],
                                    "rgb_max_err": k1_wrong[2]},
-               "ms": k1_ms, "device_ms": k1_device, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
-               "bound_by": k1_bound_by, "hit_px": int((k1_ref[..., 0] > 0).sum())}
+               "ms": k1_ms, "device_ms": k1_device, "plain_ms": k1_plain_ms, "bound_ms": kb["bound_ms"],
+               "bound_by": kb["bound_by"], "faces_held": kb["faces_held"],
+               "hit_px": int((k1_ref[..., 0] > 0).sum())}
     del k1_ref, rows_, slots
 
     # K2 at DINOv2-B's confidence-chunk shape against its plain version.
@@ -2179,6 +2234,7 @@ def phase_smooth(dev) -> tuple[dict, dict]:
 # image masks kernels vs plain (the video phase's), and of the cosine of each
 # proposal's retrieval feature K2 vs plain (bf16 DINOv2-L to layer 22).
 PROPOSAL_IMAGES, PROPOSAL_HW, PROPOSAL_OBJECTS, PROPOSAL_BOXES = 3, (480, 640), 5, 16
+LMO_K = [572.4114, 0.0, 325.2611, 0.0, 573.57043, 242.04899, 0.0, 0.0, 1.0]  # LM-O's camera
 FEATURE_COS_MIN = 0.99
 
 
@@ -2209,8 +2265,7 @@ def bop_test_split(root: Path, seed: int = SEED) -> list:
                                   "cam_t_m2c": [0.0, 0.0, 800.0]})
         images.append(img.clip(0, 255).astype(np.uint8))
         Image.fromarray(images[-1]).save(scene / "rgb" / f"{fid:06d}.png", compress_level=1)
-        cams[str(fid)] = {"cam_K": [572.4114, 0.0, 325.2611, 0.0, 573.57043, 242.04899, 0.0, 0.0, 1.0],
-                          "depth_scale": 1.0}
+        cams[str(fid)] = {"cam_K": LMO_K, "depth_scale": 1.0}
     (scene / "scene_camera.json").write_text(json.dumps(cams))
     (scene / "scene_gt.json").write_text(json.dumps(gts))
     return images
@@ -2421,6 +2476,392 @@ def phase_proposals(dev) -> tuple[dict, dict]:
     return result, launches
 
 
+# Evaluation path: a seeded BOP test split at 640x480 with LM-O's
+# intrinsics, two instances of the torus (GT half-extent EVAL_HALF) per
+# image and four estimates of the first, every BOP error. MaskRenderer
+# renders one pose per call at max(w, h) = 640, tile 32, depth only.
+EVAL_IMAGES, EVAL_HALF, EVAL_SHIFT = 3, 0.06, 0.05
+EVAL_ERRORS = ("cus", "chamfer", "chamfer_proj", "mssd", "mspd", "vsd")
+# VSD with K1 vs the plain rasterizer: depth within K1_ATOL can move a
+# pixel across the visibility threshold delta or a step cost's tau, each
+# such pixel 1 / (union) of the error: per pair within EVAL_VSD_ATOL,
+# AR_vsd (a mean of recalls over 10 taus x 10 thresholds) within
+# EVAL_AR_VSD_ATOL.
+EVAL_VSD_ATOL = 1e-3
+EVAL_AR_VSD_ATOL = 0.02
+
+
+def write_ply(mesh, path: Path) -> None:
+    """Binary little-endian PLY of a mesh's vertices and faces (the BOP
+    model format)."""
+    header = (f"ply\nformat binary_little_endian 1.0\nelement vertex {mesh.num_vertices}\n"
+              "property float x\nproperty float y\nproperty float z\n"
+              f"element face {mesh.num_faces}\nproperty list uchar int vertex_indices\nend_header\n")
+    faces = np.zeros(mesh.num_faces, dtype=[("n", "u1"), ("i", "<i4", 3)])
+    faces["n"], faces["i"] = 3, mesh.faces
+    path.write_bytes(header.encode() + np.asarray(mesh.vertices, "<f4").tobytes() + faces.tobytes())
+
+
+def eval_scene(root: Path, mesh, dev, seed: int = SEED) -> dict:
+    """A seeded BOP test split under root/bop (scene 000001, like
+    bop_test_split): EVAL_IMAGES RGB images of PROPOSAL_HW with LM-O's
+    intrinsics, two instances of obj 1 (`mesh` at half-extent EVAL_HALF,
+    models/obj_000001.ply in mm) per image, depth PNGs rendered at the GT
+    poses (BOP 0.1 mm units), scene_gt.json, scene_gt_info.json with
+    visib_fract; the unit mesh as the inference mesh (inference/smoke_torus.ply)
+    and a results CSV of 4 estimates of instance 0 per image (the GT pose,
+    5° and 30° off about a seeded axis, shifted EVAL_SHIFT m along x), the
+    estimate's scale EVAL_HALF. Returns the GT and estimate poses."""
+    from PIL import Image
+    from scipy.spatial.transform import Rotation
+
+    from freepose_tpu_torch.evaluation.pose_error import MaskRenderer
+    from freepose_tpu_torch.io.bop_csv import PoseResult, write_results_csv
+
+    def rot_about(axis, deg):
+        return Rotation.from_rotvec(np.radians(deg) * axis / np.linalg.norm(axis)).as_matrix()
+
+    rng = np.random.default_rng(seed + 9)
+    h, w = PROPOSAL_HW
+    k = np.asarray(LMO_K).reshape(3, 3)
+    scene = root / "bop" / "test" / "000001"
+    for sub in ("rgb", "depth"):
+        (scene / sub).mkdir(parents=True)
+    (root / "models").mkdir()
+    (root / "inference").mkdir()
+    write_ply(mesh.scaled(EVAL_HALF * 1000.0), root / "models" / "obj_000001.ply")
+    write_ply(mesh, root / "inference" / "smoke_torus.ply")
+    renderer = MaskRenderer(w, h, backend="device", device=dev)
+    renderer.add_object("gt", mesh.scaled(EVAL_HALF))
+    cams, gts, infos, results, truth = {}, {}, {}, [], []
+    for fid in range(EVAL_IMAGES):
+        poses = []
+        for x, y, z in ((-0.08, -0.02, 0.7), (0.12, 0.05, 0.8)):
+            r = rot_about(rng.normal(size=3), rng.uniform(0, 180))
+            poses.append((r, np.array([x, y, z]) + rng.uniform(-0.02, 0.02, 3)))
+        depths = [renderer.render_depth("gt", r, t, k).cpu().numpy() for r, t in poses]
+        z = np.where(np.stack(depths) > 0, np.stack(depths), np.inf).min(axis=0)
+        scene_depth = np.where(np.isfinite(z), z, 0.0)
+        Image.fromarray(np.round(scene_depth * 10000).astype(np.uint16)).save(scene / "depth" / f"{fid:06d}.png")
+        img = (rng.random((h, w, 3)) * 60 + np.where(scene_depth[..., None] > 0, 150, 40)).astype(np.uint8)
+        Image.fromarray(img).save(scene / "rgb" / f"{fid:06d}.png", compress_level=1)
+        cams[str(fid)] = {"cam_K": LMO_K, "depth_scale": 0.1}
+        gts[str(fid)] = [{"obj_id": 1, "cam_R_m2c": r.ravel().tolist(), "cam_t_m2c": (t * 1000.0).tolist()}
+                         for r, t in poses]
+        infos[str(fid)] = [{"visib_fract": float(((d > 0) & (d <= z)).sum() / max((d > 0).sum(), 1))} for d in depths]
+        r0, t0 = poses[0]
+        axis = rng.normal(size=3)
+        ests = {"gt": (r0, t0), "rot5": (rot_about(axis, 5.0) @ r0, t0), "rot30": (rot_about(axis, 30.0) @ r0, t0),
+                "shift": (r0, t0 + np.array([EVAL_SHIFT, 0.0, 0.0]))}
+        scores = rng.permutation(len(ests)) * 0.1 + 0.5  # a different order of confidence per image
+        for (name, (r, t)), score in zip(ests.items(), scores):
+            results.append(PoseResult(1, fid, "smoke_torus", float(score), r, t, scale=EVAL_HALF, time=0.1))
+        truth.append({"gt": poses, "est": ests})
+    (scene / "scene_camera.json").write_text(json.dumps(cams))
+    (scene / "scene_gt.json").write_text(json.dumps(gts))
+    (scene / "scene_gt_info.json").write_text(json.dumps(infos))
+    write_results_csv(results, root / "est.csv", t_scale=1000.0)
+    return {"k": k, "poses": truth, "renderer": renderer}
+
+
+def drops_first_slot(slots: torch.Tensor) -> torch.Tensor:
+    """Slots of a wrong K1 that skips each tile's first held face (its
+    candidates are packed first, so that is slot 0)."""
+    wrong = slots.clone()
+    wrong[..., 0] = -1
+    return wrong
+
+
+def phase_eval(dev, mesh) -> tuple[dict, dict]:
+    """The BOP evaluation path at full width through its CLI: eval_bop_pose
+    --errors cus chamfer chamfer_proj mssd mspd vsd on eval_scene, once with
+    the MaskRenderer on K1 and once on the plain rasterizer (backend "xla");
+    then K1 at the evaluation shape (one pose at 640², tile 32, 256 faces
+    per tile, depth only) against its plain version, timed with its
+    prologue by part."""
+    import contextlib
+    import dataclasses
+    import io
+
+    from freepose_tpu_torch.evaluation import pose_error as pe
+    from freepose_tpu_torch.io.mesh import pad_mesh
+    from freepose_tpu_torch.ops.rasterizer import rasterize
+    from freepose_tpu_torch.ops.rasterizer_cuda import (bin_faces, face_rows, project_faces, raster_tile,
+                                                         raster_tile_plain)
+    from freepose_tpu_torch.scripts import eval_bop_pose
+
+    root = WORK_DIR / "eval"
+    t0 = time.perf_counter()
+    scene = eval_scene(root, mesh, dev)
+    scene_s = time.perf_counter() - t0
+    k = scene["k"]
+
+    def plain_rasterize(*args):
+        *rest, settings = args
+        return rasterize(*rest, dataclasses.replace(settings, backend="xla"))
+
+    render_depth, vsd, cus = pe.MaskRenderer.render_depth, pe.vsd, pe.cus
+    runs = {}
+    for plain in (False, True):
+        rec = {"renders": 0, "vsd": [], "cus": []}
+
+        def counted(self, *a, **kw):
+            rec["renders"] += 1
+            return render_depth(self, *a, **kw)
+
+        def vsd_rec(*a, **kw):
+            out = vsd(*a, **kw)
+            rec["vsd"].append(out)
+            return out
+
+        def cus_rec(r_est, t_est, r_gt, t_gt, *a, **kw):
+            out = cus(r_est, t_est, r_gt, t_gt, *a, **kw)
+            rec["cus"].append((np.asarray(r_est), np.asarray(t_est), np.asarray(t_gt), out))
+            return out
+
+        argv = ["--results", str(root / "est.csv"), "--dataset", str(root / "bop"), "--models-dir",
+                str(root / "models"), "--inference-mesh-dir", str(root / "inference"), "--errors", *EVAL_ERRORS,
+                "--out", str(root / f"scores_{'plain' if plain else 'k1'}.json"), "--device", str(dev)]
+        pe.MaskRenderer.render_depth, pe.vsd, pe.cus = counted, vsd_rec, cus_rec
+        if plain:
+            pe.rasterize = plain_rasterize
+        try:
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                scores = eval_bop_pose.main(argv)
+            torch.cuda.synchronize()
+            rec["cli_s"] = time.perf_counter() - t0
+            rec["launches"] = read_launches()
+        finally:
+            pe.MaskRenderer.render_depth, pe.vsd, pe.cus, pe.rasterize = render_depth, vsd, cus, rasterize
+        rec["scores"] = scores
+        runs["plain" if plain else "k1"] = rec
+    k1, plain = runs["k1"], runs["plain"]
+    launches = k1["launches"]
+
+    # The estimates' cus against instance 0: the GT pose's and the 30° one's.
+    def cus_of(name):
+        vals = []
+        for r_est, t_est, t_gt, val in k1["cus"]:
+            for truth in scene["poses"]:
+                r, t = truth["est"][name]
+                if np.allclose(r_est, r, atol=1e-5) and np.allclose(t_est, t, atol=1e-5) and \
+                        np.allclose(t_gt, truth["gt"][0][1], atol=1e-5):
+                    vals.append(val)
+        return vals
+
+    cus_gt, cus_30 = cus_of("gt"), cus_of("rot30")
+    cus_diff = [i for i, (a, b) in enumerate(zip(k1["cus"], plain["cus"])) if a[3] != b[3]]
+    vsd_diff = max(float(np.abs(np.subtract(a, b)).max()) for a, b in zip(k1["vsd"], plain["vsd"]))
+
+    # K1 at the evaluation shape: instance 0 of image 0, as the CLI renders it.
+    renderer = scene["renderer"]
+    settings = renderer.settings
+    r0, t0_ = scene["poses"][0]["gt"][0]
+    v, c, f, valid = (torch.as_tensor(a, device=dev)
+                      for a in pad_mesh(mesh.scaled(EVAL_HALF), renderer.max_vertices, renderer.max_faces))
+    pose = torch.eye(4, device=dev)
+    pose[:3, :3] = torch.as_tensor(r0, dtype=torch.float32, device=dev)
+    pose[:3, 3] = torch.as_tensor(t0_, dtype=torch.float32, device=dev)
+    poses = pose[None]
+    ks = torch.as_tensor(k, dtype=torch.float32, device=dev).expand(1, 3, 3)
+    res, tile = settings.resolution, settings.tile
+    tri_uv, tri_z, fvalid = project_faces(v, f, valid, poses, ks, settings)
+    prologue_ms = {"projection": cuda_ms(lambda: project_faces(v, f, valid, poses, ks, settings), reps=20),
+                   "binning": cuda_ms(lambda: bin_faces(tri_uv, fvalid, settings), reps=20),
+                   "face_rows": cuda_ms(lambda: face_rows(tri_uv, tri_z, c, f, settings), reps=20)}
+    rows, slots = face_rows(tri_uv, tri_z, c, f, settings), bin_faces(tri_uv, fvalid, settings)
+    out = raster_tile(rows, slots, res, tile, settings.ambient, True)
+    ref = raster_tile_plain(rows, slots, res, tile, settings.ambient, True)
+    mismatch = int(((out[..., 0] > 0) != (ref[..., 0] > 0)).sum())
+    depth_err = float((out[..., 0] - ref[..., 0]).abs().max())
+    hit_px = int((out[..., 0] > 0).sum())
+    wrong = raster_tile_plain(rows, drops_first_slot(slots), res, tile, settings.ambient, True)
+    wrong_check = {"hit_mask_mismatches": int(((wrong[..., 0] > 0) != (ref[..., 0] > 0)).sum()),
+                   "depth_max_err": float((wrong[..., 0] - ref[..., 0]).abs().max())}
+    kernel_ms = cuda_ms(lambda: raster_tile(rows, slots, res, tile, settings.ambient, True), reps=50)
+    kernel_device = device_ms(lambda: raster_tile(rows, slots, res, tile, settings.ambient, True), reps=20)
+    kernel_plain_ms = cuda_ms(lambda: raster_tile_plain(rows, slots, res, tile, settings.ambient, True), reps=3)
+    render_ms = cuda_ms(lambda: renderer.render_depth("gt", r0, t0_, k), reps=20)
+    render_plain_ms = cuda_ms(lambda: plain_rasterize(v, c, f, valid, poses, ks[0], settings), reps=3)
+    kb = k1_bound(rows, slots, res, tile, True)
+    k1_eval = dict(resolution=res, tile=tile, faces_per_tile=slots.shape[2], faces=rows.shape[1], hit_px=hit_px,
+                   hit_mask_mismatches=mismatch, depth_max_err=depth_err, atol=K1_ATOL,
+                   drops_first_slot=wrong_check, prologue_ms=prologue_ms,
+                   prologue_total_ms=sum(prologue_ms.values()), ms=kernel_ms, device=kernel_device,
+                   plain_ms=kernel_plain_ms, render_ms=render_ms, render_plain_ms=render_plain_ms,
+                   **kb, bound_share=kb["bound_ms"] / kernel_device if kernel_device else None)
+    del rows, slots, out, ref, wrong, tri_uv, tri_z, fvalid
+
+    ar = {key: (k1["scores"][key], plain["scores"][key]) for key in k1["scores"] if key.startswith("AR")}
+    result = dict(images=EVAL_IMAGES, image_hw=list(PROPOSAL_HW), errors=list(EVAL_ERRORS), scene_s=scene_s,
+                  cli_s=k1["cli_s"], cli_plain_s=plain["cli_s"], renders_per_run=k1["renders"],
+                  renders_per_run_plain=plain["renders"], ms_per_render_cli=k1["cli_s"] * 1e3 / k1["renders"],
+                  ar_k1_vs_plain=ar, vsd_pairs=len(k1["vsd"]), vsd_max_abs_diff=vsd_diff,
+                  vsd_atol=EVAL_VSD_ATOL, cus_pairs=len(k1["cus"]), cus_pairs_differing=len(cus_diff),
+                  cus_gt_estimate=cus_gt, cus_30deg_estimate=cus_30,
+                  launches=launches, plain_run_k1_launches=plain["launches"]["K1"], k1=k1_eval,
+                  peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log("eval", **result)
+    if launches["K1"] <= 0 or plain["launches"]["K1"] != 0:
+        raise AssertionError(f"eval path: K1 launches {launches['K1']} on K1, {plain['launches']['K1']} on plain")
+    if k1["renders"] != plain["renders"] or k1["renders"] != launches["K1"]:
+        raise AssertionError(f"eval path: {k1['renders']} renders, {plain['renders']} plain, K1 {launches['K1']}")
+    if len(k1["cus"]) != len(plain["cus"]) or cus_diff:
+        raise AssertionError(f"eval path, K1 vs plain rasterizer: cus differs on pairs {cus_diff}")
+    for key in ("AR_cus", "AR_chamfer", "AR_chamfer_proj", "AR_mssd", "AR_mspd"):
+        if ar[key][0] != ar[key][1]:
+            raise AssertionError(f"eval path, K1 vs plain rasterizer: {key} {ar[key]}")
+    if len(k1["vsd"]) != len(plain["vsd"]) or vsd_diff > EVAL_VSD_ATOL or \
+            abs(ar["AR_vsd"][0] - ar["AR_vsd"][1]) > EVAL_AR_VSD_ATOL:
+        raise AssertionError(f"eval path, K1 vs plain rasterizer: vsd max diff {vsd_diff}, AR_vsd {ar['AR_vsd']}")
+    if len(cus_gt) != EVAL_IMAGES or len(cus_30) != EVAL_IMAGES or max(cus_gt) >= 0.01 or min(cus_30) <= 0.1:
+        raise AssertionError(f"eval path: cus of the GT estimate {cus_gt}, of the 30° one {cus_30}")
+    if not 0.0 < ar["AR"][0] < 1.0:
+        raise AssertionError(f"eval path: AR {ar['AR']}")
+    if mismatch or depth_err > K1_ATOL or hit_px == 0:
+        raise AssertionError(f"K1 at the evaluation shape: {mismatch} hit-mask mismatches, depth {depth_err}, "
+                             f"{hit_px} hits")
+    if not (wrong_check["hit_mask_mismatches"] > 0 or wrong_check["depth_max_err"] > K1_ATOL):
+        raise AssertionError(f"K1's gate does not fail a kernel that drops each tile's first slot: {wrong_check}")
+    return result, launches
+
+
+# VOS path: vos_inference on the video phase's frames, prompted with the
+# two objects' frame-0 masks as drawn (the annotation a DAVIS / SA-V tree
+# holds). The CLI runs once, on the kernels; the kernels are held to the
+# plain attention on the mask-prompted propagation, each object's own mask
+# before the non-overlap constraint, on frames 1-9. The CLI's output is not
+# compared: with random weights most mask pixels hold logits near 0 and the
+# two objects' logits cross, so a rounding change alone moves the pixels the
+# non-overlap constraint gives each object (J&F 0.670 for the plain
+# attention against itself with p in fp32, PERF.md).
+
+
+def phase_vos(dev) -> tuple[dict, dict]:
+    """Semi-supervised VOS at full width through its CLI: vos_inference
+    (SAM2 Hiera-L at 1024², bf16, seeded random weights with the object-score
+    bias) on the video phase's 10 frames at 1280x720 with the two objects'
+    frame-0 masks as drawn (`synthetic_video`) in one palette PNG, on the
+    kernels. Then mask-prompted propagation timed per frame on the same
+    functions, and again on the plain attention.
+
+    The video phase's tracked frame-0 masks would be the cheaper prompt, but
+    with random weights both are one blob (65,629 and 63,010 px of the same
+    region), so the palette's lowest-id-wins merge leaves object 2 with 87
+    px, and the two objects then fight over the same pixels under the
+    non-overlap constraint: a chaotic track, not a test of the kernels."""
+    import contextlib
+    import io
+
+    from freepose_tpu_torch.datasets.video import load_frame_dir
+    from freepose_tpu_torch.evaluation.vos_metrics import track_j_and_f
+    from freepose_tpu_torch.ops import attention
+    from freepose_tpu_torch.scripts import vos_inference
+    from freepose_tpu_torch.scripts.extract_proposals_ground_video import load_video_predictor
+
+    root = WORK_DIR / "vos"
+    (root / "videos").mkdir(parents=True)
+    (root / "videos" / "smoke").symlink_to(WORK_DIR / "frames", target_is_directory=True)
+    (root / "masks" / "smoke").mkdir(parents=True)
+    masks0 = np.load(WORK_DIR / "drawn_masks0.npy")  # [2, H, W] bool
+    h, w = masks0.shape[1:]
+    ann = vos_inference.put_per_obj_mask({i + 1: m for i, m in enumerate(masks0)}, h, w)
+    vos_inference.save_ann_png(root / "masks" / "smoke" / "00000.png", ann, vos_inference.davis_palette())
+    prompt_px = [int((ann == i + 1).sum()) for i in range(len(masks0))]
+
+    out_dir = root / "out"
+    argv = ["--base-video-dir", str(root / "videos"), "--input-mask-dir", str(root / "masks"),
+            "--output-mask-dir", str(out_dir), "--device", str(dev)]
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        vos_inference.main(argv)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches = read_launches()
+    anns = [vos_inference.load_ann_png(p)[0] for p in sorted((out_dir / "smoke").glob("*.png"))]
+    ids = [sorted(int(i) for i in np.unique(a) if i) for a in anns]
+    cli_px = [[int((a == i).sum()) for i in (1, 2)] for a in anns]
+    del anns
+
+    # Mask-prompted propagation on the same functions: per frame on the
+    # kernels (timed), then on the plain attention; each object's own mask
+    # and the low-res logits compared before the non-overlap constraint,
+    # which touches only the output (a pixel whose winning object flips
+    # drops to -10 there).
+    frames = load_frame_dir(root / "videos" / "smoke")
+    predictor = load_video_predictor(None, device=dev)
+
+    def propagate(plain: bool):
+        state = predictor.init_state(frames)
+        for i, m in enumerate(masks0):
+            state = predictor.add_new_mask(state, 0, i + 1, m)
+        kernel_auto = attention.flash_attention_auto
+        if plain:
+            attention.flash_attention_auto = plain_attention_auto
+        lows, highs, ms = [], [], []
+        try:
+            gen = predictor.propagate_in_video(state)
+            while True:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                item = next(gen, None)
+                if item is None:
+                    break
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                lows.append(item[2])
+                highs.append(item[3] > 0)
+        finally:
+            attention.flash_attention_auto = kernel_auto
+        return lows, np.stack(highs), ms  # highs [T, objects, H, W]
+
+    low_k, high_k, frame_ms = propagate(False)
+    low_p, high_p, _ = propagate(True)
+    del predictor
+    torch.cuda.empty_cache()
+    # Frames 1-9: frame 0 is the prompt, its masks equal by construction.
+    logit_diff = max(float(np.abs(a - b).max()) for a, b in zip(low_k[1:], low_p[1:]))
+    logit_scale = max(float(np.abs(b).max()) for b in low_p[1:])
+    ious = [[int((a & b).sum()) / union if (union := int((a | b).sum())) else 1.0 for a, b in zip(hk, hp)]
+            for hk, hp in zip(high_k[1:], high_p[1:])]
+    # Each object's J&F, kernels against plain, by the CLI's protocol (the
+    # track's first and last frames left out).
+    jf = [track_j_and_f(high_k[:, o], high_p[:, o]) for o in range(len(masks0))]
+    own_px = {"kernels": high_k[1:].sum(axis=(2, 3)).tolist(), "plain": high_p[1:].sum(axis=(2, 3)).tolist()}
+    # Of the plain run's mask pixels (low-res logit > 0) on frames 1-9, the
+    # share whose logit lies within VIDEO_LOGIT_ATOL of 0 (a rounding
+    # difference of that size may flip them).
+    pos = np.concatenate([b[b > 0] for b in low_p[1:]])
+    near_zero_share = float((pos < VIDEO_LOGIT_ATOL).mean()) if pos.size else None
+
+    k2 = {str(d): launches["K2_by_dim"].get(str(d), 0) for d in (64, 72, 256)}
+    result = dict(frames=VIDEO_FRAMES, frame_hw=list(VIDEO_HW), objects=len(masks0), prompt_px=prompt_px,
+                  cli_s=cli_s, cli_ms_per_frame=cli_s * 1e3 / VIDEO_FRAMES, cli_object_px=cli_px,
+                  ms_per_frame=float(np.median(frame_ms[1:])), prompt_frame_ms=frame_ms[0], frame_ms=frame_ms,
+                  own_mask_px_frames_1_9=own_px, own_mask_iou_frames_1_9=ious,
+                  own_mask_iou_mean=float(np.mean(ious)), own_mask_iou_min=float(np.min(ious)),
+                  own_mask_j_and_f_kernels_vs_plain=jf, low_res_logit_max_abs_diff=logit_diff,
+                  low_res_logit_max_abs=logit_scale, mask_logits_near_zero_share=near_zero_share,
+                  k2_launches_by_dim=k2, k4_launches=launches["K4"], launches=launches,
+                  peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log("vos", **result)
+    if min(k2["72"], k2["256"], launches["K4"]) <= 0:
+        raise AssertionError(f"vos path: kernel launches {launches}")
+    if len(ids) != VIDEO_FRAMES or any(i != [1, 2] for i in ids):
+        raise AssertionError(f"vos path: {len(ids)} mask PNGs, object ids per frame {ids}")
+    if np.mean(ious) < VIDEO_IOU_MIN or np.min(ious) < VOS_IOU_FLOOR or logit_diff > VIDEO_LOGIT_ATOL or \
+            min(r["J&F"] for r in jf) < VOS_JF_MIN:
+        raise AssertionError(f"vos path, kernels vs plain attention on frames 1-9: own-mask IoU mean "
+                             f"{np.mean(ious)}, min {np.min(ious)}, J&F {jf}, low-res logits max abs diff "
+                             f"{logit_diff}")
+    return result, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -2451,11 +2892,15 @@ def main() -> int:
         _, smooth = phase_smooth(dev)
         torch.cuda.empty_cache()
         _, proposals = phase_proposals(dev)
+        torch.cuda.empty_cache()
+        _, evaluation = phase_eval(dev, mesh)
+        torch.cuda.empty_cache()
+        _, vos = phase_vos(dev)
     finally:
         shutil.rmtree(WORK_DIR, ignore_errors=True)
     # Launches on each main path's run (`launches_by_path`) and their sum.
     paths = {"static": static, "video": video, "scale": scale, "refine": refine, "smooth": smooth,
-             "proposals": proposals}
+             "proposals": proposals, "eval": evaluation, "vos": vos}
     counts = {k1["name"]: lambda p: p["K1"], streams["K3"]["name"]: lambda p: p["K3"],
               streams["K4"]["name"]: lambda p: p["K4"], k5["name"]: lambda p: p["K5"],
               k5_combine["name"]: lambda p: p["K5_combine"],

@@ -550,6 +550,82 @@ def test_k1_at_518_with_tile_37(cuda, depth_only):
     _k1_check(out, raster_tile_plain(rows, slots, 518, 37, settings.ambient, depth_only))
 
 
+def test_k1_at_the_evaluation_shape(cuda):
+    """The MaskRenderer's renders in eval_bop_pose: one pose at 640² (640x480
+    cropped), 20² tiles of 32 px, 256 slots, depth only, LM-O's
+    intrinsics; the mesh padded to the renderer's 8,192 vertices and 16,384
+    faces. The MaskRenderer's own render goes through the kernel (one
+    launch) and equals the plain rasterizer's on the same pose."""
+    from freepose_tpu_torch.evaluation.pose_error import MaskRenderer
+
+    mesh = _bumpy_sphere(40, 64)
+    renderer = MaskRenderer(640, 480, device=cuda)
+    assert renderer.backend == "device" and (renderer.settings.resolution, renderer.settings.tile) == (640, 32)
+    renderer.add_object("m", TriMesh(mesh.vertices * 0.15, mesh.faces, mesh.vertex_colors))
+    k = np.asarray([[572.4114, 0.0, 325.2611], [0.0, 573.57043, 242.04899], [0.0, 0.0, 1.0]], np.float32)
+    r = np.asarray([[0.36, 0.48, -0.8], [-0.8, 0.6, 0.0], [0.48, 0.64, 0.6]], np.float32)
+    t = np.asarray([0.03, -0.02, 0.7], np.float32)
+    before = raster_tile.launches
+    depth = renderer.render_depth("m", r, t, k)
+    torch.cuda.synchronize()
+    assert raster_tile.launches == before + 1 and depth.shape == (480, 640)
+    v, c, f, valid = renderer._meshes["m"]
+    pose = torch.eye(4, device=cuda)
+    pose[:3, :3], pose[:3, 3] = torch.as_tensor(r, device=cuda), torch.as_tensor(t, device=cuda)
+    rows, slots = prologue(v, c, f, valid, pose[None], torch.as_tensor(k, device=cuda)[None], renderer.settings)
+    assert slots.shape == (1, 400, 256)
+    out = raster_tile(rows, slots, 640, 32, renderer.settings.ambient, True)
+    torch.cuda.synchronize()
+    ref = raster_tile_plain(rows, slots, 640, 32, renderer.settings.ambient, True)
+    _k1_check(out, ref)
+    torch.testing.assert_close(depth, ref[0, :480, :, 0], rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("name", ["chamfer", "chamfer_proj", "add", "adi", "proj", "mssd", "mspd"])
+def test_point_errors_on_the_card_match_float64(cuda, name):
+    """The BOP point errors on the card (plain float32 norms and sqrt, TF32
+    off) within 1e-4 relative of a float64 reference: the expansion trick
+    cancels, so nearest distances carry ~1e-5 relative rounding."""
+    from scipy.spatial.transform import Rotation
+
+    from freepose_tpu_torch.evaluation import pose_error as pe
+
+    k = np.array([[572.4114, 0.0, 325.2611], [0.0, 573.57043, 242.04899], [0.0, 0.0, 1.0]])
+    rng = np.random.default_rng(0)
+    pa, pb = ((rng.normal(size=(n, 3)) * 0.06).astype(np.float32) for n in (300, 260))
+    r1, r2 = Rotation.random(2, random_state=1).as_matrix()
+    t1, t2 = np.array([0.01, -0.02, 0.8]), np.array([-0.03, 0.02, 0.85])
+
+    def cam(p, r, t):
+        return p.astype(np.float64) @ r.T + t
+
+    def pix(p, r, t):
+        uvw = cam(p, r, t) @ k.T
+        return uvw[:, :2] / uvw[:, 2:3]
+
+    def dists(a, b):
+        return np.sqrt(((a[:, None] - b[None]) ** 2).sum(-1))
+
+    cases = {
+        "chamfer": (lambda: pe.chamfer(r1, t1, r2, t2, pa, pb, device=cuda),
+                    lambda: (lambda d: d.min(1).mean() + d.min(0).mean())(dists(cam(pa, r1, t1), cam(pb, r2, t2)))),
+        "chamfer_proj": (lambda: pe.chamfer_proj(r1, t1, r2, t2, k, pa, pb, device=cuda),
+                         lambda: (lambda d: d.min(1).mean() + d.min(0).mean())(dists(pix(pa, r1, t1), pix(pb, r2, t2)))),
+        "add": (lambda: pe.add(r1, t1, r2, t2, pa, device=cuda),
+                lambda: np.linalg.norm(cam(pa, r1, t1) - cam(pa, r2, t2), axis=1).mean()),
+        "adi": (lambda: pe.adi(r1, t1, r2, t2, pa, device=cuda),
+                lambda: dists(cam(pa, r1, t1), cam(pa, r2, t2)).min(1).mean()),
+        "proj": (lambda: pe.proj(r1, t1, r2, t2, k, pa, device=cuda),
+                 lambda: np.linalg.norm(pix(pa, r1, t1) - pix(pa, r2, t2), axis=1).mean()),
+        "mssd": (lambda: pe.mssd(r1, t1, r2, t2, pa, pa, device=cuda),
+                 lambda: np.linalg.norm(cam(pa, r1, t1) - cam(pa, r2, t2), axis=1).max()),
+        "mspd": (lambda: pe.mspd(r1, t1, r2, t2, k, pa, pa, device=cuda),
+                 lambda: np.linalg.norm(pix(pa, r1, t1) - pix(pa, r2, t2), axis=1).max()),
+    }
+    ours, ref = (fn() for fn in cases[name])
+    assert abs(ours - ref) <= 1e-4 * ref, (name, ours, ref)
+
+
 def test_k1_invalid_slots_read_as_no_face(cuda):
     """A slot of -1 reads as valid = 0 in the kernel: face 0 of a quad is
     masked out, and the plain stand-in that reads slot -1 as face 0's row

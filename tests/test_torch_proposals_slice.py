@@ -275,7 +275,7 @@ PORTED_CLIS = sorted(p.stem for p in (REPO / "freepose_tpu_torch" / "scripts").g
 def _flags(path) -> set[str]:
     """The options a script's parser takes, from its source."""
     src = path.read_text()
-    flags = set(re.findall(r'add_argument\(\s*"(--[a-z0-9-]+)"', src))
+    flags = set(re.findall(r'add_argument\(\s*(?:"-[a-z]",\s*)?"(--[a-z0-9_-]+)"', src))
     if "add_shard_args(ap)" in src:
         flags |= {"--shard-index", "--shard-count"}
     if "add_device_arg(ap)" in src:
@@ -286,8 +286,9 @@ def _flags(path) -> set[str]:
 @pytest.mark.parametrize("name", PORTED_CLIS)
 def test_cli_flags_equal_the_jax_scripts(name):
     """Every ported entry point takes the JAX script's options, plus --device
-    where it runs a model (merge_features and filter_predictions run on the
-    host only)."""
+    where it runs a model (merge_features, filter_predictions, eval_videos
+    and sav_evaluator run on the host only)."""
     ours, ref = _flags(REPO / "freepose_tpu_torch" / "scripts" / f"{name}.py"), _flags(REPO / "scripts" / f"{name}.py")
-    assert ours - ref == ({"--device"} if name not in ("merge_features", "filter_predictions") else set())
+    host_only = ("merge_features", "filter_predictions", "eval_videos", "sav_evaluator")
+    assert ours - ref == ({"--device"} if name not in host_only else set())
     assert ref <= ours

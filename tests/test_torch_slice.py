@@ -304,6 +304,14 @@ PROPOSALS_SLICE_MODULES = [
                                                   "extract_retrieval_features", "merge_features")),
 ]
 
+EVAL_SLICE_MODULES = [
+    "freepose_tpu_torch.config", "freepose_tpu_torch.ops.raster_native",
+    *(f"freepose_tpu_torch.evaluation.{m}" for m in ("score", "symmetry", "vos_metrics", "video_metrics",
+                                                      "pose_error")),
+    *(f"freepose_tpu_torch.scripts.{m}" for m in ("eval_bop_pose", "eval_videos", "sav_evaluator",
+                                                  "vos_inference")),
+]
+
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     code = (
@@ -324,6 +332,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert set(SCALE_SLICE_MODULES) <= set(mods)
     assert set(REFINE_SLICE_MODULES) <= set(mods)
     assert set(PROPOSALS_SLICE_MODULES) <= set(mods)
+    assert set(EVAL_SLICE_MODULES) <= set(mods)
     # No import of JAX, the JAX package or the tests anywhere in the sources,
     # not even inside a function that this import did not run.
     pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|freepose_tpu|scripts|tests)\b", re.M)
