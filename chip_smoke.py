@@ -194,8 +194,31 @@ Phases, one line each on stdout:
              prompt): each object's own mask (before the non-overlap
              constraint) with mean IoU >= VIDEO_IOU_MIN and every IoU >=
              VOS_IOU_FLOOR, each object's J&F (the CLI's metric) >=
-             VOS_JF_MIN, low-res logits within VIDEO_LOGIT_ATOL; the work
-             directory is deleted after it;
+             VOS_JF_MIN, low-res logits within VIDEO_LOGIT_ATOL;
+ 14. texture textured template assets at full width through their entry
+             points: a seeded UV torus written as OBJ + MTL + 2,048² PNG
+             atlas (8,125 vertices and 15,872 faces with its seams split),
+             load_obj gated to keep the atlas and the UVs (host seconds
+             logged); a torch.hub-layout DINOv2-L/14-reg .pth through
+             convert_weights --kind dinov2-hub (the .npz bit-equal to the
+             seeded tree) and prepare_weights on a directory holding only it
+             ("1 families ready, 6 missing", the same .npz); render_templates
+             (600 textured views at 420²: K1 carries each UV pass), the
+             textured TemplateBank.build_pack cold and warm (the baked pack's
+             warm time beside it) and extract_retrieval_features --weights
+             <the converted .npz> on the shard. Launch counts are zeroed
+             before render_templates and read after the bank CLI (K1 and K2
+             at d 64 must be > 0). Then K1 on the first 128-pose chunk of the
+             UV pass against its plain version (identical hit masks, depth
+             and (u, v, w) within K1_ATOL; the next-pose stand-in must fail);
+             the shading pass timed per chunk beside its bound, textured RGB
+             against the bake (most hit pixels must differ); the pack and the
+             bank CLI with every kernel on its plain version (no K1 or K2
+             launch; pack patch and view features of min cosine >=
+             FEATURE_COS_MIN); resize_meshes on the mesh directory (unit
+             half-extent, centre at zero) and merge_results on two CSVs cut
+             from the refine phase's (the rows equal); the work directory is
+             deleted after it;
 then the kernels JSON line, the card's name and power limit, and last the
 device JSON line. Exits non-zero, printing no result, without a GPU or
 without the rest of the repository beside it.
@@ -424,20 +447,26 @@ def k1_bound(rows: torch.Tensor, slots: torch.Tensor, res: int, tile: int, depth
                 faces_held=faces_held)
 
 
-def bumpy_torus(seed: int = SEED, n_u: int = 128, n_v: int = 64):
-    """Seeded coloured torus at exactly the renderer's budget: 8192
-    vertices, 16384 faces, minor radius modulated by random harmonics."""
-    from freepose_tpu_torch.io.mesh import TriMesh
-
-    rng = np.random.default_rng(seed)
+def torus_positions(rng, n_u: int, n_v: int) -> np.ndarray:
+    """[n_u·n_v, 3] points of a torus whose minor radius is modulated by
+    seeded harmonics (integer frequencies, so it closes at the seams)."""
     u = 2 * np.pi * np.arange(n_u) / n_u
     v = 2 * np.pi * np.arange(n_v) / n_v
     uu, vv = np.meshgrid(u, v, indexing="ij")
     bump = sum(rng.uniform(0.03, 0.08) * np.sin(a * uu + b * vv + rng.uniform(0, 2 * np.pi))
                for a, b in rng.integers(1, 6, size=(4, 2)))
     r = 0.35 * (1.0 + bump)
-    verts = np.stack([(1.0 + r * np.cos(vv)) * np.cos(uu), (1.0 + r * np.cos(vv)) * np.sin(uu),
-                      0.6 * r * np.sin(vv)], -1).reshape(-1, 3)
+    return np.stack([(1.0 + r * np.cos(vv)) * np.cos(uu), (1.0 + r * np.cos(vv)) * np.sin(uu),
+                     0.6 * r * np.sin(vv)], -1).reshape(-1, 3)
+
+
+def bumpy_torus(seed: int = SEED, n_u: int = 128, n_v: int = 64):
+    """Seeded coloured torus at exactly the renderer's budget: 8192
+    vertices, 16384 faces, minor radius modulated by random harmonics."""
+    from freepose_tpu_torch.io.mesh import TriMesh
+
+    rng = np.random.default_rng(seed)
+    verts = torus_positions(rng, n_u, n_v)
     i, j = np.meshgrid(np.arange(n_u), np.arange(n_v), indexing="ij")
     a, b = i * n_v + j, ((i + 1) % n_u) * n_v + j
     c, d = i * n_v + (j + 1) % n_v, ((i + 1) % n_u) * n_v + (j + 1) % n_v
@@ -2862,6 +2891,327 @@ def phase_vos(dev) -> tuple[dict, dict]:
     return result, launches
 
 
+# Textured templates: a seeded UV torus whose seams are split per corner,
+# (124 + 1)·(64 + 1) = 8,125 vertices and 15,872 faces (within the renderer's
+# 8,192 / 16,384 budget, so load_obj subdivides nothing and fit_to_budget
+# decimates nothing), with a 2,048² PNG atlas of seeded coloured cells and
+# noise. Atlas values stay below 0.5, so the renderer's ambient 2.0 clips no
+# texel and the sampled atlas shows against the bake.
+TEXTURE_NAME, TEXTURE_UV_GRID, TEXTURE_ATLAS = "texturedtorus", (124, 64), 2048
+TEXTURE_DIFF_MIN = 2 / 255  # a hit pixel "differs" from the bake by more than two 8-bit steps
+TEXTURE_DIFF_SHARE_MIN = 0.5  # ... on most hit pixels
+
+
+def write_textured_torus(root: Path, seed: int = SEED) -> Path:
+    """OBJ, MTL and PNG atlas of the textured torus under root/<name>/."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    n_u, n_v = TEXTURE_UV_GRID
+    verts = torus_positions(rng, n_u, n_v)
+    su, sv = np.meshgrid(np.arange(n_u + 1) / n_u, np.arange(n_v + 1) / n_v, indexing="ij")
+    i, j = np.meshgrid(np.arange(n_u), np.arange(n_v), indexing="ij")
+    pos = lambda a, b: (a % n_u) * n_v + b % n_v + 1  # noqa: E731  (1-based OBJ indices)
+    tex = lambda a, b: a * (n_v + 1) + b + 1  # noqa: E731
+    corners = [(i, j), (i + 1, j), (i, j + 1), (i + 1, j + 1)]
+    (a, b, c, d) = [(pos(x, y).ravel(), tex(x, y).ravel()) for x, y in corners]
+    tris = [(a, b, c), (b, d, c)]
+    cells = rng.uniform(0.05, 0.4, (16, 16, 3))
+    y, x = np.mgrid[0:TEXTURE_ATLAS, 0:TEXTURE_ATLAS] * 16 // TEXTURE_ATLAS
+    atlas = cells[y, x] + rng.uniform(0.0, 0.1, (TEXTURE_ATLAS, TEXTURE_ATLAS, 3))
+    out = root / TEXTURE_NAME
+    out.mkdir(parents=True, exist_ok=True)
+    Image.fromarray(np.round(atlas * 255).astype(np.uint8)).save(out / "atlas.png")
+    (out / f"{TEXTURE_NAME}.mtl").write_text("newmtl torus\nmap_Kd atlas.png\n")
+    lines = [f"mtllib {TEXTURE_NAME}.mtl", "usemtl torus"]
+    lines += [f"v {p[0]:.7f} {p[1]:.7f} {p[2]:.7f}" for p in verts]
+    lines += [f"vt {s:.7f} {t:.7f}" for s, t in zip(su.ravel(), sv.ravel())]
+    for tri in tris:
+        lines += [" ".join(["f"] + [f"{vi[k]}/{ti[k]}" for vi, ti in tri]) for k in range(n_u * n_v)]
+    path = out / f"{TEXTURE_NAME}.obj"
+    path.write_text("\n".join(lines) + "\n")
+    return path
+
+
+def dinov2_hub_state_dict(tree: dict) -> dict:
+    """The JAX-layout DINOv2 tree -> a torch.hub facebookresearch/dinov2
+    state dict (the names of models.convert.dinov2_from_hub's docstring):
+    the inverse of that converter, mask_token included (zeros; unused)."""
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32))
+
+    blk = tree["blocks"]["block"]
+    d = tree["norm"]["scale"].shape[0]
+    sd = {"patch_embed.proj.weight": t(tree["patch_embed"]["kernel"].transpose(3, 2, 0, 1)),  # HWIO -> OIHW
+          "patch_embed.proj.bias": t(tree["patch_embed"]["bias"]), "cls_token": t(tree["cls_token"]),
+          "register_tokens": t(tree["reg_tokens"]), "pos_embed": t(tree["pos_embed"]),
+          "mask_token": torch.zeros(1, d), "norm.weight": t(tree["norm"]["scale"]), "norm.bias": t(tree["norm"]["bias"])}
+    for i in range(blk["norm1"]["scale"].shape[0]):
+        p = f"blocks.{i}"
+        for name in ("norm1", "norm2"):
+            sd[f"{p}.{name}.weight"], sd[f"{p}.{name}.bias"] = t(blk[name]["scale"][i]), t(blk[name]["bias"][i])
+        for name, node in (("attn.qkv", blk["attn"]["qkv"]), ("attn.proj", blk["attn"]["proj"]),
+                           ("mlp.fc1", blk["mlp"]["fc1"]), ("mlp.fc2", blk["mlp"]["fc2"])):
+            sd[f"{p}.{name}.weight"], sd[f"{p}.{name}.bias"] = t(node["kernel"][i].T), t(node["bias"][i])
+        sd[f"{p}.ls1.gamma"], sd[f"{p}.ls2.gamma"] = t(blk["ls1"]["gamma"][i]), t(blk["ls2"]["gamma"][i])
+    return sd
+
+
+def trees_identical(a: dict, b: dict) -> bool:
+    """Same leaf paths, dtypes, shapes and bits."""
+    from freepose_tpu_torch.models.convert import _tree_leaves
+
+    la, lb = dict(_tree_leaves(a)), dict(_tree_leaves(b))
+    return la.keys() == lb.keys() and all(
+        np.asarray(la[k]).dtype == np.asarray(lb[k]).dtype and np.array_equal(la[k], lb[k]) for k in la)
+
+
+def phase_texture(dev) -> tuple[dict, dict]:
+    """Textured template assets at full width through the entry points:
+    load_obj of a textured OBJ (2,048² atlas), DINOv2-L weights through the
+    port's convert_weights and prepare_weights from a torch.hub-layout .pth,
+    render_templates (600 textured views at 420²: K1 carries each UV pass),
+    the textured TemplateBank.build_pack and extract_retrieval_features on
+    the shard with the converted .npz (K2 d 64). Then K1 on one UV chunk
+    against its plain version, the shading pass timed against its bound, the
+    pack and the CLI with every kernel on its plain version, and the host
+    CLIs resize_meshes and merge_results."""
+    import contextlib
+    import dataclasses
+    import io
+
+    import pandas as pd
+
+    from freepose_tpu_torch.io.mesh import fit_to_budget, load_obj, pad_uv
+    from freepose_tpu_torch.models import vit
+    from freepose_tpu_torch.models.convert import load_params
+    from freepose_tpu_torch.models.dinov2 import VIT_L14_REG
+    from freepose_tpu_torch.ops.attention import dense_attention, flash_attention_fn
+    from freepose_tpu_torch.ops.rasterizer import RasterSettings, render_meshes
+    from freepose_tpu_torch.ops.rasterizer_cuda import prologue, raster_tile, raster_tile_plain
+    from freepose_tpu_torch.ops.texture import shade_uv_image
+    from freepose_tpu_torch.pipeline.renderer import RENDERING_SCALE, TemplateRenderer
+    from freepose_tpu_torch.pipeline.template_bank import TemplateBank, normalize_feats
+    from freepose_tpu_torch.scripts import (convert_weights, extract_retrieval_features, merge_results,
+                                            prepare_weights, render_templates, resize_meshes)
+    from freepose_tpu_torch.scripts.common import load_dino_extractor
+
+    work = WORK_DIR / "texture"
+    obj = write_textured_torus(work / "meshes")
+    (work / "filelist.txt").write_text(TEXTURE_NAME + "\n")
+
+    # 1. Load: the atlas and the UVs must be there (without PIL, load_obj
+    # would quietly give the bake alone).
+    t0 = time.perf_counter()
+    raw = load_obj(obj)
+    load_s = time.perf_counter() - t0
+    if raw.texture is None or raw.uv is None or raw.texture.shape != (TEXTURE_ATLAS, TEXTURE_ATLAS, 3):
+        raise AssertionError(f"load_obj lost the atlas or the UVs: texture "
+                             f"{None if raw.texture is None else raw.texture.shape}, uv {raw.uv is not None}")
+    mesh = raw.normalized()
+
+    # 2. DINOv2-L/14-reg weights through the CLIs a user calls: a torch.hub
+    # .pth -> convert_weights -> .npz, and prepare_weights on a checkpoint
+    # directory that holds only that file.
+    cli_out = io.StringIO()
+    tree = random_dinov2_params(VIT_L14_REG)
+    (work / "ckpt").mkdir(exist_ok=True)
+    pth = work / "ckpt" / "dinov2_vitl14_reg4_pretrain.pth"
+    torch.save(dinov2_hub_state_dict(tree), pth)
+    npz = work / "dinov2_vitl.npz"
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(cli_out):
+        convert_weights.main(["--kind", "dinov2-hub", "--ckpt", str(pth), "--layers", "24", "--out", str(npz)])
+    convert_s = time.perf_counter() - t0
+    converted_identical = trees_identical(load_params(npz), tree)
+    prep_out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(prep_out):
+        prepare_weights.main(["--ckpt-dir", str(work / "ckpt"), "--out-dir", str(work / "params")])
+    prepare_s = time.perf_counter() - t0
+    prepared_identical = trees_identical(load_params(work / "params" / "dinov2_vitl.npz"), load_params(npz))
+    prepare_summary = prep_out.getvalue().strip().splitlines()[-1]
+    del tree
+    if not converted_identical or not prepared_identical or not prepare_summary.startswith(
+            "1 families ready, 6 missing") or prep_out.getvalue().count("MISSING") != 6:
+        raise AssertionError(f"weights CLIs: convert_weights .npz identical to the tree {converted_identical}, "
+                             f"prepare_weights .npz identical {prepared_identical}, summary {prepare_summary!r}")
+
+    # 3. The path, once, through the entry points: render_templates, then the
+    # textured pack (cold and warm) and extract_retrieval_features.
+    extractor = load_dino_extractor(str(npz), device=dev)
+
+    def feature_fn(imgs):
+        return extractor(imgs, layer=DINO_LAYER, feature_type="patch")
+
+    renderer = TemplateRenderer(n_poses=N_VIEWS, resolution=RES, device=dev)
+    bank = TemplateBank(feature_fn, renderer=renderer, batch_size=BANK_BATCH, device=dev)
+    feats_argv = ["--wds-dir", str(work / "shards"), "--filelist", str(work / "filelist.txt"),
+                  "--weights", str(npz), "--layer", str(DINO_LAYER), "--device", str(dev)]
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(cli_out):
+        render_templates.main(["--mesh-dir", str(work / "meshes"), "--filelist", str(work / "filelist.txt"),
+                               "--out", str(work / "shards"), "--device", str(dev)])
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    render_k1 = read_launches()["K1"]
+    t0 = time.perf_counter()
+    pack = bank.build_pack(TEXTURE_NAME, mesh)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bank.build_pack(TEXTURE_NAME, mesh)
+    torch.cuda.synchronize()
+    pack_warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(cli_out):
+        extract_retrieval_features.main([*feats_argv, "--out", str(work / "feats")])
+    torch.cuda.synchronize()
+    features_s = time.perf_counter() - t0
+    launches = read_launches()
+    view_feats = np.load(work / "feats" / f"{TEXTURE_NAME}.npy")
+
+    # The baked pack of the same mesh, warm, for comparison.
+    bake_renderer = TemplateRenderer(n_poses=N_VIEWS, resolution=RES, texture_mode="bake", device=dev)
+    bake_bank = TemplateBank(feature_fn, renderer=bake_renderer, batch_size=BANK_BATCH, device=dev)
+    bake_bank.build_pack(TEXTURE_NAME, mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bake_bank.build_pack(TEXTURE_NAME, mesh)
+    torch.cuda.synchronize()
+    bake_pack_warm_s = time.perf_counter() - t0
+
+    # 4. K1 on the first 128-pose chunk of the UV pass against its plain
+    # version: (u, v, w) as the colour attribute at ambient 1.
+    fitted = fit_to_budget(mesh, renderer.max_vertices, renderer.max_faces)
+    v, _, f, valid = renderer._padded(fitted, RENDERING_SCALE)
+    uvw = torch.as_tensor(pad_uv(fitted, renderer.max_vertices), device=dev)
+    uv_settings = dataclasses.replace(renderer.settings, ambient=1.0, depth_only=False)
+    poses = renderer.poses[:CHUNK]
+    rows, slots = prologue(v, uvw, f, valid, poses, renderer.k.expand(CHUNK, 3, 3), uv_settings)
+    before = read_launches()["K1"]
+    out = raster_tile(rows, slots, RES, TILE, 1.0, False)
+    ref = raster_tile_plain(rows, slots, RES, TILE, 1.0, False)
+    wrong = reads_next_pose(rows, slots, RES, TILE, 1.0, False)
+
+    def k1_check(x):
+        return (int(((x[..., 0] > 0) != (ref[..., 0] > 0)).sum()), float((x[..., 0] - ref[..., 0]).abs().max()),
+                float((x[..., 1:] - ref[..., 1:]).abs().max()))
+
+    k1 = dict(zip(("hit_mask_mismatches", "depth_max_err", "uvw_max_err"), k1_check(out)),
+              hit_px=int((out[..., 0] > 0).sum()), vertices=fitted.num_vertices, faces=fitted.num_faces,
+              reads_next_pose=dict(zip(("hit_mask_mismatches", "depth_max_err", "uvw_max_err"), k1_check(wrong))))
+    k1_launches_check = read_launches()["K1"] - before
+    k1["ms"] = cuda_ms(lambda: raster_tile(rows, slots, RES, TILE, 1.0, False), reps=10)
+    k1["device"] = device_ms(lambda: raster_tile(rows, slots, RES, TILE, 1.0, False), reps=5)
+    k1.update({key: val for key, val in k1_bound(rows, slots, RES, TILE, False).items()
+               if key in ("bound_ms", "bound_by", "valid_pairs")})
+    del rows, slots, out, ref, wrong
+
+    # 5. Shading: the atlas sampled per pixel, timed per chunk against its
+    # bound (read the UV image, the depth and the atlas once, write the RGB).
+    texture = torch.as_tensor(fitted.texture, device=dev)
+    uv_img, depth = render_meshes(v, uvw, f, valid, poses, renderer.k, uv_settings)
+    ambient = renderer.settings.ambient
+    shade_ms = cuda_ms(lambda: shade_uv_image(uv_img, depth, texture, ambient), reps=5)
+    shade_device = device_ms(lambda: shade_uv_image(uv_img, depth, texture, ambient), reps=3)
+    pixels = uv_img.shape[0] * RES * RES
+    shade_bytes = pixels * (3 + 1 + 3) * 4 + texture.numel() * 4
+    shade_bound_ms, shade_bound_by = bound(0, shade_bytes)
+    rgb_tex, depth_tex = renderer.render_from_poses(mesh, poses)
+    rgb_bake, depth_bake = bake_renderer.render_from_poses(mesh, poses)
+    hit = depth_tex > 0
+    same_geometry = bool(torch.equal(hit, depth_bake > 0))
+    diff = (rgb_tex - rgb_bake).abs().amax(-1)[hit]
+    diff_share = float((diff > TEXTURE_DIFF_MIN).float().mean())
+    shading = dict(ms=shade_ms, device=shade_device, bound_ms=shade_bound_ms, bound_by=shade_bound_by,
+                   bound_bytes=shade_bytes, bound_share=shade_bound_ms / shade_device if shade_device else None,
+                   poses=uv_img.shape[0], textured_vs_baked_diff_share=diff_share,
+                   textured_vs_baked_diff_mean=float(diff.mean()), same_geometry=same_geometry)
+    del uv_img, depth, rgb_tex, rgb_bake, depth_tex, depth_bake, texture
+
+    # 6. The pack and the CLI again with every kernel on its plain version.
+    plain_renderer = TemplateRenderer(n_poses=N_VIEWS, resolution=RES, device=dev,
+                                      settings=RasterSettings(resolution=RES, backend="xla"))
+    plain_bank = TemplateBank(feature_fn, renderer=plain_renderer, batch_size=BANK_BATCH, device=dev)
+    before = read_launches()
+    for blk in extractor.model.blocks:
+        blk.attn.attention_fn = dense_attention
+    vit.flash_attention_fn = dense_attention  # the CLI's model is built with it
+    try:
+        t0 = time.perf_counter()
+        plain_pack = plain_bank.build_pack(TEXTURE_NAME, mesh)
+        torch.cuda.synchronize()
+        plain_pack_s = time.perf_counter() - t0
+        with contextlib.redirect_stdout(cli_out):
+            extract_retrieval_features.main([*feats_argv, "--out", str(work / "feats_plain")])
+    finally:
+        vit.flash_attention_fn = flash_attention_fn
+        for blk in extractor.model.blocks:
+            blk.attn.attention_fn = flash_attention_fn
+    after = read_launches()
+    plain_launches = {"K1": after["K1"] - before["K1"],
+                      "K2_d64": after["K2_by_dim"].get("64", 0) - before["K2_by_dim"].get("64", 0)}
+    plain_feats = np.load(work / "feats_plain" / f"{TEXTURE_NAME}.npy")
+    pack_cos = (normalize_feats(pack.feats.float()) * normalize_feats(plain_pack.feats.float())).sum(-1)
+    cli_cos = (view_feats * plain_feats).sum(-1) / np.maximum(
+        np.linalg.norm(view_feats, axis=-1) * np.linalg.norm(plain_feats, axis=-1), 1e-12)
+    kernel_vs_plain = {"pack_patch_cos_min": float(pack_cos.min()), "features_cos_min": float(cli_cos.min()),
+                       "launches": {"kernels": {"K1": launches["K1"], "K2_d64": launches["K2_by_dim"].get("64", 0)},
+                                    "plain": plain_launches}}
+    del extractor, bank, bake_bank, plain_bank, pack, plain_pack
+
+    # 7. The host CLIs: resize_meshes on the mesh directory, merge_results on
+    # two CSVs cut from the refine phase's.
+    with contextlib.redirect_stdout(cli_out):
+        resize_meshes.main(["--mesh-dir", str(work / "meshes"), "--out", str(work / "resized")])
+    resized = load_obj(work / "resized" / TEXTURE_NAME / f"{TEXTURE_NAME}.obj")
+    lo, hi = resized.bounds()
+    resize = dict(half_extent=resized.half_extent(), centre=((hi + lo) / 2).tolist(),
+                  vertices=resized.num_vertices, atlas_kept=resized.texture is not None)
+    chain = pd.read_csv(WORK_DIR / "chain.csv")
+    (work / "results").mkdir(exist_ok=True)
+    half = len(chain) // 2
+    chain.iloc[:half].to_csv(work / "results" / "part-0.csv", index=False)
+    chain.iloc[half:].to_csv(work / "results" / "part-1.csv", index=False)
+    with contextlib.redirect_stdout(cli_out):
+        merge_results.main(["--results-dir", str(work / "results"), "--out", str(work / "merged.csv")])
+    merged_equal = bool(pd.read_csv(work / "merged.csv").equals(chain))
+
+    result = dict(mesh=dict(vertices=raw.num_vertices, faces=raw.num_faces, atlas=list(raw.texture.shape),
+                            load_obj_s=load_s),
+                  weights=dict(convert_s=convert_s, prepare_s=prepare_s, pth_gb=pth.stat().st_size / 1e9,
+                               converted_identical=converted_identical, prepared_identical=prepared_identical,
+                               prepare_summary=prepare_summary),
+                  render_templates_s=render_s, render_k1_launches=render_k1, pack_s=pack_s,
+                  pack_warm_s=pack_warm_s, bake_pack_warm_s=bake_pack_warm_s, plain_pack_s=plain_pack_s,
+                  bank_features_s=features_s, view_features_shape=list(view_feats.shape), k1_uv_chunk=k1,
+                  shading=shading, kernel_vs_plain=kernel_vs_plain, resize=resize, merge=dict(
+                      rows=len(chain), merged_equal=merged_equal), launches=launches,
+                  peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log("texture", **result)
+    if launches["K1"] <= 0 or launches["K2_by_dim"].get("64", 0) <= 0:
+        raise AssertionError(f"texture path did not launch K1 and K2 at d 64: {launches}")
+    if k1["hit_mask_mismatches"] or max(k1["depth_max_err"], k1["uvw_max_err"]) > K1_ATOL or not k1["hit_px"] \
+            or k1_launches_check != 1:
+        raise AssertionError(f"K1 on the UV pass disagrees with its plain version: {k1}")
+    wrong = k1["reads_next_pose"]
+    if not (wrong["hit_mask_mismatches"] > 0 or max(wrong["depth_max_err"], wrong["uvw_max_err"]) > K1_ATOL):
+        raise AssertionError(f"K1's UV gate does not fail a kernel that reads the next pose's rows: {wrong}")
+    if not same_geometry or diff_share < TEXTURE_DIFF_SHARE_MIN:
+        raise AssertionError(f"textured vs baked renders: {shading}")
+    if view_feats.shape != (N_VIEWS, BANK_DIM) or not np.isfinite(view_feats).all():
+        raise AssertionError(f"texture bank features {view_feats.shape}")
+    if min(kernel_vs_plain["pack_patch_cos_min"], kernel_vs_plain["features_cos_min"]) < FEATURE_COS_MIN \
+            or max(plain_launches.values()) != 0:
+        raise AssertionError(f"texture path, kernels vs plain versions: {kernel_vs_plain}")
+    if abs(resize["half_extent"] - 1.0) > 1e-5 or max(abs(c) for c in resize["centre"]) > 1e-5 or not merged_equal:
+        raise AssertionError(f"host CLIs: resize_meshes {resize}, merge_results equal {merged_equal}")
+    return result, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -2896,11 +3246,13 @@ def main() -> int:
         _, evaluation = phase_eval(dev, mesh)
         torch.cuda.empty_cache()
         _, vos = phase_vos(dev)
+        torch.cuda.empty_cache()
+        _, texture = phase_texture(dev)
     finally:
         shutil.rmtree(WORK_DIR, ignore_errors=True)
     # Launches on each main path's run (`launches_by_path`) and their sum.
     paths = {"static": static, "video": video, "scale": scale, "refine": refine, "smooth": smooth,
-             "proposals": proposals, "eval": evaluation, "vos": vos}
+             "proposals": proposals, "eval": evaluation, "vos": vos, "texture": texture}
     counts = {k1["name"]: lambda p: p["K1"], streams["K3"]["name"]: lambda p: p["K3"],
               streams["K4"]["name"]: lambda p: p["K4"], k5["name"]: lambda p: p["K5"],
               k5_combine["name"]: lambda p: p["K5_combine"],

@@ -11,6 +11,13 @@ unstack the scanned blocks).
 `load_params` reads the flat '/'-joined .npz that the JAX CLIs' `save_params`
 writes, so both packages take the same --weights files. Pure numpy + torch;
 no JAX needed.
+
+The released-checkpoint converters (`dinov2_from_hf`, `dinov2_from_hub`,
+`clip_from_hf`, `clip_from_open_clip`, `swin_from_hf`, `bert_from_hf`,
+`grounding_dino_from_hf`, `zoedepth_from_hf`, `cotracker2_from_hub`; SAM2's
+are in models/sam2/convert.py) map a torch.hub or HF state dict (any mapping
+of name -> array or tensor) onto that JAX-layout tree, pure numpy, as the JAX
+package's converters do; scripts/convert_weights.py saves it as the .npz.
 """
 from __future__ import annotations
 
@@ -27,6 +34,12 @@ OBJECT_SCORE_BIAS = 10.0
 
 def _f32(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x, dtype=np.float32))  # a writable, contiguous copy
+
+
+def _t(x) -> np.ndarray:
+    """A state dict's array or (CPU) tensor -> a float32 numpy array."""
+    arr = np.asarray(x.detach().cpu().numpy() if hasattr(x, "detach") else x)
+    return arr.astype(np.float32)
 
 
 def _dense(tree: dict, i: int | None = None) -> dict:
@@ -98,7 +111,7 @@ def load_params(path: str | Path) -> dict:
     if path.suffix != ".npz":
         raise ValueError(
             f"unsupported weights file {path}; convert torch checkpoints with "
-            "the JAX package's scripts.convert_weights and pass the .npz"
+            "python -m freepose_tpu_torch.scripts.convert_weights and pass the .npz"
         )
     with np.load(path) as z:
         return unflatten({k: z[k] for k in z.files})
@@ -394,14 +407,16 @@ def cotracker2_from_jax(params: dict) -> dict[str, torch.Tensor]:
     return sd
 
 
-def cotracker2_to_jax(sd: dict) -> dict:
+def cotracker2_to_jax(sd: dict, depth: int | None = None) -> dict:
     """The inverse of `cotracker2_from_jax`: a CoTracker2 state dict (the
-    released names) -> the JAX tree."""
-    depth = len({k.split(".")[2] for k in sd if k.startswith("updateformer.time_blocks.")})
+    released names) -> the JAX tree, of its first `depth` update-former
+    layers (default: all it holds)."""
+    if depth is None:
+        depth = len({k.split(".")[2] for k in sd if k.startswith("updateformer.time_blocks.")})
     tree: dict = {}
     stacked: dict = {}
     for name, path, kind, layer in _cotracker2_leaves(depth):
-        x = _to_jax_layout(np.asarray(sd[name], dtype=np.float32), kind)
+        x = _to_jax_layout(_t(sd[name]), kind)
         if layer is not None:
             stacked.setdefault(path, [None] * depth)[layer] = x
             continue
@@ -441,3 +456,374 @@ def random_cotracker2_params(cfg, seed: int = 0) -> dict:
         sd[name] = val.astype(np.float32)
     sd["vis_predictor.0.bias"] = sd["vis_predictor.0.bias"] + np.float32(VISIBILITY_BIAS)
     return cotracker2_to_jax(sd)
+
+
+# --------------------------------------------------------------------- #
+# Released checkpoints (torch.hub / HF state dicts) -> the JAX-layout tree.
+
+
+def _sd_dense(sd, prefix):
+    return {"kernel": _t(sd[f"{prefix}.weight"]).T, "bias": _t(sd[f"{prefix}.bias"])}
+
+
+def _sd_layernorm(sd, prefix):
+    return {"scale": _t(sd[f"{prefix}.weight"]), "bias": _t(sd[f"{prefix}.bias"])}
+
+
+def _sd_conv(sd, prefix, bias=True):
+    out = {"kernel": _t(sd[f"{prefix}.weight"]).transpose(2, 3, 1, 0)}  # OIHW -> HWIO
+    if bias:
+        out["bias"] = _t(sd[f"{prefix}.bias"])
+    return out
+
+
+def _sd_fused_qkv(sd, prefix, names=("query", "key", "value")):
+    """Separate q, k, v projections -> one Dense over their concatenation."""
+    ws = [_t(sd[f"{prefix}.{n}.weight"]) for n in names]
+    bs = [_t(sd[f"{prefix}.{n}.bias"]) for n in names]
+    return {"kernel": np.concatenate(ws, axis=0).T, "bias": np.concatenate(bs)}
+
+
+def _dinov2_common(sd, patch, cls, reg, pos, norm) -> dict:
+    return {
+        "patch_embed": {"kernel": _t(sd[f"{patch}.weight"]).transpose(2, 3, 1, 0), "bias": _t(sd[f"{patch}.bias"])},
+        "cls_token": _t(sd[cls]),
+        "reg_tokens": _t(sd[reg]),
+        "pos_embed": _t(sd[pos]),
+        "norm": _sd_layernorm(sd, norm),
+    }
+
+
+def dinov2_from_hf(state_dict: dict, num_layers: int) -> dict:
+    """HF Dinov2WithRegistersModel state dict -> the JAX DinoV2 tree.
+
+    HF layout: embeddings.* + encoder.layer.{i}.{norm1,
+    attention.attention.{query,key,value}, attention.output.dense,
+    layer_scale1.lambda1, norm2, mlp.fc1/fc2, layer_scale2.lambda1} +
+    layernorm."""
+    sd = state_dict
+    params = _dinov2_common(sd, "embeddings.patch_embeddings.projection", "embeddings.cls_token",
+                            "embeddings.register_tokens", "embeddings.position_embeddings", "layernorm")
+    layers = []
+    for i in range(num_layers):
+        p = f"encoder.layer.{i}"
+        layers.append({
+            "norm1": _sd_layernorm(sd, f"{p}.norm1"),
+            "attn": {"qkv": _sd_fused_qkv(sd, f"{p}.attention.attention"),
+                     "proj": _sd_dense(sd, f"{p}.attention.output.dense")},
+            "ls1": {"gamma": _t(sd[f"{p}.layer_scale1.lambda1"])},
+            "norm2": _sd_layernorm(sd, f"{p}.norm2"),
+            "mlp": {"fc1": _sd_dense(sd, f"{p}.mlp.fc1"), "fc2": _sd_dense(sd, f"{p}.mlp.fc2")},
+            "ls2": {"gamma": _t(sd[f"{p}.layer_scale2.lambda1"])},
+        })
+    params["blocks"] = {"block": _stack_trees(layers)}
+    return params
+
+
+def dinov2_from_hub(state_dict: dict, num_layers: int) -> dict:
+    """facebookresearch/dinov2 torch.hub state dict -> the JAX DinoV2 tree.
+
+    Hub layout: patch_embed.proj, cls_token, register_tokens, pos_embed,
+    blocks.{i}.{norm1, attn.qkv, attn.proj, ls1.gamma, norm2, mlp.fc1/fc2,
+    ls2.gamma}, norm (mask_token unused)."""
+    sd = state_dict
+    params = _dinov2_common(sd, "patch_embed.proj", "cls_token", "register_tokens", "pos_embed", "norm")
+    layers = []
+    for i in range(num_layers):
+        p = f"blocks.{i}"
+        layers.append({
+            "norm1": _sd_layernorm(sd, f"{p}.norm1"),
+            "attn": {"qkv": _sd_dense(sd, f"{p}.attn.qkv"), "proj": _sd_dense(sd, f"{p}.attn.proj")},
+            "ls1": {"gamma": _t(sd[f"{p}.ls1.gamma"])},
+            "norm2": _sd_layernorm(sd, f"{p}.norm2"),
+            "mlp": {"fc1": _sd_dense(sd, f"{p}.mlp.fc1"), "fc2": _sd_dense(sd, f"{p}.mlp.fc2")},
+            "ls2": {"gamma": _t(sd[f"{p}.ls2.gamma"])},
+        })
+    params["blocks"] = {"block": _stack_trees(layers)}
+    return params
+
+
+def _clip_layer(sd, p):
+    return {
+        "ln1": _sd_layernorm(sd, f"{p}.layer_norm1"),
+        "qkv": _sd_fused_qkv(sd, f"{p}.self_attn", ("q_proj", "k_proj", "v_proj")),
+        "proj": _sd_dense(sd, f"{p}.self_attn.out_proj"),
+        "ln2": _sd_layernorm(sd, f"{p}.layer_norm2"),
+        "fc1": _sd_dense(sd, f"{p}.mlp.fc1"),
+        "fc2": _sd_dense(sd, f"{p}.mlp.fc2"),
+    }
+
+
+def clip_from_hf(state_dict: dict, vision_layers: int, text_layers: int) -> dict:
+    """HF transformers CLIPModel state dict -> the JAX Clip tree."""
+    sd = state_dict
+    visual = {
+        "patch_embed": {"kernel": _t(sd["vision_model.embeddings.patch_embedding.weight"]).transpose(2, 3, 1, 0)},
+        "class_embedding": _t(sd["vision_model.embeddings.class_embedding"]),
+        "pos_embed": _t(sd["vision_model.embeddings.position_embedding.weight"]),
+        "ln_pre": _sd_layernorm(sd, "vision_model.pre_layrnorm"),
+        "ln_post": _sd_layernorm(sd, "vision_model.post_layernorm"),
+        "proj": _t(sd["visual_projection.weight"]).T,
+        "layers": {"layer": _stack_trees(
+            [_clip_layer(sd, f"vision_model.encoder.layers.{i}") for i in range(vision_layers)])},
+    }
+    text = {
+        "token_embedding": _t(sd["text_model.embeddings.token_embedding.weight"]),
+        "pos_embed": _t(sd["text_model.embeddings.position_embedding.weight"]),
+        "ln_final": _sd_layernorm(sd, "text_model.final_layer_norm"),
+        "text_proj": _t(sd["text_projection.weight"]).T,
+        "layers": {"layer": _stack_trees(
+            [_clip_layer(sd, f"text_model.encoder.layers.{i}") for i in range(text_layers)])},
+    }
+    return {"visual": visual, "text": text}
+
+
+def _open_clip_layer(sd, p):
+    """open_clip resblock (attn.in_proj_weight: the fused qkv)."""
+    return {
+        "ln1": _sd_layernorm(sd, f"{p}.ln_1"),
+        "qkv": {"kernel": _t(sd[f"{p}.attn.in_proj_weight"]).T, "bias": _t(sd[f"{p}.attn.in_proj_bias"])},
+        "proj": _sd_dense(sd, f"{p}.attn.out_proj"),
+        "ln2": _sd_layernorm(sd, f"{p}.ln_2"),
+        "fc1": _sd_dense(sd, f"{p}.mlp.c_fc"),
+        "fc2": _sd_dense(sd, f"{p}.mlp.c_proj"),
+    }
+
+
+def clip_from_open_clip(state_dict: dict, vision_layers: int, text_layers: int) -> dict:
+    """open_clip state dict (e.g. ViT-bigG-14 laion2b) -> the JAX Clip tree."""
+    sd = state_dict
+    visual = {
+        "patch_embed": {"kernel": _t(sd["visual.conv1.weight"]).transpose(2, 3, 1, 0)},
+        "class_embedding": _t(sd["visual.class_embedding"]),
+        "pos_embed": _t(sd["visual.positional_embedding"]),
+        "ln_pre": _sd_layernorm(sd, "visual.ln_pre"),
+        "ln_post": _sd_layernorm(sd, "visual.ln_post"),
+        "proj": _t(sd["visual.proj"]),
+        "layers": {"layer": _stack_trees(
+            [_open_clip_layer(sd, f"visual.transformer.resblocks.{i}") for i in range(vision_layers)])},
+    }
+    text = {
+        "token_embedding": _t(sd["token_embedding.weight"]),
+        "pos_embed": _t(sd["positional_embedding"]),
+        "ln_final": _sd_layernorm(sd, "ln_final"),
+        "text_proj": _t(sd["text_projection"]),
+        "layers": {"layer": _stack_trees(
+            [_open_clip_layer(sd, f"transformer.resblocks.{i}") for i in range(text_layers)])},
+    }
+    return {"visual": visual, "text": text}
+
+
+def swin_from_hf(sd: dict, depths, out_stages, prefix: str = "") -> dict:
+    """HF SwinBackbone / SwinModel state dict -> the JAX SwinBackbone tree."""
+    p = prefix
+    params = {
+        "patch_embed": _sd_conv(sd, f"{p}embeddings.patch_embeddings.projection"),
+        "embed_norm": _sd_layernorm(sd, f"{p}embeddings.norm"),
+    }
+    for stage, depth in enumerate(depths):
+        for blk in range(depth):
+            bp = f"{p}encoder.layers.{stage}.blocks.{blk}"
+            params[f"stage{stage}_block{blk}"] = {
+                "ln1": _sd_layernorm(sd, f"{bp}.layernorm_before"),
+                "qkv": _sd_fused_qkv(sd, f"{bp}.attention.self"),
+                "rel_bias_table": _t(sd[f"{bp}.attention.self.relative_position_bias_table"]),
+                "proj": _sd_dense(sd, f"{bp}.attention.output.dense"),
+                "ln2": _sd_layernorm(sd, f"{bp}.layernorm_after"),
+                "fc1": _sd_dense(sd, f"{bp}.intermediate.dense"),
+                "fc2": _sd_dense(sd, f"{bp}.output.dense"),
+            }
+        down = f"{p}encoder.layers.{stage}.downsample"
+        if f"{down}.reduction.weight" in sd:
+            params[f"downsample{stage}"] = {
+                "norm": _sd_layernorm(sd, f"{down}.norm"),
+                "reduction": {"kernel": _t(sd[f"{down}.reduction.weight"]).T},
+            }
+    for stage in out_stages:
+        key = f"{p}hidden_states_norms.stage{stage + 1}"
+        if f"{key}.weight" in sd:
+            params[f"out_norm{stage}"] = _sd_layernorm(sd, key)
+    return params
+
+
+def bert_from_hf(sd: dict, num_layers: int, prefix: str = "") -> dict:
+    """HF BertModel state dict -> the JAX Bert tree (the pooler unused)."""
+    p = prefix
+    params = {
+        "word_embeddings": _t(sd[f"{p}embeddings.word_embeddings.weight"]),
+        "position_embeddings": _t(sd[f"{p}embeddings.position_embeddings.weight"]),
+        "token_type_embeddings": _t(sd[f"{p}embeddings.token_type_embeddings.weight"]),
+        "embed_ln": _sd_layernorm(sd, f"{p}embeddings.LayerNorm"),
+    }
+    for i in range(num_layers):
+        lp = f"{p}encoder.layer.{i}"
+        params[f"layer{i}"] = {
+            "q": _sd_dense(sd, f"{lp}.attention.self.query"),
+            "k": _sd_dense(sd, f"{lp}.attention.self.key"),
+            "v": _sd_dense(sd, f"{lp}.attention.self.value"),
+            "attn_out": _sd_dense(sd, f"{lp}.attention.output.dense"),
+            "attn_ln": _sd_layernorm(sd, f"{lp}.attention.output.LayerNorm"),
+            "fc1": _sd_dense(sd, f"{lp}.intermediate.dense"),
+            "fc2": _sd_dense(sd, f"{lp}.output.dense"),
+            "out_ln": _sd_layernorm(sd, f"{lp}.output.LayerNorm"),
+        }
+    return params
+
+
+def _gd_mha(sd, p):
+    return {name: _sd_dense(sd, f"{p}.{src}")
+            for name, src in (("q", "query"), ("k", "key"), ("v", "value"), ("out", "out_proj"))}
+
+
+def _gd_msda(sd, p):
+    return {name: _sd_dense(sd, f"{p}.{name}")
+            for name in ("value_proj", "sampling_offsets", "attention_weights", "output_proj")}
+
+
+def _gd_mlp_head(sd, p, n_layers=3):
+    return {f"layer{i}": _sd_dense(sd, f"{p}.layers.{i}") for i in range(n_layers)}
+
+
+def grounding_dino_from_hf(sd: dict, swin_depths, swin_out_stages, text_layers: int,
+                           encoder_layers: int = 6, decoder_layers: int = 6,
+                           num_backbone_levels: int = 3, num_levels: int = 4) -> dict:
+    """HF GroundingDinoForObjectDetection state dict -> the JAX GroundingDino
+    tree. The decoder's bbox_embed is tied to the top-level bbox_embed read
+    here; position ids, relative-position indices and the BERT pooler are
+    unused."""
+    params: dict = {
+        "backbone": swin_from_hf(sd, swin_depths, swin_out_stages, prefix="model.backbone.conv_encoder.model."),
+        "text_backbone": bert_from_hf(sd, text_layers, prefix="model.text_backbone."),
+        "text_projection": _sd_dense(sd, "model.text_projection"),
+        "level_embed": _t(sd["model.level_embed"]),
+        "query_embeds": _t(sd["model.query_position_embeddings.weight"]),
+        "enc_output": _sd_dense(sd, "model.enc_output"),
+        "enc_output_norm": _sd_layernorm(sd, "model.enc_output_norm"),
+        "enc_bbox_head": _gd_mlp_head(sd, "model.encoder_output_bbox_embed"),
+        "ref_point_head": _gd_mlp_head(sd, "model.decoder.reference_points_head", 2),
+        "decoder_ln": _sd_layernorm(sd, "model.decoder.layer_norm"),
+    }
+    for i in range(num_levels):
+        params[f"input_proj{i}"] = _sd_conv(sd, f"model.input_proj_vision.{i}.0")
+        params[f"input_gn{i}"] = _sd_layernorm(sd, f"model.input_proj_vision.{i}.1")
+    for i in range(encoder_layers):
+        p = f"model.encoder.layers.{i}"
+        fusion = f"{p}.fusion_layer"
+        params[f"enc{i}"] = {
+            "fusion_ln_v": _sd_layernorm(sd, f"{fusion}.layer_norm_vision"),
+            "fusion_ln_t": _sd_layernorm(sd, f"{fusion}.layer_norm_text"),
+            "fusion_attn": {name: _sd_dense(sd, f"{fusion}.attn.{name}")
+                            for name in ("vision_proj", "text_proj", "values_vision_proj", "values_text_proj",
+                                         "out_vision_proj", "out_text_proj")},
+            "fusion_vision_scale": _t(sd[f"{fusion}.vision_param"]),
+            "fusion_text_scale": _t(sd[f"{fusion}.text_param"]),
+            "text_attn": _gd_mha(sd, f"{p}.text_enhancer_layer.self_attn"),
+            "text_ln1": _sd_layernorm(sd, f"{p}.text_enhancer_layer.layer_norm_before"),
+            "text_fc1": _sd_dense(sd, f"{p}.text_enhancer_layer.fc1"),
+            "text_fc2": _sd_dense(sd, f"{p}.text_enhancer_layer.fc2"),
+            "text_ln2": _sd_layernorm(sd, f"{p}.text_enhancer_layer.layer_norm_after"),
+            "deform_attn": _gd_msda(sd, f"{p}.deformable_layer.self_attn"),
+            "deform_ln1": _sd_layernorm(sd, f"{p}.deformable_layer.self_attn_layer_norm"),
+            "deform_fc1": _sd_dense(sd, f"{p}.deformable_layer.fc1"),
+            "deform_fc2": _sd_dense(sd, f"{p}.deformable_layer.fc2"),
+            "deform_ln2": _sd_layernorm(sd, f"{p}.deformable_layer.final_layer_norm"),
+        }
+    for i in range(decoder_layers):
+        p = f"model.decoder.layers.{i}"
+        params[f"dec{i}"] = {
+            "self_attn": _gd_mha(sd, f"{p}.self_attn"),
+            "ln1": _sd_layernorm(sd, f"{p}.self_attn_layer_norm"),
+            "text_cross": _gd_mha(sd, f"{p}.encoder_attn_text"),
+            "ln2": _sd_layernorm(sd, f"{p}.encoder_attn_text_layer_norm"),
+            "deform_cross": _gd_msda(sd, f"{p}.encoder_attn"),
+            "ln3": _sd_layernorm(sd, f"{p}.encoder_attn_layer_norm"),
+            "fc1": _sd_dense(sd, f"{p}.fc1"),
+            "fc2": _sd_dense(sd, f"{p}.fc2"),
+            "ln_out": _sd_layernorm(sd, f"{p}.final_layer_norm"),
+        }
+        params[f"dec_bbox{i}"] = _gd_mlp_head(sd, f"bbox_embed.{i}")
+    return params
+
+
+def zoedepth_from_hf(sd: dict, num_layers: int = 24, reassemble_factors=(4, 2, 1, 0.5)) -> dict:
+    """HF ZoeDepthForDepthEstimation state dict (the single-domain ZoeD_N
+    layout, Intel/zoedepth-nyu) -> the JAX ZoeDepthModel tree: the BEiT
+    backbone with per-layer relative-position tables (stacked [L, ...] as the
+    JAX model scans them), the DPT reassemble and fusion neck, the relative
+    head and the metric-bins head. Fusion layer 0's residual_layer1 is in the
+    checkpoint but has no skip input to act on, and is skipped."""
+    layers = []
+    for i in range(num_layers):
+        p = f"backbone.encoder.layer.{i}"
+        att = f"{p}.attention.attention"
+        layers.append({"block": {
+            "rel_pos_table": _t(sd[f"{att}.relative_position_bias.relative_position_bias_table"]),
+            "ln1": _sd_layernorm(sd, f"{p}.layernorm_before"),
+            "ln2": _sd_layernorm(sd, f"{p}.layernorm_after"),
+            "q": _sd_dense(sd, f"{att}.query"),
+            "k": {"kernel": _t(sd[f"{att}.key.weight"]).T},
+            "v": _sd_dense(sd, f"{att}.value"),
+            "proj": _sd_dense(sd, f"{p}.attention.output.dense"),
+            "fc1": _sd_dense(sd, f"{p}.intermediate.dense"),
+            "fc2": _sd_dense(sd, f"{p}.output.dense"),
+            "lambda_1": _t(sd[f"{p}.lambda_1"]),
+            "lambda_2": _t(sd[f"{p}.lambda_2"]),
+        }})
+    params: dict = {"backbone": {
+        "patch_embed": _sd_conv(sd, "backbone.embeddings.patch_embeddings.projection"),
+        "cls_token": _t(sd["backbone.embeddings.cls_token"]),
+        "blocks": _stack_trees(layers),
+    }}
+
+    rs = "neck.reassemble_stage"
+    reassemble: dict = {}
+    for i, factor in enumerate(reassemble_factors):
+        reassemble[f"readout{i}"] = _sd_dense(sd, f"{rs}.readout_projects.{i}.0")
+        reassemble[f"proj{i}"] = _sd_conv(sd, f"{rs}.layers.{i}.projection")
+        if factor > 1:  # a ConvTranspose2d: its torch layout in both trees
+            reassemble[f"resize{i}_w"] = _t(sd[f"{rs}.layers.{i}.resize.weight"])
+            reassemble[f"resize{i}_b"] = _t(sd[f"{rs}.layers.{i}.resize.bias"])
+        elif factor < 1:
+            reassemble[f"resize{i}"] = _sd_conv(sd, f"{rs}.layers.{i}.resize")
+    params["reassemble"] = reassemble
+    for i in range(4):
+        params[f"neck_conv{i}"] = _sd_conv(sd, f"neck.convs.{i}", bias=False)
+
+    def two_convs(p):
+        return {"conv1": _sd_conv(sd, f"{p}.conv1"), "conv2": _sd_conv(sd, f"{p}.conv2")}
+
+    for i in range(4):
+        p = f"neck.fusion_stage.layers.{i}"
+        layer = {"proj": _sd_conv(sd, f"{p}.projection"),
+                 "res2": {"conv1": _sd_conv(sd, f"{p}.residual_layer2.convolution1"),
+                          "conv2": _sd_conv(sd, f"{p}.residual_layer2.convolution2")}}
+        if i > 0:
+            layer["res1"] = {"conv1": _sd_conv(sd, f"{p}.residual_layer1.convolution1"),
+                             "conv2": _sd_conv(sd, f"{p}.residual_layer1.convolution2")}
+        params[f"fusion{i}"] = layer
+
+    for i in (1, 2, 3):
+        params[f"rel_conv{i}"] = _sd_conv(sd, f"relative_head.conv{i}")
+    mh = "metric_head"
+    params["mh_conv2"] = _sd_conv(sd, f"{mh}.conv2")
+    params["seed_bin"] = two_convs(f"{mh}.seed_bin_regressor")
+    params["seed_proj"] = two_convs(f"{mh}.seed_projector")
+    for i in range(4):
+        params[f"mh_proj{i}"] = two_convs(f"{mh}.projectors.{i}")
+        params[f"attractor{i}"] = two_convs(f"{mh}.attractors.{i}")
+    params["clb"] = {"mlp1": _sd_conv(sd, f"{mh}.conditional_log_binomial.mlp.0"),
+                     "mlp2": _sd_conv(sd, f"{mh}.conditional_log_binomial.mlp.2")}
+    return params
+
+
+def cotracker2_from_hub(sd: dict, depth: int = 6) -> dict:
+    """facebookresearch/co-tracker `cotracker2` torch.hub state dict -> the
+    JAX CoTracker2 tree (`cotracker2_to_jax` of its first `depth` layers).
+    Names may carry a "model." prefix; the released code spells the virtual
+    tracks "virual_tracks", and "virtual_tracks" is read too. Instance norms
+    and the affine-free pre-norms carry no parameters; the time and position
+    embeddings are recomputed."""
+    sd = {k.removeprefix("model."): v for k, v in sd.items()}
+    if "updateformer.virual_tracks" not in sd:
+        sd["updateformer.virual_tracks"] = sd["updateformer.virtual_tracks"]
+    return cotracker2_to_jax(sd, depth)

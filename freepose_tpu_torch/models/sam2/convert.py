@@ -1,25 +1,15 @@
 """HF Sam2 checkpoint -> parameter converters for the SAM2 stack.
 
 A copy of the JAX package's freepose_tpu/models/sam2/convert.py (it needs
-only numpy): it produces the JAX package's parameter tree, which
+only numpy; the state-dict helpers are models/convert.py's): it produces
+the JAX package's parameter tree, which
 freepose_tpu_torch/models/convert.py:sam2_video_from_jax maps onto the
 port's modules."""
 from __future__ import annotations
 
-import numpy as np
-
-
-def _t(x) -> np.ndarray:
-    arr = np.asarray(x.detach().cpu().numpy() if hasattr(x, "detach") else x)
-    return arr.astype(np.float32)
-
-
-def _dense(sd, p):
-    return {"kernel": _t(sd[f"{p}.weight"]).T, "bias": _t(sd[f"{p}.bias"])}
-
-
-def _ln(sd, p):
-    return {"scale": _t(sd[f"{p}.weight"]), "bias": _t(sd[f"{p}.bias"])}
+from freepose_tpu_torch.models.convert import _sd_dense as _dense
+from freepose_tpu_torch.models.convert import _sd_layernorm as _ln
+from freepose_tpu_torch.models.convert import _t
 
 
 def _conv(sd, p):

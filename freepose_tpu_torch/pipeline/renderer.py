@@ -2,7 +2,8 @@
 
 Counterpart of freepose_tpu.pipeline.renderer: the reference camera model
 (f=600 at 420×420, cx=cy=res/2) and the super-Fibonacci pose grid at z=1.1,
-rendered in pose chunks by the tile rasterizer (K1 on the card).
+rendered in pose chunks by the tile rasterizer (K1 on the card); a mesh with
+a texture atlas is sampled per pixel (ops/texture.py).
 """
 from __future__ import annotations
 
@@ -15,8 +16,9 @@ from freepose_tpu_torch.device import resolve_device
 from freepose_tpu_torch.geometry.boxes import mask_to_bbox
 from freepose_tpu_torch.geometry.crop import crop_resize_pad
 from freepose_tpu_torch.geometry.rotation import template_poses
-from freepose_tpu_torch.io.mesh import TriMesh, pad_mesh
+from freepose_tpu_torch.io.mesh import TriMesh, fit_to_budget, pad_mesh, pad_uv
 from freepose_tpu_torch.ops.rasterizer import RasterSettings, camera_points, render_meshes
+from freepose_tpu_torch.ops.texture import render_textured
 
 TEMPLATE_FOCAL = 600.0
 TEMPLATE_RES = 420
@@ -43,8 +45,8 @@ class TemplateRenderer:
     max_faces: int = 16384
     pose_chunk: int = 128
     settings: RasterSettings | None = None
-    # "auto": per-pixel texture sampling when the mesh carries an atlas (not
-    # ported yet: raises); "bake": always shade baked vertex colours.
+    # "auto": per-pixel texture sampling when the mesh carries an atlas;
+    # "bake": always shade baked vertex colours.
     texture_mode: str = "auto"
     device: str | torch.device | None = None
 
@@ -66,14 +68,19 @@ class TemplateRenderer:
         return self.render_from_poses(mesh, self.poses, scale=scale)
 
     def render_from_poses(self, mesh: TriMesh, poses: torch.Tensor, scale: float = RENDERING_SCALE):
+        """Textured meshes sample their atlas per pixel (ops/texture.py, the
+        reference's GL textured render) when texture_mode is "auto"; "bake"
+        forces the per-vertex-colour fallback."""
+        poses = poses.to(self.device)
         if self.texture_mode == "auto" and mesh.texture is not None and mesh.uv is not None:
-            raise NotImplementedError(
-                "textured template renders (texture_mode='auto' on a textured mesh) are not "
-                "ported yet (ROADMAP queue 1, item 6: ops/texture.py); use texture_mode='bake'"
-            )
+            fitted = fit_to_budget(mesh, self.max_vertices, self.max_faces)
+            v, _, f, valid = self._padded(fitted, scale)
+            uvw = torch.as_tensor(pad_uv(fitted, self.max_vertices), device=self.device)
+            texture = torch.as_tensor(fitted.texture, device=self.device)
+            return render_textured(v, uvw, f, valid, poses, self.k, texture, self.settings,
+                                   pose_chunk=self.pose_chunk)
         v, c, f, valid = self._padded(mesh, scale)
-        return render_meshes(v, c, f, valid, poses.to(self.device), self.k, self.settings,
-                             pose_chunk=self.pose_chunk)
+        return render_meshes(v, c, f, valid, poses, self.k, self.settings, pose_chunk=self.pose_chunk)
 
     def generate_proposals(self, rgb: torch.Tensor, depth: torch.Tensor, target: int | None = None):
         """Crop each render around its mask bbox -> (proposals [N, 3, target,

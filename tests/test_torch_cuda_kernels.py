@@ -646,6 +646,48 @@ def test_k1_invalid_slots_read_as_no_face(cuda):
     assert bool(((wrong[..., 0] > 0) != (out[..., 0] > 0)).any())
 
 
+def test_textured_render_on_the_card_matches_the_cpu(cuda):
+    """render_textured on the card (K1 carries the UV pass) against the CPU
+    (the plain rasterizer) on a seeded sphere with random UVs and a seeded
+    atlas: identical hit masks, depth within 1e-5 (K1_ATOL of chip_smoke.py,
+    the card against the plain rasterizer), and RGB within what a 1e-5 UV
+    difference moves a bilinear sample: times the atlas size and its
+    largest step between neighbouring texels, times the ambient factor."""
+    from freepose_tpu_torch.ops.texture import render_textured
+
+    rng = np.random.default_rng(7)
+    th, tw = 64, 96
+    tex = rng.random((th, tw, 3)).astype(np.float32) * 0.5
+    n_lat, n_lon = 10, 14
+    verts, faces = [], []
+    for i in range(n_lat + 1):
+        t = np.pi * i / n_lat
+        for j in range(n_lon):
+            ph = 2 * np.pi * j / n_lon
+            verts.append([0.4 * np.sin(t) * np.cos(ph), 0.4 * np.sin(t) * np.sin(ph), 0.4 * np.cos(t)])
+    for i in range(n_lat):
+        for j in range(n_lon):
+            a, b = i * n_lon + j, i * n_lon + (j + 1) % n_lon
+            c, d = (i + 1) * n_lon + j, (i + 1) * n_lon + (j + 1) % n_lon
+            faces += [[a, b, c], [b, d, c]]
+    verts, faces = np.asarray(verts, np.float32), np.asarray(faces, np.int32)
+    uvw = np.concatenate([rng.random((len(verts), 2)), np.ones((len(verts), 1))], 1).astype(np.float32)
+    uvw[::9, 2] = 0.0  # some vertices without a vt: grey
+    poses = template_poses(6, z=1.5)
+    settings = RasterSettings(resolution=64, tile=16, max_faces_per_tile=64)
+    args = (verts, uvw, faces, np.ones(len(faces), bool), poses.numpy(), K, tex)
+    before = raster_tile.launches
+    rgb, depth = render_textured(*(torch.as_tensor(a, device=cuda) for a in args), settings, pose_chunk=4)
+    torch.cuda.synchronize()
+    assert raster_tile.launches == before + 2  # one K1 launch per pose chunk
+    ref_rgb, ref_depth = render_textured(*(torch.as_tensor(a) for a in args), settings, pose_chunk=4)
+    assert bool(torch.equal(depth.cpu() > 0, ref_depth > 0)) and int((ref_depth > 0).sum()) > 1000
+    assert float((depth.cpu() - ref_depth).abs().max()) <= 1e-5
+    step = max(np.abs(np.diff(tex, axis=0)).max(), np.abs(np.diff(tex, axis=1)).max())
+    tol = settings.ambient * 1e-5 * ((tw - 1) + (th - 1)) * step + 1e-6
+    assert float((rgb.cpu() - ref_rgb).abs().max()) <= tol
+
+
 def test_k1_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
     rows = torch.zeros((2, 16, 32), device=cuda)
     slots = torch.zeros((2, 4, 8), dtype=torch.int32, device=cuda)

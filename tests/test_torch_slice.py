@@ -312,6 +312,12 @@ EVAL_SLICE_MODULES = [
                                                   "vos_inference")),
 ]
 
+ASSET_SLICE_MODULES = [
+    "freepose_tpu_torch.ops.texture",
+    *(f"freepose_tpu_torch.scripts.{m}" for m in ("convert_weights", "prepare_weights", "resize_meshes",
+                                                  "merge_results")),
+]
+
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     code = (
@@ -333,6 +339,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert set(REFINE_SLICE_MODULES) <= set(mods)
     assert set(PROPOSALS_SLICE_MODULES) <= set(mods)
     assert set(EVAL_SLICE_MODULES) <= set(mods)
+    assert set(ASSET_SLICE_MODULES) <= set(mods)
     # No import of JAX, the JAX package or the tests anywhere in the sources,
     # not even inside a function that this import did not run.
     pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|freepose_tpu|scripts|tests)\b", re.M)
