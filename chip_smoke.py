@@ -217,8 +217,55 @@ Phases, one line each on stdout:
              launch; pack patch and view features of min cosine >=
              FEATURE_COS_MIN); resize_meshes on the mesh directory (unit
              half-extent, centre at zero) and merge_results on two CSVs cut
-             from the refine phase's (the rows equal); the work directory is
-             deleted after it;
+             from the refine phase's (the rows equal);
+ 15. coupled the coupled video step at full width (no CLI reaches it; the
+             functions a user chains): synthetic_video()'s 10 frames staged
+             on the card in one upload (stage_frames_hbm, a 128-frame
+             bucket), object 0 prompted by its frame-0 box, SAM2 Hiera-L at
+             1024² bf16 through propagate_batched (chunk 8: batches [0],
+             [1..8], [9]), each batch's masks and frames through
+             proposals_from_masks_video (420² crops), frame 0's coarse pose
+             from the torus's 600-view pack, frames 1-9 through an
+             AutoRefineChain with the refine phase's settings, and a
+             StreamingInliers (DINOv2-B at 518², chunks of 8) fed as the
+             chain finalises poses. Launch counts zeroed before the step and
+             read after it (K1, K2 at d 64, 72 and 256, K4 > 0). Gates: the
+             batches' masks equal propagate_in_video(binarize=True)'s, bit
+             for bit; the batches' frames equal the staged video; crops
+             within COUPLED_CROP_ATOL, mask crops and bboxes identical to the
+             host path (extract_proposals on the fetched mask); the chain's
+             poses and scores within COUPLED_POSE_ATOL of the same chain fed
+             from the host path; StreamingInliers identical to
+             n_inliers_per_pose; on frames 1-2, kernels vs plain versions:
+             SAM2 mask IoU >= VIDEO_IOU_MIN, each frame's cold refine step
+             with render masks identical and scores within
+             REFINE_SCORE_ATOL (scores read one slot off must fail). Prints
+             ms per frame (median of frames 1-9), its SAM2 and refine parts,
+             device busy against profiled wall time and launches per frame,
+             and host-to-device copies per frame;
+ 16. stride  SAM2 with memory_temporal_stride STRIDE at full width: both
+             objects box-prompted on frame 0, Hiera-L bf16, frame at a time
+             on the kernels (launches zeroed before and read after: K2 d 72
+             and d 256 and K4 > 0; the stride changes K4's mask), then on
+             the plain attention. Gates: the memory frames held after every
+             step equal the reference's stride-r selection; each object's
+             own mask on frames 1-9 with mean IoU >= VIDEO_IOU_MIN and every
+             IoU >= VOS_IOU_FLOOR. Prints ms per frame beside the video
+             phase's stride-1 figure;
+ 17. amg     Sam2AutomaticMaskGenerator on frame 0 of synthetic_video():
+             Hiera-L at 1024² bf16, 32 x 32 points in 16 batches of 64,
+             multimask, box NMS 0.7, its IoU and stability thresholds taken
+             from a first pass's candidates (random weights sit far below
+             the defaults). Launch counts zeroed before one generate and
+             read after it (K2 d 72 > 0). Gates: 16 batches; batch 0's
+             pre-filter outputs, kernels vs plain attention: masks mean IoU
+             >= VIDEO_IOU_MIN, IoU predictions and stability within
+             AMG_SCORE_ATOL; 1 to AMG_MAX_RECORDS records, each RLE area
+             equal to its mask's sum and each box to its mask's box; no two
+             kept boxes above the NMS threshold. Prints seconds per image,
+             split into the encoder, the decode batches and the host's
+             filters, RLE and NMS, and device busy against wall time; the
+             work directory is deleted after it;
 then the kernels JSON line, the card's name and power limit, and last the
 device JSON line. Exits non-zero, printing no result, without a GPU or
 without the rest of the repository beside it.
@@ -1382,7 +1429,7 @@ def phase_video(dev) -> tuple[dict, dict]:
         return state
 
     sam_ms, per_frame, masks_k = [], [], []
-    gen = predictor.propagate_in_video(prompted(), binarize=True)
+    gen = predictor.propagate_in_video(prompted(), binarize=True, chunk=1)  # frame at a time
     while True:
         before = read_launches()
         t0 = time.perf_counter()
@@ -1409,7 +1456,7 @@ def phase_video(dev) -> tuple[dict, dict]:
         torch.cuda.synchronize()
         ret_ms.append((time.perf_counter() - t0) * 1e3)
 
-    gen = predictor.propagate_in_video(prompted(), binarize=True)
+    gen = predictor.propagate_in_video(prompted(), binarize=True, chunk=1)
     for _ in range(4):
         next(gen)
 
@@ -1639,6 +1686,66 @@ N_FINE, N_NEIGHBORS, NEIGHBORHOOD, FINE_CACHE, MISS_BUCKET = 20000, 32, 15.0, 25
 BATCH_INVARIANCE_CROPS = 17
 
 
+def refine_kernels_vs_plain(est, extractor, mesh_key, mesh, crop, cmask, k, bbox, scale, prev) -> dict:
+    """One fine refine step from a cold cache (prev: the pose it starts
+    from) with the kernels and with every attention call and K1 on their
+    plain versions: the neighbourhood's render masks (mismatches), its
+    scores (max abs error) and, as the tolerance's own check, the kernels'
+    scores read one slot off against the plain ones; launches of each run."""
+    from freepose_tpu_torch.ops import rasterizer_cuda
+    from freepose_tpu_torch.ops.attention import dense_attention, flash_attention_fn
+    from freepose_tpu_torch.ops.rasterizer_cuda import raster_tile, raster_tile_plain
+    from freepose_tpu_torch.pipeline.fine_cache import cached_refine_auto_step, init_device_cache
+    from freepose_tpu_torch.pipeline.online_pose_estimator import rescore_views, select_neighborhood
+    from freepose_tpu_torch.pipeline.template_bank import normalize_feats
+
+    renderer = est.renderer
+    grid = RES // extractor.config.patch_size
+    runs = {}
+    for plain in (False, True):
+        before = read_launches()
+        if plain:
+            rasterizer_cuda.raster_tile = raster_tile_plain
+            for blk in extractor.model.blocks:
+                blk.attn.attention_fn = dense_attention
+        try:
+            state = init_device_cache(FINE_CACHE, grid * grid, extractor.config.hidden_size, RES, N_FINE,
+                                      extractor.config.dtype, crop.device)
+            cached_refine_auto_step(
+                state, est.fine_poses, prev, prev, *est._padded_mesh(mesh_key, mesh), renderer.k, crop, cmask, k,
+                est._f32(bbox), est._f32(scale), extractor=extractor, layer=DINO_LAYER, settings=renderer.settings,
+                pose_chunk=renderer.pose_chunk, resolution=RES, mask_scores=False,
+                rendering_scale=est.rendering_scale, neighborhood_deg=NEIGHBORHOOD, n_neighbors=N_NEIGHBORS,
+                miss_bucket=N_NEIGHBORS)
+            qf = normalize_feats(extractor(crop[None], layer=DINO_LAYER, feature_type="patch")[0])
+        finally:
+            rasterizer_cuda.raster_tile = raster_tile
+            for blk in extractor.model.blocks:
+                blk.attn.attention_fn = flash_attention_fn
+        after = read_launches()
+        _, idx, valid = select_neighborhood(est.fine_poses, prev, NEIGHBORHOOD, N_NEIGHBORS)
+        slots = state.slot_table[idx].long()
+        assert bool((slots >= 0).all())
+        runs[plain] = dict(state=state, slots=slots, valid=valid, qf=qf,
+                           launches={key: after[key] - before[key] for key in ("K1", "K2")})
+
+    def scores_of(run, shift=0):
+        """The neighbourhood's scores; shift=1 reads each view from the
+        slot of the view before it (the wrong stand-in)."""
+        slots = run["slots"].roll(shift)
+        st = run["state"]
+        return rescore_views(st.feats[slots], run["qf"], run["valid"], st.masks[slots], cmask, grid, False)
+
+    kernel_scores, plain_scores = scores_of(runs[False]), scores_of(runs[True])
+    valid = runs[False]["valid"]
+    return {"render_mask_mismatches": int((runs[False]["state"].masks[runs[False]["slots"]] !=
+                                           runs[True]["state"].masks[runs[True]["slots"]]).sum()),
+            "score_max_abs_err": float((kernel_scores - plain_scores)[valid].abs().max()),
+            "atol": REFINE_SCORE_ATOL,
+            "one_slot_off_max_abs_err": float((scores_of(runs[False], shift=1) - plain_scores)[valid].abs().max()),
+            "launches": {"kernels": runs[False]["launches"], "plain": runs[True]["launches"]}}
+
+
 def phase_refine(dev, mesh) -> tuple[dict, dict]:
     """render_templates and dino_inference_video through their CLIs on the
     scale phase's scaled.json (the torus as every retrieved mesh), with the
@@ -1657,14 +1764,10 @@ def phase_refine(dev, mesh) -> tuple[dict, dict]:
     from freepose_tpu_torch.io.proposals_json import proposal_bbox_xyxy, proposal_mask
     from freepose_tpu_torch.models.convert import save_params
     from freepose_tpu_torch.models.dinov2 import VIT_L14_REG
-    from freepose_tpu_torch.ops import rasterizer_cuda
-    from freepose_tpu_torch.ops.attention import dense_attention, flash_attention_fn
-    from freepose_tpu_torch.ops.rasterizer_cuda import prologue, raster_tile, raster_tile_plain
+    from freepose_tpu_torch.ops.rasterizer_cuda import prologue, raster_tile
     from freepose_tpu_torch.pipeline import fine_cache
-    from freepose_tpu_torch.pipeline.fine_cache import cached_refine_auto_step, init_device_cache
     from freepose_tpu_torch.pipeline.online_pose_estimator import (AutoRefineChain, OnlinePoseEstimator,
-                                                                   render_view_block, rescore_views,
-                                                                   select_neighborhood)
+                                                                   render_view_block)
     from freepose_tpu_torch.pipeline.proposals import extract_proposals
     from freepose_tpu_torch.pipeline.renderer import TemplateRenderer
     from freepose_tpu_torch.pipeline.template_bank import TemplateBank, normalize_feats
@@ -1868,50 +1971,9 @@ def phase_refine(dev, mesh) -> tuple[dict, dict]:
     _, c0, _, b0, s0 = next(o for o in objs[f1[0]] if o[0] == mid)
     prev = est.coarse.estimate(c0, packs[mid], k, b0, s0).tcos[0]
     _, crop, cmask, bbox, scale = next(o for o in objs[f1[1]] if o[0] == mid)
-    grid = RES // extractor.config.patch_size
-    runs = {}
-    for plain in (False, True):
-        before = read_launches()
-        if plain:
-            rasterizer_cuda.raster_tile = raster_tile_plain
-            for blk in extractor.model.blocks:
-                blk.attn.attention_fn = dense_attention
-        try:
-            state = init_device_cache(FINE_CACHE, grid * grid, extractor.config.hidden_size, RES, N_FINE,
-                                      extractor.config.dtype, dev)
-            cached_refine_auto_step(
-                state, est.fine_poses, prev, prev, *est._padded_mesh(mid, meshes[mid]), renderer.k, crop, cmask, k,
-                est._f32(bbox), est._f32(scale), extractor=extractor, layer=DINO_LAYER, settings=renderer.settings,
-                pose_chunk=renderer.pose_chunk, resolution=RES, mask_scores=False,
-                rendering_scale=est.rendering_scale, neighborhood_deg=NEIGHBORHOOD, n_neighbors=N_NEIGHBORS,
-                miss_bucket=N_NEIGHBORS)
-            qf = normalize_feats(feature_fn(crop[None])[0])
-        finally:
-            rasterizer_cuda.raster_tile = raster_tile
-            for blk in extractor.model.blocks:
-                blk.attn.attention_fn = flash_attention_fn
-        after = read_launches()
-        _, idx, valid = select_neighborhood(est.fine_poses, prev, NEIGHBORHOOD, N_NEIGHBORS)
-        slots = state.slot_table[idx].long()
-        assert bool((slots >= 0).all())
-        runs[plain] = dict(state=state, slots=slots, valid=valid, qf=qf,
-                           launches={key: after[key] - before[key] for key in ("K1", "K2")})
-
-    def scores_of(run, shift=0):
-        """The neighbourhood's scores; shift=1 reads each view from the
-        slot of the view before it (the wrong stand-in)."""
-        slots = run["slots"].roll(shift)
-        st = run["state"]
-        return rescore_views(st.feats[slots], run["qf"], run["valid"], st.masks[slots], cmask, grid, False)
-
-    kernel_scores, plain_scores = scores_of(runs[False]), scores_of(runs[True])
-    valid = runs[False]["valid"]
-    mask_mismatch = int((runs[False]["state"].masks[runs[False]["slots"]] !=
-                         runs[True]["state"].masks[runs[True]["slots"]]).sum())
-    score_err = float((kernel_scores - plain_scores)[valid].abs().max())
-    off_by_one = float((scores_of(runs[False], shift=1) - plain_scores)[valid].abs().max())
-    frame1_launches = {"kernels": runs[False]["launches"], "plain": runs[True]["launches"]}
-    del runs, state
+    frame1 = refine_kernels_vs_plain(est, extractor, mid, meshes[mid], crop, cmask, k, bbox, scale, prev)
+    mask_mismatch, score_err = frame1["render_mask_mismatches"], frame1["score_max_abs_err"]
+    off_by_one, frame1_launches = frame1["one_slot_off_max_abs_err"], frame1["launches"]
 
     result = dict(meshes=len(names), proposals=len(scaled), rows=len(rows), rows_finite=finite, rot_orth_err=orth,
                   t_z_min=t_z_min, render_templates_s=render_s, cli_s=cli_s, launches=launches,
@@ -2834,7 +2896,7 @@ def phase_vos(dev) -> tuple[dict, dict]:
             attention.flash_attention_auto = plain_attention_auto
         lows, highs, ms = [], [], []
         try:
-            gen = predictor.propagate_in_video(state)
+            gen = predictor.propagate_in_video(state, chunk=1)  # frame at a time
             while True:
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -3212,6 +3274,497 @@ def phase_texture(dev) -> tuple[dict, dict]:
     return result, launches
 
 
+# The coupled video step: SAM2's batches (the prompt frame alone, then runs
+# of up to COUPLED_CHUNK frames) feed the fine refine on the card, and the
+# smooth stage's confidence chunks (DINOv2-B at 518², CONF_CHUNK frames)
+# stream behind it. The refine's object scale is fixed (no scale stage runs
+# here). Crops of the coupled path against the host path (the fetched mask
+# through extract_proposals): the same fp32 gathers and weights, within
+# COUPLED_CROP_ATOL; poses of the two chains within COUPLED_POSE_ATOL.
+COUPLED_CHUNK, CONF_CHUNK, COUPLED_SCALE = 8, 8, 0.15
+COUPLED_CROP_ATOL = COUPLED_POSE_ATOL = 1e-5
+
+
+def h2d_copies(fn) -> dict:
+    """Host-to-device copies during one call of `fn` (torch.profiler's
+    trace of the card): how many, their bytes, the largest."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    path = WORK_DIR / "h2d_trace.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    path.unlink()
+    sizes = [int(e.get("args", {}).get("bytes", 0)) for e in events
+             if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", "")]
+    return {"copies": len(sizes), "bytes": sum(sizes), "largest": sorted(sizes)[-8:]}
+
+
+def mask_ious(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """IoU of each pair of bool masks [..., H, W] (1 where both are empty)."""
+    inter = (a & b).sum(axis=(-2, -1))
+    union = (a | b).sum(axis=(-2, -1))
+    return np.where(union > 0, inter / np.maximum(union, 1), 1.0)
+
+
+def phase_coupled(dev, mesh) -> tuple[dict, dict]:
+    """The coupled video step at full width: synthetic_video()'s 10 frames
+    staged on the card in one upload, object 0 prompted by its frame-0 box,
+    SAM2 Hiera-L (bf16, object-score bias) through propagate_batched, each
+    batch's masks and frames through proposals_from_masks_video, frame 0's
+    coarse pose from the torus's 600-view pack and frames 1-9 through an
+    AutoRefineChain with the refine phase's settings, and a StreamingInliers
+    fed as the chain finalises poses."""
+    from freepose_tpu_torch.datasets.video import stage_frames_hbm
+    from freepose_tpu_torch.geometry.boxes import mask_to_bbox
+    from freepose_tpu_torch.geometry.camera import default_video_intrinsics
+    from freepose_tpu_torch.models.convert import save_params
+    from freepose_tpu_torch.models.cotracker import PointTracker
+    from freepose_tpu_torch.models.dinov2 import VIT_B14_REG, VIT_L14_REG
+    from freepose_tpu_torch.ops import attention
+    from freepose_tpu_torch.pipeline.online_pose_estimator import AutoRefineChain, OnlinePoseEstimator
+    from freepose_tpu_torch.pipeline.proposals import extract_proposals, proposals_from_masks_video
+    from freepose_tpu_torch.pipeline.renderer import TemplateRenderer
+    from freepose_tpu_torch.pipeline.template_bank import TemplateBank
+    from freepose_tpu_torch.pipeline.tracking_refiner import StreamingInliers, TrackingRefiner
+    from freepose_tpu_torch.scripts.common import load_dino_extractor
+    from freepose_tpu_torch.scripts.extract_proposals_ground_video import load_video_predictor
+
+    WORK_DIR.mkdir(parents=True, exist_ok=True)
+    frames, boxes, _ = synthetic_video()
+    n = len(frames)
+    h, w = frames.shape[1:3]
+    t0 = time.perf_counter()
+    staged = stage_frames_hbm(frames, device=dev)
+    torch.cuda.synchronize()
+    stage_ms = (time.perf_counter() - t0) * 1e3
+    predictor = load_video_predictor(None, device=dev)
+    for name, cfg, seed in (("dinov2.npz", VIT_L14_REG, SEED), ("dinov2_vitb.npz", VIT_B14_REG, SEED + 9)):
+        if not (WORK_DIR / name).exists():  # the refine and smooth phases' weights
+            save_params(random_dinov2_params(cfg, seed=seed), WORK_DIR / name)
+    extractor = load_dino_extractor(str(WORK_DIR / "dinov2.npz"), device=dev)
+    extractor_b = load_dino_extractor(str(WORK_DIR / "dinov2_vitb.npz"), model="vitb", device=dev)
+
+    def feature_fn(imgs):
+        return extractor(imgs, layer=DINO_LAYER, feature_type="patch")
+
+    renderer = TemplateRenderer(n_poses=N_VIEWS, device=dev)
+    est = OnlinePoseEstimator(feature_fn, TemplateBank(feature_fn, renderer, cache_size=4, device=dev), renderer,
+                              n_coarse_poses=N_VIEWS, n_fine_poses=N_FINE, n_neighbors=N_NEIGHBORS,
+                              extractor=extractor, feature_layer=DINO_LAYER, fine_cache_capacity=FINE_CACHE)
+    pack = est.coarse.bank.build_pack("coupled_torus", mesh)
+    refiner = TrackingRefiner(feature_fn=lambda imgs: extractor_b(imgs, layer=None, feature_type="patch"),
+                              tracker=PointTracker(device=dev), device=dev)
+    conf_mesh = mesh.scaled(COUPLED_SCALE)
+    k = default_video_intrinsics(w, h, device=dev)
+    box0 = boxes[0, 0]
+
+    def prompted(src):
+        return predictor.add_new_points_or_box(predictor.init_state(src), 0, obj_id=0, box=box0)
+
+    def run_chain(per_frame, sync=False):
+        """Frame 0's coarse pose, frames 1.. through a fresh chain, from
+        (crop, crop mask, bbox) per frame -> (frame 0 pose, chain, ms per
+        frame when sync)."""
+        chain = AutoRefineChain(est, mesh, "coupled", neighborhood_deg=NEIGHBORHOOD)
+        first, ms = None, []
+        for t, (crop, cmask, bbox) in enumerate(per_frame):
+            t0 = time.perf_counter()
+            if t == 0:
+                first = est.coarse.estimate(crop, pack, k, bbox, COUPLED_SCALE).tcos[0]
+            else:
+                chain.submit(crop, cmask, k, bbox, COUPLED_SCALE, prev_pose=first if t == 1 else None)
+            if sync:
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+        chain.finalize_all()
+        return first, chain, ms
+
+    def coupled(sync: bool = False) -> dict:
+        """One pass of the coupled step; with sync, each batch timed to the
+        card's finish (its frames share the batch's time)."""
+        chain = AutoRefineChain(est, mesh, "coupled", neighborhood_deg=NEIGHBORHOOD)
+        conf = StreamingInliers(refiner, conf_mesh, staged, k, chunk=CONF_CHUNK)
+        batches, frame_ms, fed, first = [], [], 0, None
+        t0 = time.perf_counter()
+        for ts, lows, highs, frames_b in predictor.propagate_batched(prompted(staged), chunk=COUPLED_CHUNK):
+            crops, cmasks, bboxes = proposals_from_masks_video(frames_b, highs[:, 0], RES, 0.2)
+            for z, t in enumerate(ts):
+                if t == 0:
+                    first = est.coarse.estimate(crops[z], pack, k, bboxes[z], COUPLED_SCALE).tcos[0]
+                    conf.add(0, first.cpu().numpy())
+                else:
+                    chain.submit(crops[z], cmasks[z], k, bboxes[z], COUPLED_SCALE,
+                                 prev_pose=first if t == 1 else None)
+            while fed < len(chain.results):
+                conf.add(fed + 1, chain.results[fed][0])
+                fed += 1
+            batches.append((ts, lows, highs, frames_b, crops, cmasks, bboxes))
+            if sync:
+                torch.cuda.synchronize()
+                now = time.perf_counter()
+                frame_ms += [(now - t0) * 1e3 / len(ts)] * len(ts)
+                t0 = now
+        results = chain.finalize_all()
+        while fed < len(results):
+            conf.add(fed + 1, results[fed][0])
+            fed += 1
+        inliers, thr = conf.finalize()
+        return dict(first=first, chain=chain, batches=batches, frame_ms=frame_ms, inliers=inliers, thr=thr)
+
+    # The path, once, with the launch counts.
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    run = coupled()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = read_launches()
+    plan = [b[0] for b in run["batches"]]
+    poses = [run["first"].cpu().numpy()] + [p for p, _ in run["chain"].results]
+
+    # Timed: the whole step per batch, SAM2 alone per batch, the refine alone
+    # per frame (fed the first run's crops).
+    frame_ms = coupled(sync=True)["frame_ms"]
+    sam_ms, t0 = [], time.perf_counter()
+    for ts, *_ in predictor.propagate_batched(prompted(staged), chunk=COUPLED_CHUNK):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        sam_ms += [(now - t0) * 1e3 / len(ts)] * len(ts)
+        t0 = now
+    per_frame = [(b[4][z], b[5][z], b[6][z]) for b in run["batches"] for z in range(len(b[0]))]
+    _, _, refine_ms = run_chain(per_frame, sync=True)
+    profile = profile_device_time(lambda: coupled(), "coupled_video", top=16)
+    h2d = h2d_copies(lambda: coupled())
+
+    # Gates. The batches' masks against propagate_in_video(binarize=True)
+    # from the host frames, the batches' frames against the staged video.
+    ref = {t: (low, high) for t, _, low, high in predictor.propagate_in_video(prompted(frames), binarize=True,
+                                                                              chunk=COUPLED_CHUNK)}
+    mask_mismatch, frames_equal, host = 0, True, []
+    for ts, lows, highs, frames_b, crops, cmasks, bboxes in run["batches"]:
+        lows_np, highs_np = lows.cpu().numpy(), highs.cpu().numpy()
+        frames_equal &= bool(torch.equal(frames_b, staged.frames[min(ts):max(ts) + 1]))
+        for z, t in enumerate(ts):
+            mask_mismatch += int((lows_np[z] != ref[t][0]).sum() + (highs_np[z] != ref[t][1]).sum())
+            m = torch.as_tensor(highs_np[z, 0], device=dev)
+            bbox = mask_to_bbox(m).float() if bool(m.any()) else \
+                torch.tensor([w * 0.25, h * 0.25, w * 0.75, h * 0.75], device=dev)
+            prop = extract_proposals(torch.as_tensor(frames[t], device=dev), m[None], bbox[None], RES, 0.2)
+            host.append(dict(crop_err=float((prop.proposals[0] - crops[z]).abs().max()),
+                             cmask_equal=bool(torch.equal(prop.masks[0], cmasks[z])),
+                             bbox_equal=bool(torch.equal(bbox, bboxes[z])), mask_px=int(m.sum()),
+                             inputs=(prop.proposals[0], prop.masks[0], bbox)))
+    host_first, host_chain, _ = run_chain([x.pop("inputs") for x in host])
+    host_poses = [host_first.cpu().numpy()] + [p for p, _ in host_chain.results]
+    pose_err = max(float(np.abs(a - b).max()) for a, b in zip(poses, host_poses))
+    score_err = max(abs(a[1] - b[1]) for a, b in zip(run["chain"].results, host_chain.results))
+    batch_inl, batch_thr = refiner.n_inliers_per_pose(conf_mesh, staged.frames[:n], k, np.stack(poses),
+                                                      chunk=CONF_CHUNK, channels_last=True)
+    inliers_equal = bool(np.array_equal(run["inliers"], batch_inl)) and run["thr"] == batch_thr
+
+    # Kernels vs plain versions on frames 1-2: SAM2's masks (every attention
+    # call on its plain version), and each frame's fine refine step from a
+    # cold cache (every attention call and K1 on their plain versions).
+    sam = {}
+    for plain in (False, True):
+        kernel_auto = attention.flash_attention_auto
+        if plain:
+            attention.flash_attention_auto = plain_attention_auto
+        try:
+            sam[plain] = np.stack([high[0] > 0 for t, _, _, high in
+                                   predictor.propagate_in_video(prompted(staged), max_frames=3, chunk=1)][1:])
+        finally:
+            attention.flash_attention_auto = kernel_auto
+    sam_ious = mask_ious(sam[False], sam[True])
+    refine_checks = [refine_kernels_vs_plain(est, extractor, "coupled", mesh, *per_frame[t][:2], k,
+                                             per_frame[t][2], COUPLED_SCALE, torch.as_tensor(poses[t - 1], device=dev))
+                     for t in (1, 2)]
+
+    result = dict(frames=n, frame_hw=[h, w], chunk=COUPLED_CHUNK, batch_plan=plan, staged_frames=int(staged.frames.shape[0]),
+                  stage_ms=stage_ms, run_s=run_s, launches=launches,
+                  ms_per_frame=float(np.median(frame_ms[len(plan[0]):])),
+                  sam2_ms_per_frame=float(np.median(sam_ms[len(plan[0]):])),
+                  refine_ms_per_frame=float(np.median(refine_ms[1:])), refine_cold_frame_ms=refine_ms[1],
+                  coarse_frame_ms=refine_ms[0], frame_ms=frame_ms, sam2_ms=sam_ms, refine_ms=refine_ms,
+                  launches_per_frame=profile["coupled_video"]["launches"] / n,
+                  device_busy_ms_per_frame=profile["coupled_video"]["device_busy_ms"] / n,
+                  wall_ms_per_frame_profiled=profile["coupled_video"]["wall_ms"] / n,
+                  h2d=h2d, h2d_bytes_per_frame=h2d["bytes"] / n,
+                  masks_vs_propagate_in_video_mismatches=mask_mismatch, frames_equal_staged=frames_equal,
+                  host_path=dict(crop_max_abs_err=max(x["crop_err"] for x in host),
+                                 mask_crops_equal=all(x["cmask_equal"] for x in host),
+                                 bboxes_equal=all(x["bbox_equal"] for x in host),
+                                 mask_px=[x["mask_px"] for x in host], pose_max_abs_err=pose_err,
+                                 score_max_abs_err=score_err),
+                  inliers=run["inliers"].tolist(), threshold=run["thr"], inliers_equal_n_inliers_per_pose=inliers_equal,
+                  misses_per_frame=run["chain"].miss_counts, full_redispatches=run["chain"].n_full_redispatch,
+                  kernel_vs_plain_frames_1_2={"sam2_mask_iou": sam_ious.ravel().tolist(), "refine": refine_checks},
+                  peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, profile=profile)
+    log("coupled", **result)
+    k2 = launches["K2_by_dim"]
+    if min(launches["K1"], k2.get("64", 0), k2.get("72", 0), k2.get("256", 0), launches["K4"]) <= 0:
+        raise AssertionError(f"coupled path did not launch every kernel: {launches}")
+    if plan != [[0], list(range(1, COUPLED_CHUNK + 1)), list(range(COUPLED_CHUNK + 1, n))]:
+        raise AssertionError(f"coupled path: batch plan {plan}")
+    if mask_mismatch or not frames_equal:
+        raise AssertionError(f"propagate_batched against propagate_in_video: {mask_mismatch} mask pixels differ, "
+                             f"frames equal to the staged video: {frames_equal}")
+    if not (result["host_path"]["crop_max_abs_err"] <= COUPLED_CROP_ATOL and result["host_path"]["mask_crops_equal"]
+            and result["host_path"]["bboxes_equal"]):
+        raise AssertionError(f"coupled crops against the host path: {result['host_path']}")
+    if not (pose_err <= COUPLED_POSE_ATOL and score_err <= COUPLED_POSE_ATOL) or \
+            not len(host_chain.results) == len(run["chain"].results) == n - 1:
+        raise AssertionError(f"coupled chain against the host-fed chain: poses max abs err {pose_err}, scores "
+                             f"{score_err}")
+    if not inliers_equal:
+        raise AssertionError(f"StreamingInliers {run['inliers'].tolist()} (threshold {run['thr']}) against "
+                             f"n_inliers_per_pose {batch_inl.tolist()} ({batch_thr})")
+    if sam_ious.min() < VIDEO_IOU_MIN:
+        raise AssertionError(f"coupled SAM2 masks, kernels vs plain attention on frames 1-2: IoU {sam_ious}")
+    for t, c in zip((1, 2), refine_checks):
+        if c["render_mask_mismatches"] or not c["score_max_abs_err"] <= REFINE_SCORE_ATOL or \
+                not c["one_slot_off_max_abs_err"] > REFINE_SCORE_ATOL or \
+                min(c["launches"]["kernels"].values()) <= 0 or max(c["launches"]["plain"].values()) != 0:
+            raise AssertionError(f"coupled refine frame {t}, kernels vs plain versions: {c}")
+    return result, launches
+
+
+STRIDE = 2  # memory_temporal_stride on the stride path
+
+
+def held_memory_reference(t: int, cond: int, num_maskmem: int, r: int) -> set:
+    """The memory frames a stride-r state holds after stepping frame t
+    forward: the conditioning frame, the last frame, and the r-grid frames
+    anchor - k·r (anchor = ((t+1-2)//r)·r) that the next frame attends,
+    past the conditioning frame (the reference's selection, sam2_base.py)."""
+    anchor = ((t - 1) // r) * r
+    return {cond} | {f for f in {t} | {anchor - i * r for i in range(num_maskmem - 2)} if cond < f <= t}
+
+
+def phase_stride(dev, stride1_ms_per_frame: float) -> tuple[dict, dict]:
+    """SAM2 propagation with memory_temporal_stride = STRIDE at full width:
+    Hiera-L at 1024², bf16, the object-score bias, both objects
+    box-prompted on frame 0 of synthetic_video(), frame at a time. Gates:
+    the memory frames held after every step equal the reference selection;
+    each object's own mask, kernels vs plain attention on frames 1-9: mean
+    IoU >= VIDEO_IOU_MIN, every IoU >= VOS_IOU_FLOOR."""
+    import dataclasses
+
+    from freepose_tpu_torch.models.sam2.predictor import Sam2VideoPredictor
+    from freepose_tpu_torch.ops import attention
+    from freepose_tpu_torch.scripts.common import production_sam2_video_config
+
+    frames, boxes, _ = synthetic_video()
+    cfg = production_sam2_video_config(dev)
+    cfg = dataclasses.replace(cfg, mem=dataclasses.replace(cfg.mem, memory_temporal_stride=STRIDE))
+    predictor = Sam2VideoPredictor(cfg, device=dev)
+    held: list = []
+    track_step = predictor.model.track_step
+
+    def recording_step(state, *args, **kwargs):
+        state, out = track_step(state, *args, **kwargs)
+        frames_held = [{int(f) for f, v in zip(fr, va) if v} for fr, va in
+                       zip(state.maskmem_frame.tolist(), state.maskmem_valid.tolist())]
+        held.append((int(args[3]), frames_held))
+        return state, out
+
+    def propagate(plain: bool, record: bool):
+        state = predictor.init_state(frames)
+        for i, box in enumerate(boxes[0]):
+            state = predictor.add_new_points_or_box(state, 0, obj_id=i, box=box)
+        kernel_auto = attention.flash_attention_auto
+        if plain:
+            attention.flash_attention_auto = plain_attention_auto
+        if record:
+            predictor.model.track_step = recording_step
+        highs, ms = [], []
+        try:
+            gen = predictor.propagate_in_video(state, chunk=1)
+            while True:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                item = next(gen, None)
+                if item is None:
+                    break
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                highs.append(item[3] > 0)
+        finally:
+            attention.flash_attention_auto = kernel_auto
+            if record:
+                del predictor.model.track_step
+        return np.stack(highs), ms
+
+    torch.cuda.synchronize()
+    reset_launches()
+    high_k, frame_ms = propagate(plain=False, record=True)
+    launches = read_launches()
+    steps = list(held)
+    high_p, _ = propagate(plain=True, record=False)
+    frame_ms_again = propagate(plain=False, record=False)[1]
+    nm = cfg.mem.num_maskmem
+    held_ok = [all(h == held_memory_reference(t, 0, nm, STRIDE) for h in per_obj) for t, per_obj in steps]
+    ious = mask_ious(high_k[1:], high_p[1:])  # [frames 1-9, objects]
+    k2 = {str(d): launches["K2_by_dim"].get(str(d), 0) for d in (72, 256)}
+    result = dict(stride=STRIDE, frames=len(frames), objects=int(boxes.shape[1]),
+                  ms_per_frame=float(np.median(frame_ms[1:])),
+                  ms_per_frame_again=float(np.median(frame_ms_again[1:])), prompt_frame_ms=frame_ms[0],
+                  video_phase_stride1_ms_per_frame=stride1_ms_per_frame, frame_ms=frame_ms,
+                  held_frames=[[t, sorted(per_obj[0])] for t, per_obj in steps], held_equal_reference=held_ok,
+                  own_mask_iou_frames_1_9=ious.tolist(), own_mask_iou_mean=float(ious.mean()),
+                  own_mask_iou_min=float(ious.min()), own_mask_px=high_k.sum(axis=(2, 3)).tolist(),
+                  k2_launches_by_dim=k2, k4_launches=launches["K4"], launches=launches,
+                  peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log("stride", **result)
+    if min(k2["72"], k2["256"], launches["K4"]) <= 0:
+        raise AssertionError(f"stride path: kernel launches {launches}")
+    if len(steps) != len(frames) or not all(held_ok):
+        raise AssertionError(f"stride path: held memory frames {result['held_frames']} against the reference "
+                             f"selection: {held_ok}")
+    if ious.mean() < VIDEO_IOU_MIN or ious.min() < VOS_IOU_FLOOR:
+        raise AssertionError(f"stride path, kernels vs plain attention on frames 1-9: own-mask IoU mean "
+                             f"{ious.mean()}, min {ious.min()}")
+    return result, launches
+
+
+# The automatic mask generator at the reference's defaults (32 x 32 points,
+# 64 per batch, multimask, box NMS 0.7), Hiera-L at 1024², bf16. With random
+# weights the predicted IoUs and stability scores sit far below the
+# defaults' 0.8 and 0.95, so the thresholds are taken from the candidates of
+# a first pass: the predicted IoU halfway below the AMG_IOU_KEEP-th largest,
+# the stability halfway below the AMG_STAB_KEEP-th largest of those left.
+AMG_POINTS, AMG_BATCH, AMG_IOU_KEEP, AMG_STAB_KEEP, AMG_MAX_RECORDS = 32, 64, 600, 200, 500
+AMG_SCORE_ATOL = 0.05
+
+
+def threshold_keeping(values: np.ndarray, n_keep: int) -> float:
+    """A threshold halfway between the n_keep-th largest value and the next
+    smaller distinct one: the n_keep largest values pass (more where the
+    n_keep-th ties with the next), and none sits on it."""
+    v = np.sort(values.astype(np.float64))[::-1]
+    below = v[min(n_keep, len(v)) - 1:]
+    smaller = below[below < below[0]]
+    if not smaller.size:
+        raise AssertionError(f"no value below the {n_keep}-th largest of {len(v)}")
+    return float((below[0] + smaller[0]) / 2)
+
+
+def phase_amg(dev) -> tuple[dict, dict]:
+    """Sam2AutomaticMaskGenerator on frame 0 of synthetic_video() at full
+    width, with thresholds from a first pass's candidates; its time split
+    into the image encoder, the decode batches and the host's filters, RLE
+    and NMS."""
+    from freepose_tpu_torch.geometry.boxes import nms_xyxy
+    from freepose_tpu_torch.models.sam2.amg import batched_mask_to_box
+    from freepose_tpu_torch.models.sam2.automatic import Sam2AutomaticMaskGenerator
+    from freepose_tpu_torch.ops import attention
+    from freepose_tpu_torch.scripts.common import load_sam2_image_predictor
+
+    image = synthetic_video()[0][0]
+    h, w = image.shape[:2]
+    predictor = load_sam2_image_predictor(None, device=dev)
+    probe = Sam2AutomaticMaskGenerator(predictor, points_per_side=AMG_POINTS, points_per_batch=AMG_BATCH)
+    points = torch.as_tensor((probe.point_grids[0] * np.array([w, h])).astype(np.float32), device=dev)
+
+    def candidates(plain: bool = False):
+        """Every batch's pre-filter outputs (masks of batch 0 only)."""
+        kernel_auto = attention.flash_attention_auto
+        if plain:
+            attention.flash_attention_auto = plain_attention_auto
+        try:
+            predictor.set_image(image)
+            outs = [probe._decode(predictor._pyramid, points[s:s + AMG_BATCH], (h, w), True)
+                    for s in range(0, len(points), AMG_BATCH)]
+        finally:
+            attention.flash_attention_auto = kernel_auto
+        return (outs[0][0].cpu().numpy(), torch.cat([o[2] for o in outs]).cpu().numpy(),
+                torch.cat([o[3] for o in outs]).cpu().numpy(), torch.cat([o[4] for o in outs]).cpu().numpy())
+
+    masks0, iou, stab, cand_boxes = candidates()
+    iou_thr = threshold_keeping(iou.ravel(), AMG_IOU_KEEP)
+    stab_thr = threshold_keeping(stab[iou > iou_thr], AMG_STAB_KEEP)
+    masks0_p, iou_p, stab_p, _ = candidates(plain=True)
+    passing = (iou > iou_thr) & (stab >= stab_thr)
+    ious0 = mask_ious(masks0, masks0_p)
+
+    gen = Sam2AutomaticMaskGenerator(predictor, points_per_side=AMG_POINTS, points_per_batch=AMG_BATCH,
+                                     pred_iou_thresh=iou_thr, stability_score_thresh=stab_thr)
+    split = {"encoder": [], "decode": [], "batches": 0}
+    set_image, decode, process_batch = predictor.set_image, gen._decode, gen._process_batch
+
+    def timed(key, fn):
+        def wrapped(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            split[key].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return wrapped
+
+    def counted(*args, **kwargs):
+        split["batches"] += 1
+        return process_batch(*args, **kwargs)
+
+    torch.cuda.synchronize()
+    reset_launches()
+    predictor.set_image, gen._decode, gen._process_batch = timed("encoder", set_image), timed("decode", decode), counted
+    try:
+        t0 = time.perf_counter()
+        records = gen.generate(image)
+        split_s = time.perf_counter() - t0
+    finally:
+        predictor.set_image, gen._decode, gen._process_batch = set_image, decode, process_batch
+    launches = read_launches()
+    t0 = time.perf_counter()
+    gen.generate(image)
+    image_s = time.perf_counter() - t0
+    profile = profile_device_time(lambda: gen.generate(image), "amg_image", top=12)
+
+    masks = np.stack([r["segmentation"] for r in records]) if records else np.zeros((0, h, w), bool)
+    area_ok = all(r["area"] == int(m.sum()) for r, m in zip(records, masks))
+    boxes = batched_mask_to_box(torch.as_tensor(masks)).numpy().astype(np.float32)
+    box_ok = all(r["bbox"] == [float(b[0]), float(b[1]), float(b[2] - b[0]), float(b[3] - b[1])]
+                 for r, b in zip(records, boxes))
+    xyxy = np.array([[r["bbox"][0], r["bbox"][1], r["bbox"][0] + r["bbox"][2], r["bbox"][1] + r["bbox"][3]]
+                     for r in records], np.float32).reshape(-1, 4)
+    nms_kept_all = len(nms_xyxy(xyxy, np.array([r["predicted_iou"] for r in records]), gen.box_nms_thresh)) == \
+        len(records)
+    encoder_ms, decode_ms = split["encoder"][0], float(np.sum(split["decode"]))
+    k2 = launches["K2_by_dim"].get("72", 0)
+    result = dict(image_hw=[h, w], points=AMG_POINTS ** 2, points_per_batch=AMG_BATCH, batches=split["batches"],
+                  candidates=int(iou.size), pred_iou_thresh=iou_thr, stability_score_thresh=stab_thr,
+                  candidates_passing_thresholds=int(passing.sum()),
+                  distinct_boxes_passing=int(len(np.unique(cand_boxes[passing], axis=0))),
+                  candidate_iou_range=[float(iou.min()), float(iou.max())],
+                  candidate_stability_range=[float(stab.min()), float(stab.max())], records=len(records),
+                  s_per_image=image_s, split_run_s=split_s, encoder_ms=encoder_ms, decode_ms=decode_ms,
+                  decode_ms_per_batch=split["decode"], host_ms=split_s * 1e3 - encoder_ms - decode_ms,
+                  kernel_vs_plain_batch0={"mask_iou_mean": float(ious0.mean()), "mask_iou_min": float(ious0.min()),
+                                          "iou_pred_max_abs_err": float(np.abs(iou - iou_p)[:AMG_BATCH].max()),
+                                          "stability_max_abs_err": float(np.abs(stab - stab_p)[:AMG_BATCH].max())},
+                  areas_equal_mask_sums=area_ok, boxes_equal_mask_boxes=box_ok,
+                  no_pair_above_nms=nms_kept_all, k2_d72_launches=k2, launches=launches,
+                  peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, profile=profile)
+    log("amg", **result)
+    if k2 <= 0:
+        raise AssertionError(f"amg path: kernel launches {launches}")
+    if split["batches"] != AMG_POINTS ** 2 // AMG_BATCH or not 1 <= len(records) <= AMG_MAX_RECORDS:
+        raise AssertionError(f"amg path: {split['batches']} batches, {len(records)} records")
+    kv = result["kernel_vs_plain_batch0"]
+    if kv["mask_iou_mean"] < VIDEO_IOU_MIN or kv["iou_pred_max_abs_err"] > AMG_SCORE_ATOL or \
+            kv["stability_max_abs_err"] > AMG_SCORE_ATOL:
+        raise AssertionError(f"amg batch 0, kernels vs plain attention: {kv}")
+    if not (area_ok and box_ok and nms_kept_all):
+        raise AssertionError(f"amg records: RLE areas {area_ok}, boxes {box_ok}, NMS {nms_kept_all}")
+    return result, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -3233,7 +3786,7 @@ def main() -> int:
     _, static = phase_main(dev, mesh)
     torch.cuda.empty_cache()
     try:
-        _, video = phase_video(dev)
+        video_result, video = phase_video(dev)
         torch.cuda.empty_cache()
         _, scale = phase_scale(dev)
         torch.cuda.empty_cache()
@@ -3248,11 +3801,18 @@ def main() -> int:
         _, vos = phase_vos(dev)
         torch.cuda.empty_cache()
         _, texture = phase_texture(dev)
+        torch.cuda.empty_cache()
+        _, coupled = phase_coupled(dev, mesh)
+        torch.cuda.empty_cache()
+        _, stride = phase_stride(dev, video_result["sam2_ms_per_frame"])
+        torch.cuda.empty_cache()
+        _, amg = phase_amg(dev)
     finally:
         shutil.rmtree(WORK_DIR, ignore_errors=True)
     # Launches on each main path's run (`launches_by_path`) and their sum.
     paths = {"static": static, "video": video, "scale": scale, "refine": refine, "smooth": smooth,
-             "proposals": proposals, "eval": evaluation, "vos": vos, "texture": texture}
+             "proposals": proposals, "eval": evaluation, "vos": vos, "texture": texture, "coupled": coupled,
+             "stride": stride, "amg": amg}
     counts = {k1["name"]: lambda p: p["K1"], streams["K3"]["name"]: lambda p: p["K3"],
               streams["K4"]["name"]: lambda p: p["K4"], k5["name"]: lambda p: p["K5"],
               k5_combine["name"]: lambda p: p["K5_combine"],

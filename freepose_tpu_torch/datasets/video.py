@@ -1,21 +1,43 @@
 """Video frame loading: a directory of JPEG/PNG frames -> [T, H, W, 3] uint8.
 
 A copy of freepose_tpu.datasets.video's eager loader and its
-AsyncVideoFrameLoader (numpy, PIL and a thread), and `stage_frames`, the
-port's counterpart of the JAX module's StagedVideo: the whole video as one
-uint8 tensor on the device (no padding to a frame bucket, since no compiled
-program is shared across lengths). Frames stay uint8 RGB; resizing and
+AsyncVideoFrameLoader (numpy, PIL and a thread), and its StagedVideo: the
+whole video in the card's memory after one upload, at a frame bucket
+(`stage_frames_hbm`), which the coupled video step (SAM2 propagate_batched)
+and StreamingInliers slice on the device. `stage_frames` is the unpadded
+tensor of the same upload. Frames stay uint8 RGB; resizing and
 normalisation happen on the device in the consumers
 (models/sam2/predictor.py:prepare_image).
 """
 from __future__ import annotations
 
+import dataclasses
 import threading
 from pathlib import Path
 
 import numpy as np
 
 _EXTS = (".jpg", ".jpeg", ".png")
+
+FRAME_BUCKET = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class StagedVideo:
+    """A whole video on the device at a frame bucket: `frames` [B, H, W, 3]
+    uint8 with B a multiple of the bucket (rows >= n repeat the last real
+    frame, as the chunked consumers pad a tail); `n` the true frame count.
+    Consumers slice chunks on the device, so a chunk costs no host upload."""
+
+    frames: "torch.Tensor"
+    n: int
+
+    def __len__(self) -> int:
+        return self.n
+
+    def prefix(self, n: int) -> "StagedVideo":
+        """A shorter logical video on the same device buffer."""
+        return dataclasses.replace(self, n=min(n, self.n))
 
 
 def list_frame_paths(video_dir: str | Path) -> list[Path]:
@@ -39,12 +61,29 @@ def load_frame_dir(video_dir: str | Path) -> np.ndarray:
     return np.stack([_decode(p) for p in paths])
 
 
-def stage_frames(frames: np.ndarray, device) -> "torch.Tensor":
-    """[T, H, W, 3] uint8 -> the same uint8 tensor on `device`, uploaded once;
-    consumers slice chunks and gather interval frames there."""
+def stage_frames_hbm(frames: np.ndarray, bucket: int = FRAME_BUCKET, device=None) -> StagedVideo:
+    """One host-to-device upload of the whole [T, H, W, 3] uint8 video on
+    `device` (default cuda), padded to a multiple of `bucket` frames with
+    repeats of the last frame."""
     import torch
 
-    return torch.as_tensor(np.asarray(frames, np.uint8)).to(device)
+    from freepose_tpu_torch.device import resolve_device
+
+    frames = np.asarray(frames, np.uint8)
+    n = len(frames)
+    if n == 0:
+        raise ValueError("stage_frames_hbm: empty frame array")
+    b = -(-n // bucket) * bucket
+    if b > n:
+        frames = np.concatenate([frames, np.repeat(frames[-1:], b - n, axis=0)])
+    return StagedVideo(torch.as_tensor(frames).to(resolve_device(device)), n)
+
+
+def stage_frames(frames: np.ndarray, device) -> "torch.Tensor":
+    """[T, H, W, 3] uint8 -> the same uint8 tensor on `device`, uploaded once
+    (`stage_frames_hbm` with no padding); consumers slice chunks and gather
+    interval frames there."""
+    return stage_frames_hbm(frames, bucket=1, device=device).frames
 
 
 class AsyncVideoFrameLoader:

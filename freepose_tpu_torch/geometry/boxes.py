@@ -1,7 +1,8 @@
-"""Bounding-box utilities used by the coarse-pose path (mask -> bbox,
-extend-and-clip), counterparts of freepose_tpu.geometry.boxes."""
+"""Bounding-box utilities (mask -> bbox, extend-and-clip, IoU, greedy NMS),
+counterparts of freepose_tpu.geometry.boxes."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -41,3 +42,31 @@ def bbox_iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     inter = torch.where((w > 0) & (h > 0), w * h, 0.0)
     union = a[..., 2] * a[..., 3] + b[..., 2] * b[..., 3] - inter
     return torch.where(union > 0, inter / union, 0.0)
+
+
+def nms_xyxy(boxes: np.ndarray, scores: np.ndarray, iou_threshold: float) -> np.ndarray:
+    """Greedy non-maximum suppression over xyxy boxes -> kept indices in
+    descending-score order, equal scores in index order (a stable sort);
+    a box is dropped when its IoU with a kept box exceeds the threshold
+    (torchvision.ops.nms semantics). Host numpy, as in the JAX package: the
+    automatic mask generator's candidates are few and data-dependent."""
+    boxes = np.asarray(boxes, np.float32).reshape(-1, 4)
+    scores = np.asarray(scores, np.float32).reshape(-1)
+    if boxes.shape[0] == 0:
+        return np.zeros((0,), np.int64)
+    x1, y1, x2, y2 = boxes.T
+    areas = np.maximum(x2 - x1, 0) * np.maximum(y2 - y1, 0)
+    iw = np.maximum(np.minimum(x2[:, None], x2[None]) - np.maximum(x1[:, None], x1[None]), 0)
+    ih = np.maximum(np.minimum(y2[:, None], y2[None]) - np.maximum(y1[:, None], y1[None]), 0)
+    inter = iw * ih
+    union = areas[:, None] + areas[None] - inter
+    iou = np.where(union > 0, inter / np.maximum(union, 1e-12), 0.0)
+    keep = []
+    alive = np.ones(len(boxes), bool)
+    for i in np.argsort(-scores, kind="stable"):
+        if not alive[i]:
+            continue
+        keep.append(i)
+        alive &= iou[i] <= iou_threshold
+        alive[i] = False
+    return np.asarray(keep, np.int64)

@@ -47,14 +47,13 @@ class MemoryConfig:
     use_flash: bool = False  # attention through flash_attention_auto (K2 / K4 on the card)
 
 
-def rope_2d_cos_sin(head_dim: int, grid: int, theta: float = 10000.0, device=None):
+def rope_2d_cos_sin(head_dim: int, grid: int, theta: float = 10000.0):
     """Axial 2D RoPE tables [grid*grid, head_dim] (cos, sin), fp32."""
     freqs = 1.0 / (theta ** (np.arange(0, head_dim, 4)[: head_dim // 4] / head_dim))
     idx = np.arange(grid * grid)
     f = np.concatenate([np.outer(idx % grid, freqs), np.outer(idx // grid, freqs)], axis=-1)
     f = np.repeat(f, 2, axis=-1)  # interleaved pairs
-    return (torch.as_tensor(np.cos(f), dtype=torch.float32, device=device),
-            torch.as_tensor(np.sin(f), dtype=torch.float32, device=device))
+    return torch.as_tensor(np.cos(f), dtype=torch.float32), torch.as_tensor(np.sin(f), dtype=torch.float32)
 
 
 def _rotate_pairwise(x: torch.Tensor) -> torch.Tensor:
@@ -144,17 +143,22 @@ class MemoryAttention(nn.Module):
         for i in range(cfg.num_layers):
             self.add_module(f"layer{i}", MemoryAttentionLayer(cfg))
         self.ln_final = LayerNorm(cfg.hidden_size, dtype=cfg.dtype)
+        # The RoPE tables are constants: built once and moved with the
+        # module, not uploaded on every call (4 MB each at hidden 256).
+        cos, sin = rope_2d_cos_sin(cfg.hidden_size // (cfg.downsample_rate * cfg.num_heads), cfg.rope_feat_size,
+                                   cfg.rope_theta)
+        self.register_buffer("rope_cos", cos, persistent=False)
+        self.register_buffer("rope_sin", sin, persistent=False)
 
     def forward(self, curr_feats, curr_pos, memory, memory_pos, num_ptr_tokens: int, kv_mask):
         """curr_feats / curr_pos [B, HW, hidden]; memory / memory_pos
         [B, M, mem_dim] (spatial memories, then pointer tokens); kv_mask
         [B, M] bool validity."""
         c = self.cfg
-        cos, sin = rope_2d_cos_sin(c.hidden_size // (c.downsample_rate * c.num_heads), c.rope_feat_size,
-                                   c.rope_theta, device=curr_feats.device)
         out = curr_feats + 0.1 * curr_pos
         for i in range(c.num_layers):
-            out = getattr(self, f"layer{i}")(out, memory, memory_pos, cos, sin, num_ptr_tokens, kv_mask)
+            out = getattr(self, f"layer{i}")(out, memory, memory_pos, self.rope_cos, self.rope_sin, num_ptr_tokens,
+                                             kv_mask)
         return self.ln_final(out)
 
 

@@ -8,10 +8,15 @@ pyramid; all boxes of an image decode as one batched prompt set. The JAX
 predictor bit-packs binary masks on the device to cut the host transfer;
 here bool masks come back directly (the same masks). For video, objects are
 grouped by (prompt frame, prompt kind); each group's state is stepped once
-per frame with all its objects batched. The JAX predictor scans 8-frame
-chunks in one program and prefetches uploads to pipeline TPU dispatch; on
-CUDA frames run one by one, and `chunk` is accepted and changes nothing in
-the output.
+per frame with all its objects batched. Propagation follows the JAX batch
+plan (`batch_plan`): a prompt frame alone, then runs of up to `chunk`
+prompt-free frames. A batch's frames reach the card in one upload, or are
+sliced from a video staged there (datasets/video.py:StagedVideo), and its
+masks come back in one copy; the frames of a batch still run one by one, so
+every frame's numbers equal frame-at-a-time propagation.
+`propagate_batched` keeps the batch's binarised masks and frames on the
+device for the coupled video step (pipeline/proposals.py:
+proposals_from_masks_video).
 """
 from __future__ import annotations
 
@@ -77,10 +82,13 @@ class Sam2ImagePredictor:
             params = random_sam2_image_params(config, seed=seed)
         model = Sam2ImageModel(config)
         missing, unexpected = model.load_state_dict(state_dict_from_jax(params), strict=False)
-        # A tree from the JAX model's own init lacks the mask-prompt encoder,
-        # which no image prompt here reaches.
+        # The mask-prompt encoder comes along whenever the tree has it (a
+        # converted checkpoint always does); a tree from the JAX model's own
+        # init without a mask input lacks it, and only mask prompts (the
+        # automatic generator's m2m) reach it.
         if unexpected or any(not k.startswith("prompt_encoder.mask_embed.") for k in missing):
             raise ValueError(f"SAM2 image parameters do not fit: missing {missing}, unexpected {unexpected}")
+        self.has_mask_prompt_encoder = not missing
         self.model = model.to(self.device).eval()
         self._pyramid = None
         self._orig_hw = None
@@ -155,17 +163,39 @@ class Sam2VideoPredictor:
         self.model = model.to(self.device).eval()
 
     def init_state(self, frames):
-        """frames: [T, H, W, 3] uint8 or float array (host memory)."""
-        t, h, w = frames.shape[0], frames.shape[1], frames.shape[2]
+        """frames: [T, H, W, 3] uint8 or float on the host (each batch is
+        uploaded once), or a StagedVideo (datasets/video.py) or a tensor on
+        the device, sliced there with no upload."""
+        from freepose_tpu_torch.datasets.video import StagedVideo
+
+        t = frames.n if isinstance(frames, StagedVideo) else frames.shape[0]
+        if isinstance(frames, StagedVideo):
+            frames = frames.frames
+        h, w = frames.shape[1], frames.shape[2]
         return {"frames": frames, "orig_hw": (h, w), "num_frames": t, "n_objects": 0, "obj_ids": [],
                 "prompts": {}, "pyramid_cache": {}}
 
+    def _frame_batch(self, state, ts: list[int]) -> torch.Tensor:
+        """The frames of a batch of consecutive indices (ascending or
+        descending) as [K, H, W, 3] on the device: a slice of a device
+        video, or one upload of the host frames."""
+        src = state["frames"]
+        lo, hi = min(ts), max(ts) + 1
+        if torch.is_tensor(src):
+            batch = src[lo:hi].to(self.device)
+        else:  # a host array or a lazy frame loader
+            batch = torch.as_tensor(np.stack([np.asarray(src[t]) for t in range(lo, hi)])).to(self.device)
+        return batch if ts[0] == lo else batch.flip(0)
+
     @torch.inference_mode()
-    def _frame_pyramid(self, state, frame_idx: int):
+    def _frame_pyramid(self, state, frame_idx: int, frame: torch.Tensor | None = None):
+        """The frame's pyramid, from a one-frame cache (as the reference
+        keeps); `frame` is the frame on the device, else it is uploaded."""
         cache = state["pyramid_cache"]
         if frame_idx not in cache:
-            cache.clear()  # a one-frame cache, as the reference keeps
-            frame = torch.as_tensor(np.asarray(state["frames"][frame_idx]), device=self.device)
+            cache.clear()
+            if frame is None:
+                frame = self._frame_batch(state, [frame_idx])[0]
             cache[frame_idx] = self.model.embed_frame(prepare_image(frame, self.config.image_size))
         return cache[frame_idx]
 
@@ -205,17 +235,31 @@ class Sam2VideoPredictor:
         self._register(state, obj_id, (frame_idx, None, None, mask if mask.dtype == bool else mask > 0))
         return state
 
+    def propagate_batched(self, state, start_frame_idx: int = 0, max_frames: int | None = None,
+                          reverse: bool = False, non_overlap_masks: bool = False, chunk: int = 8):
+        """Propagation that stays on the device: yields (ts, lows [K, N, g4,
+        g4] bool, highs [K, N, H, W] bool, frames [K, H, W, 3]) per batch,
+        the masks binarised on the card and never fetched, with the batch's
+        frames as they sit on the device (for proposals_from_masks_video)."""
+        return self.propagate_in_video(state, start_frame_idx, max_frames, reverse, non_overlap_masks,
+                                       binarize=True, chunk=chunk, device_batches=True)
+
     @torch.inference_mode()
     def propagate_in_video(self, state, start_frame_idx: int = 0, max_frames: int | None = None,
                            reverse: bool = False, non_overlap_masks: bool = False, binarize: bool = False,
-                           chunk: int = 8):
+                           chunk: int = 8, device_batches: bool = False):
         """Generator over frames -> (frame_idx, obj_ids, low-res masks
         [N, g4, g4], high-res masks [N, H, W] at the original resolution),
         as numpy arrays; bool masks (> 0) when binarize. reverse=True runs
-        from the earliest prompt frame towards frame 0."""
+        from the earliest prompt frame towards frame 0. Frames go in the
+        batches of `batch_plan` (chunk=1: one frame each), each batch's
+        masks fetched in one copy; device_batches yields whole batches on the
+        device instead (`propagate_batched`) and needs binarize."""
         n = state["n_objects"]
         if n == 0:
             raise ValueError("no objects added")
+        if device_batches and not binarize:
+            raise ValueError("device_batches yields bool masks; set binarize=True")
         cfg = self.config
         dev = self.device
         num_frames = state["num_frames"]
@@ -254,8 +298,8 @@ class Sam2VideoPredictor:
         else:
             order = range(prompt_frame, end)
 
-        for t in order:
-            pyramid, pos = self._frame_pyramid(state, t)
+        def run_frame(t, frame):
+            pyramid, pos = self._frame_pyramid(state, t, frame)
             outs = []
             for key in sorted(groups):
                 if key[0] == t and key not in live:
@@ -274,5 +318,42 @@ class Sam2VideoPredictor:
                 ii = torch.as_tensor(idxs, device=dev)
                 low_raw[ii] = out["pred_masks"]
                 high_raw[ii] = out["high_res_masks"]
-            low, high = postprocess_video_masks(low_raw, high_raw, state["orig_hw"], non_overlap_masks, binarize)
-            yield t, list(state["obj_ids"]), low.cpu().numpy(), high.cpu().numpy()
+            return postprocess_video_masks(low_raw, high_raw, state["orig_hw"], non_overlap_masks, binarize)
+
+        plan = batch_plan(list(order), {k[0] for k in groups}, {k[0] for k in live}, chunk)
+        for ts in plan:
+            frames_b = self._frame_batch(state, ts)
+            outs = [run_frame(t, frames_b[z]) for z, t in enumerate(ts)]
+            lows, highs = torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
+            if device_batches:
+                yield ts, lows, highs, frames_b
+                continue
+            lows, highs = lows.cpu().numpy(), highs.cpu().numpy()
+            for z, t in enumerate(ts):
+                yield t, list(state["obj_ids"]), lows[z], highs[z]
+
+
+def batch_plan(order: list[int], prompt_frames: set[int], live_frames: set[int], chunk: int) -> list[list[int]]:
+    """The JAX predictor's batches over the sweep `order`: a frame whose
+    group is still to be initialised alone (and every frame while no group
+    is live, or with chunk 1), otherwise runs of up to `chunk` frames that
+    stop before the next such prompt frame."""
+    live_frames = set(live_frames)
+    chunk = max(1, int(chunk))
+    plan: list[list[int]] = []
+    i = 0
+    while i < len(order):
+        t = order[i]
+        if (t in prompt_frames and t not in live_frames) or chunk == 1 or not live_frames:
+            plan.append([t])
+            if t in prompt_frames:
+                live_frames.add(t)
+            i += 1
+        else:
+            j = i
+            while j < len(order) and j - i < chunk and not (order[j] in prompt_frames and
+                                                             order[j] not in live_frames):
+                j += 1
+            plan.append(order[i:j])
+            i = j
+    return plan

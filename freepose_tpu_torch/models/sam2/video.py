@@ -3,7 +3,9 @@
 Counterpart of freepose_tpu.models.sam2.video. Per object the state holds
 
   * 7 spatial mask-memory slots (slot 0 = the conditioning frame, slots
-    1..6 a ring of the most recent tracked frames), each [HW_mem, 64];
+    1..6 a ring of the most recent tracked frames), each [HW_mem, 64]; with
+    a memory stride r > 1 slot 1 holds the last frame and slots 2..6 a ring
+    of the newest frames on the r-grid;
   * 16 object-pointer slots (slot 0 = the conditioning pointer, 1..15 a
     ring);
   * validity masks and frame indices for both.
@@ -53,8 +55,9 @@ class ObjectState:
     ptrs: torch.Tensor  # [O, max_ptrs, hidden] fp32
     ptr_frame: torch.Tensor  # [O, max_ptrs] int64
     ptr_valid: torch.Tensor  # [O, max_ptrs] bool
-    ring_pos: int = 1  # next non-cond mask-memory slot (1..num_maskmem-1)
+    ring_pos: int = 1  # next non-cond mask-memory slot (1..num_maskmem-1; 2.. when the stride is > 1)
     ptr_ring_pos: int = 1  # next non-cond pointer slot (1..max_ptrs-1)
+    last_frame: int | None = None  # stride > 1: the frame slot 1 holds (None while it is empty)
 
     @property
     def n_objects(self) -> int:
@@ -63,9 +66,6 @@ class ObjectState:
 
 def init_object_state(cfg: Sam2VideoConfig, n_objects: int = 1, device=None) -> ObjectState:
     m = cfg.mem
-    if m.memory_temporal_stride != 1:
-        raise NotImplementedError("memory_temporal_stride > 1 is not ported (the production stride is 1; "
-                                  "ROADMAP queue 1, item 3, slice C-rest)")
     hw = cfg.mem_grid * cfg.mem_grid
     o = n_objects
     return ObjectState(
@@ -75,6 +75,7 @@ def init_object_state(cfg: Sam2VideoConfig, n_objects: int = 1, device=None) -> 
         ptrs=torch.zeros((o, m.max_obj_ptrs, m.hidden_size), device=device),
         ptr_frame=torch.full((o, m.max_obj_ptrs), -1, dtype=torch.int64, device=device),
         ptr_valid=torch.zeros((o, m.max_obj_ptrs), dtype=torch.bool, device=device),
+        ring_pos=1 if m.memory_temporal_stride == 1 else 2,
     )
 
 
@@ -112,12 +113,25 @@ class Sam2VideoModel(nn.Module):
         hw = c.mem_grid * c.mem_grid
         sign = -1 if reverse else 1
 
-        offsets = sign * (frame_idx - state.maskmem_frame)  # [O, S]
         is_cond = torch.arange(m.num_maskmem, device=dev) == 0
-        valid = state.maskmem_valid & (is_cond | ((offsets >= 1) & (offsets <= m.num_maskmem - 1)))
+        r = m.memory_temporal_stride
+        if r == 1:
+            t_rel = sign * (frame_idx - state.maskmem_frame)  # [O, S]
+            valid = state.maskmem_valid & (is_cond | ((t_rel >= 1) & (t_rel <= m.num_maskmem - 1)))
+        else:
+            # The stride-r selection in virtual time v = sign * frame (one
+            # formula forward and reverse): the last frame at t_rel 1, then
+            # the frames anchor - k·r at t_rel 2 + k, anchor = ((v-2)//r)·r.
+            v = sign * frame_idx
+            vj = sign * state.maskmem_frame
+            anchor = ((v - 2) // r) * r
+            is_last = vj == v - 1
+            on_grid = (vj % r == 0) & (vj <= anchor)
+            t_rel = torch.where(is_last, 1, 2 + torch.div(anchor - vj, r, rounding_mode="floor"))
+            valid = state.maskmem_valid & (is_cond | is_last | (on_grid & (t_rel <= m.num_maskmem - 1)))
         # The conditioning slot takes temporal-position row -1, the others
-        # row offset - 1.
-        tpos_idx = torch.where(is_cond, m.num_maskmem - 1, torch.clamp(offsets - 1, 0, m.num_maskmem - 1))
+        # row t_rel - 1.
+        tpos_idx = torch.where(is_cond, m.num_maskmem - 1, torch.clamp(t_rel - 1, 0, m.num_maskmem - 1))
         spatial_pos = sine_position_encoding((c.mem_grid, c.mem_grid), m.mem_dim, device=dev).reshape(hw, m.mem_dim)
         tpos = self.memory_temporal_pos[tpos_idx, 0, 0]  # [O, S, mem_dim]
         mem_tokens = state.maskmem.reshape(o, m.num_maskmem * hw, m.mem_dim)
@@ -233,11 +247,26 @@ class Sam2VideoModel(nn.Module):
                                                                         multimask)
 
         mem_tokens = self.encode_memory(raw, high_res, obj_logits, points is not None or mask_inputs is not None)
+        r = m.memory_temporal_stride
         if is_init:
             slot, pslot = 0, 0
-        else:
+        elif r == 1:
             slot, pslot = state.ring_pos, state.ptr_ring_pos
             state.ring_pos = 1 if slot + 1 >= m.num_maskmem else slot + 1
+            state.ptr_ring_pos = 1 if pslot + 1 >= m.max_obj_ptrs else pslot + 1
+        else:
+            # Stride r: slot 1 always takes the newest frame; the frame it
+            # evicts enters the ring of slots 2..num_maskmem-1 only if it lies
+            # on the r-grid. Pointers do not depend on the stride.
+            old = state.last_frame
+            if old is not None and old % r == 0:
+                ring = state.ring_pos
+                state.maskmem[:, ring] = state.maskmem[:, 1]
+                state.maskmem_frame[:, ring] = state.maskmem_frame[:, 1]
+                state.maskmem_valid[:, ring] = state.maskmem_valid[:, 1]
+                state.ring_pos = 2 if ring + 1 >= m.num_maskmem else ring + 1
+            slot, pslot = 1, state.ptr_ring_pos
+            state.last_frame = frame_idx
             state.ptr_ring_pos = 1 if pslot + 1 >= m.max_obj_ptrs else pslot + 1
         state.maskmem[:, slot] = mem_tokens
         state.maskmem_frame[:, slot] = frame_idx

@@ -36,15 +36,16 @@ _lock = threading.Lock()
 
 
 def library_path(source: Path = SOURCE) -> Path:
-    """The built library of `source`, named by a hash of it and the flags."""
+    """The built library of `source`, named by its stem and a hash of it and
+    the flags."""
     digest = hashlib.sha256(source.read_bytes() + " ".join(CXX_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"libraster_native-{digest}.so"
+    return BUILD_DIR / f"lib{source.stem}-{digest}.so"
 
 
 def build(source: Path = SOURCE) -> Path:
     """Compile `source` with g++ unless it is built already; returns the
     library's path. Raises RuntimeError with the compiler's output if the
-    build fails."""
+    build fails. ops/cc_native.py builds its source here too."""
     out = library_path(source)
     if out.exists():
         return out

@@ -1,8 +1,9 @@
 """Proposal container: detection crops + masks, device-resident.
 
 Counterpart of freepose_tpu.pipeline.proposals (`Proposals`,
-`extract_proposals`, `retrieve_topk`): the N-proposal crop is one batched
-gather; RLE / BOP dict export happens at the host boundary only.
+`extract_proposals`, `proposals_from_masks_video`, `retrieve_topk`): the
+N-proposal crop is one batched gather; RLE / BOP dict export happens at the
+host boundary only.
 """
 from __future__ import annotations
 
@@ -78,6 +79,34 @@ def extract_proposals(
         frame_id=frame_id,
     )
 
+
+def proposals_from_masks_video(
+    frames: torch.Tensor,  # [K, H, W, 3] uint8 or float frames on the device
+    masks: torch.Tensor,  # [K, H, W] bool (a propagate_batched batch's masks of one object)
+    target_size: int = 420,
+    bbox_extend: float = 0.2,
+):
+    """The coupled video step's mask -> bbox -> crop on the device for a
+    batch of frames: each frame's bbox (mask_to_bbox), its masked RGB and
+    mask cropped by crop_resize_pad, so SAM2's masks reach the refine chain
+    with no fetch and no upload. An empty mask falls back to the centred
+    half-frame box. Per frame equal to extract_proposals on that mask and
+    bbox. Returns (crops [K, 3, T, T] f32, mask crops [K, T, T] bool,
+    bboxes [K, 4] f32)."""
+    from freepose_tpu_torch.geometry.boxes import mask_to_bbox
+
+    kf, h, w = masks.shape
+    masks = masks.to(device=frames.device, dtype=torch.bool)
+    empty = ~masks.reshape(kf, -1).any(dim=1)
+    fallback = torch.tensor([w * 0.25, h * 0.25, w * 0.75, h * 0.75], dtype=torch.float32, device=frames.device)
+    bboxes = torch.where(empty[:, None], fallback, mask_to_bbox(masks).to(torch.float32))
+    img = frames.to(torch.float32)
+    if frames.dtype == torch.uint8:
+        img = img / 255.0
+    rgb = torch.where(masks[:, None], img.permute(0, 3, 1, 2), torch.zeros((), device=frames.device))
+    crops = crop_resize_pad(rgb, bboxes, target_size, extend=bbox_extend)
+    mask_crops = crop_resize_pad(masks[:, None].to(torch.float32), bboxes, target_size, extend=bbox_extend)[:, 0] > 0.5
+    return crops, mask_crops, bboxes
 
 
 def retrieve_topk(

@@ -16,7 +16,8 @@ Counterpart of freepose_tpu.pipeline.tracking_refiner:
 
 On the card the renders run through kernel K1 (ops/rasterizer.py) and
 DINOv2-B through K2; EPnP runs on the host CPU in float32, as in the JAX
-package.
+package. `StreamingInliers` scores a staged video's confidence chunks as
+the refine loop finalises their poses.
 """
 from __future__ import annotations
 
@@ -299,3 +300,74 @@ class TrackingRefiner:
             chosen.append(idx)
             arr[max(idx - span, 0): idx + span + 1] = -1
         return np.sort(np.asarray(chosen))
+
+
+class StreamingInliers:
+    """n_inliers_per_pose fed pose by pose over a video staged on the device
+    (datasets/video.py:StagedVideo). Each frame's confidence depends only on
+    that frame's pose, so a chunk of `chunk` frames is dispatched as soon as
+    all its poses are known: the confidence work runs behind the refine loop
+    that produces the poses instead of after it. `add(t, pose)` takes poses
+    in any order; `finalize()` returns (inliers [n], threshold), equal to
+    n_inliers_per_pose on the same poses. Each chunk's result is copied to
+    pinned host memory behind its own work (fine_cache.HostCopy), so no
+    chunk waits for the card; `finalize` waits once."""
+
+    def __init__(self, refiner: TrackingRefiner, mesh: TriMesh, staged, k, chunk: int = 8):
+        from freepose_tpu_torch.datasets.video import StagedVideo
+
+        if not isinstance(staged, StagedVideo):
+            raise TypeError("StreamingInliers requires a StagedVideo (datasets/video.py:stage_frames_hbm)")
+        if staged.frames.shape[0] % chunk:
+            raise ValueError("staged bucket must be a multiple of chunk")
+        self.refiner = refiner
+        self.mesh = mesh
+        self.staged = staged
+        self.k = refiner._t(k)
+        self.chunk = chunk
+        self.n = staged.n
+        self._poses: dict[int, np.ndarray] = {}
+        self._outs: list = []  # per chunk, a HostCopy of [chunk, 37, 37]
+        self._next = 0  # first frame of the next chunk to dispatch
+
+    def _dispatch(self, start: int, poses: np.ndarray):
+        from freepose_tpu_torch.pipeline.fine_cache import HostCopy
+
+        frames = self.staged.frames[start:start + self.chunk]
+        return HostCopy(self.refiner.pose_confidence_batch(self.mesh, frames, self.k, poses, fetch=False,
+                                                           channels_last=True))
+
+    def warmup(self) -> None:
+        """One chunk on identity poses before any timed region (the result
+        is dropped)."""
+        if self._next == 0 and not self._outs:
+            self._dispatch(0, np.tile(np.eye(4, dtype=np.float32), (self.chunk, 1, 1))).numpy()
+
+    def add(self, t: int, pose) -> None:
+        self._poses[t] = np.asarray(pose, np.float32)
+        self._flush()
+
+    def _flush(self) -> None:
+        while self._next < self.n:
+            i = self._next
+            hi = min(i + self.chunk, self.n)
+            if any(j not in self._poses for j in range(i, hi)):
+                return
+            # A tail chunk repeats its last pose (those rows are dropped);
+            # the staged buffer already repeats the last frame.
+            poses = np.stack([self._poses[min(j, hi - 1)] for j in range(i, i + self.chunk)])
+            self._outs.append(self._dispatch(i, poses))
+            self._next = hi
+
+    def finalize(self):
+        """-> (inliers [n] int, threshold float). Every pose must be fed."""
+        if self._next < self.n:
+            missing = [j for j in range(self._next, self.n) if j not in self._poses]
+            raise ValueError(f"StreamingInliers: poses missing for frames {missing[:5]}")
+        confs = np.concatenate([o.numpy()[: self.n - i] for i, o in zip(range(0, self.n, self.chunk), self._outs)])
+        # Padded with -1e9 to the staged bucket, as the JAX function pads;
+        # the threshold reads positive confidences only.
+        padded = np.full((self.staged.frames.shape[0], *confs.shape[1:]), -1e9, np.float32)
+        padded[: self.n] = confs
+        thr = float(quantile_threshold(torch.as_tensor(padded)))
+        return (confs > thr).sum(axis=(1, 2)), thr

@@ -857,3 +857,61 @@ def test_grounding_dino_bf16_forward_is_finite_and_repeats(cuda):
     b2, s2 = det.detect(image, box_threshold=0.0)
     np.testing.assert_array_equal(b1, b2)
     np.testing.assert_array_equal(s1, s2)
+
+
+# The coupled video step on the card: the fused mask -> bbox -> crop, and the
+# streamed confidence chunks against n_inliers_per_pose.
+
+
+def test_proposals_from_masks_video_on_the_card_matches_the_cpu(cuda):
+    """A propagate_batched batch's shape (uint8 frames, bool masks of one
+    object, an empty one for the fallback box) at 720x1280: bboxes and mask
+    crops identical, crops within 1e-5 (the same fp32 gathers and weights)."""
+    from freepose_tpu_torch.pipeline.proposals import proposals_from_masks_video
+
+    rng = np.random.default_rng(0)
+    frames = torch.as_tensor(rng.integers(0, 255, (3, 720, 1280, 3), dtype=np.uint8))
+    masks = torch.zeros((3, 720, 1280), dtype=torch.bool)
+    masks[0, 100:400, 200:700] = True
+    masks[1, 500:700, 40:90] = True
+    ref = proposals_from_masks_video(frames, masks, 420, 0.2)
+    out = proposals_from_masks_video(frames.to(cuda), masks.to(cuda), 420, 0.2)
+    torch.cuda.synchronize()
+    assert out[0].device.type == cuda.type and out[1].dtype == torch.bool
+    np.testing.assert_array_equal(out[2].cpu().numpy(), ref[2].numpy())
+    np.testing.assert_array_equal(out[1].cpu().numpy(), ref[1].numpy())
+    np.testing.assert_allclose(out[0].cpu().numpy(), ref[0].numpy(), atol=1e-5)
+
+
+def test_streaming_inliers_on_the_card_equal_n_inliers_per_pose(cuda):
+    """StreamingInliers over a staged video on the card (K1 renders at 518²
+    with tile 37, fp32 K2 in a tiny DINOv2, pinned host copies of each
+    chunk), fed out of order, against n_inliers_per_pose on the same
+    staged frames: the same kernels on the same inputs, so identical."""
+    from freepose_tpu_torch.datasets.video import stage_frames_hbm
+    from freepose_tpu_torch.models.cotracker import PointTracker
+    from freepose_tpu_torch.models.dinov2 import DinoFeatureExtractor, DinoV2Config
+    from freepose_tpu_torch.pipeline.tracking_refiner import StreamingInliers, TrackingRefiner
+
+    fe = DinoFeatureExtractor(DinoV2Config(hidden_size=128, num_layers=2, num_heads=2, image_size=56), device=cuda)
+    refiner = TrackingRefiner(feature_fn=lambda im: fe(im, layer=None, feature_type="patch"),
+                              tracker=PointTracker(device=cuda), max_vertices=512, max_faces=1024, device=cuda)
+    mesh = _bumpy_sphere()
+    poses = template_poses(7, z=1.2).numpy()
+    k = np.asarray([[500.0, 0, 160], [0, 500.0, 120], [0, 0, 1]], np.float32)
+    v, c, f, valid = (torch.as_tensor(a, device=cuda) for a in pad_mesh(mesh, 512, 1024))
+    rgb, _ = rasterize(v, c, f, valid, torch.as_tensor(poses, device=cuda), torch.as_tensor(k, device=cuda),
+                       RasterSettings(resolution=320, tile=32, max_faces_per_tile=256))
+    frames = (rgb[:, :240, :320] * 255).to(torch.uint8).cpu().numpy()
+    staged = stage_frames_hbm(frames, bucket=8, device=cuda)
+    poses[3, :3, 3] += 0.05  # one pose off
+    ref_inl, ref_thr = refiner.n_inliers_per_pose(mesh, staged.frames[:7], k, poses, chunk=4, channels_last=True)
+    launches = raster_tile.launches, flash_attention_k2.launches
+    s = StreamingInliers(refiner, mesh, staged, k, chunk=4)
+    s.warmup()
+    for t in (2, 0, 6, 1, 3, 5, 4):
+        s.add(t, poses[t])
+    inl, thr = s.finalize()
+    assert raster_tile.launches > launches[0] and flash_attention_k2.launches > launches[1]
+    np.testing.assert_array_equal(inl, ref_inl)
+    assert thr == ref_thr and inl.shape == (7,)

@@ -287,10 +287,10 @@ def _flags(path) -> set[str]:
 def test_cli_flags_equal_the_jax_scripts(name):
     """Every ported entry point takes the JAX script's options, plus --device
     where it runs a model (merge_features, filter_predictions, eval_videos,
-    sav_evaluator, convert_weights, prepare_weights, resize_meshes and
-    merge_results run on the host only)."""
+    sav_evaluator, convert_weights, prepare_weights, resize_meshes,
+    merge_results and vis_detections_video run on the host only)."""
     ours, ref = _flags(REPO / "freepose_tpu_torch" / "scripts" / f"{name}.py"), _flags(REPO / "scripts" / f"{name}.py")
     host_only = ("merge_features", "filter_predictions", "eval_videos", "sav_evaluator", "convert_weights",
-                 "prepare_weights", "resize_meshes", "merge_results")
+                 "prepare_weights", "resize_meshes", "merge_results", "vis_detections_video")
     assert ours - ref == ({"--device"} if name not in host_only else set())
     assert ref <= ours

@@ -318,6 +318,14 @@ ASSET_SLICE_MODULES = [
                                                   "merge_results")),
 ]
 
+PROPOSALS_REST_MODULES = [
+    "freepose_tpu_torch.datasets.video", "freepose_tpu_torch.datasets.bop_params",
+    *(f"freepose_tpu_torch.models.sam2.{m}" for m in ("video", "predictor", "transforms", "amg", "automatic")),
+    "freepose_tpu_torch.pipeline.proposals", "freepose_tpu_torch.pipeline.tracking_refiner",
+    "freepose_tpu_torch.ops.cc_native", "freepose_tpu_torch.geometry.boxes",
+    "freepose_tpu_torch.scripts.vis_detections_video",
+]
+
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     code = (
@@ -340,6 +348,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert set(PROPOSALS_SLICE_MODULES) <= set(mods)
     assert set(EVAL_SLICE_MODULES) <= set(mods)
     assert set(ASSET_SLICE_MODULES) <= set(mods)
+    assert set(PROPOSALS_REST_MODULES) <= set(mods)
     # No import of JAX, the JAX package or the tests anywhere in the sources,
     # not even inside a function that this import did not run.
     pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|freepose_tpu|scripts|tests)\b", re.M)
