@@ -264,7 +264,43 @@ Phases, one line each on stdout:
              equal to its mask's sum and each box to its mask's box; no two
              kept boxes above the NMS threshold. Prints seconds per image,
              split into the encoder, the decode batches and the host's
-             filters, RLE and NMS, and device busy against wall time; the
+             filters, RLE and NMS, and device busy against wall time;
+ 18. leftovers the leftovers of slices B and D and the viz CLIs, each
+             through the entry points a user calls, with the launch counts
+             zeroed before the first and read after the last (K1 and K2 at
+             d 64 > 0): CachedRefineChain (lag 3) on a 10-frame walk of
+             torus renders on the 20,000-pose grid (DINOv2-L layer 22 bf16,
+             420² renders, 8 neighbours, 12 slots: hits, misses, evictions);
+             smooth_track(batched_intervals=True) on the smooth phase's
+             staged frames and coarse rows (DINOv2-B at 518², ZNCC, cap
+             512); the learned CoTracker at CoTrackerConfig() on 12 frames
+             of the video (its 10 and the last repeated) at 1280x720 with
+             512 seeded queries, from seeded random parameters; the
+             vis_poses_video CLI on the video's frames and every row of
+             the refine phase's CSV (one K1 call at 480², tile 32, P =
+             rows) and the vis_features CLI on 3 of those frames
+             (DINOv2-L at 518², layer 22: K2 d 64 at [1, 16, 1374, 64]).
+             Gates: the chain's rows and scores within LEFT_CHAIN_ATOL of
+             the serial refine_cached loop, speculative hits and replays
+             both > 0, its device table equal to its slot map, slot map and
+             LRU order the serial run's; one refine step kernels vs plain
+             as in the refine phase; batched intervals within
+             BATCHED_POSE_ATOL of the pipelined path, and StreamingInliers'
+             counts through inliers= giving the computed path's rows
+             exactly; the learned tracks finite, the query frame pinned,
+             visibility in [0, 1], and a 2-frame 64-query cut on the card
+             within LEARNED_TRACK_ATOL of the CPU, which the CPU run with
+             one iteration fewer must fail; one overlay per distinct frame
+             (a later row of a frame overwrites its JPEG, as in the JAX
+             CLI), every row rendered, and the K1
+             call's masks identical to the plain rasterizer's; 3 panels,
+             and the features with K2 of min cosine >= FEATURE_COS_MIN
+             against plain attention, K2 at [1, 16, 1374, 64] against its
+             plain version. Prints ms per hit frame of the chain,
+             AutoRefineChain and the serial loop with launches per frame,
+             both smooth paths' ms per video and K1's P, the learned
+             tracker's ms per interval and device busy share, ms per
+             overlay row, and K2's times with SDPA's and the bound; the
              work directory is deleted after it;
 then the kernels JSON line, the card's name and power limit, and last the
 device JSON line. Exits non-zero, printing no result, without a GPU or
@@ -3765,6 +3801,421 @@ def phase_amg(dev) -> tuple[dict, dict]:
     return result, launches
 
 
+# Leftovers of slices B and D. The chain: the refine cell's widths (DINOv2-L
+# layer 22 bf16, 420² renders, the 20,000-pose grid) with the 8 neighbours
+# and 12 slots of the JAX package's chain test (capacity 12 < 3 regions x 8
+# neighbours: hits, misses and evictions), lag 3. Chain against the serial
+# loop: the same functions on the same card, bit-equal except where a
+# speculative step's sums ran in another batch (none: both featurize the
+# query crop alone). Batched intervals against the pipelined path on the
+# card: the same per-interval chain, renders and EPnP inputs, set from the
+# first run (PERF.md). The learned CoTracker on the card against the CPU: fp32
+# convolutions (cuDNN, TF32 off, against oneDNN) and sums in another order,
+# carried through 4 iterations of bilinear sampling; a run with one
+# iteration fewer moves tracks by pixels and must fail it.
+LEFT_NEIGHBORS, LEFT_CAPACITY, LEFT_LAG, LEFT_SCALE = 8, 12, 3, 0.25
+LEFT_CHAIN_ATOL = 1e-5
+LEFT_HIT_FRAMES = 16
+BATCHED_POSE_ATOL = 1e-4
+LEARNED_FRAMES, LEARNED_QUERIES, LEARNED_CUT = 12, 512, (2, 64)
+LEARNED_TRACK_ATOL = 0.05  # pixels
+VIS_FEATURE_FRAMES = 3
+
+
+def leftover_trajectory(est) -> list[int]:
+    """Grid indices of a 10-frame walk on the fine grid: g0, a neighbour g1
+    of it, a neighbour g2 of g1 outside g0's neighbourhood, a neighbour g3
+    of g2 outside g1's, and back; each pose held for two frames (all-hit
+    speculation), each move a miss, the return after evictions."""
+    from freepose_tpu_torch.pipeline.fine_cache import select_neighborhood_host
+
+    rots = est.fine_poses[:, :3, :3].cpu().numpy()
+
+    def near(g):
+        return [int(i) for i in select_neighborhood_host(rots, rots[g], NEIGHBORHOOD, LEFT_NEIGHBORS)[0]]
+
+    g0 = 5
+    g1 = near(g0)[1]
+    g2 = next(g for g in near(g1)[1:] if g not in near(g0))
+    g3 = next(g for g in near(g2)[1:] if g not in near(g1))
+    return [g0, g0, g1, g1, g2, g2, g3, g3, g2, g1]
+
+
+def phase_leftovers(dev, mesh) -> tuple[dict, dict]:
+    """The leftovers of slices B and D, each through the entry points a user
+    calls: CachedRefineChain (the device slot table and the speculative hit
+    step) on a 10-frame walk of torus renders, smooth_track with
+    batched_intervals=True on the smooth phase's frames, coarse rows and
+    DINOv2-B, the learned CoTracker at its full widths on 12 frames of the
+    video at 1280x720, and the vis_poses_video and vis_features CLIs on the
+    video phase's frames (every row of the refine phase's CSV; DINOv2-L at
+    518², layer 22); then each against its reference."""
+    import contextlib
+    import dataclasses
+    import io
+
+    import torch.nn.functional as F
+
+    from freepose_tpu_torch.datasets.video import load_frame_dir, stage_frames_hbm
+    from freepose_tpu_torch.geometry.camera import default_video_intrinsics
+    from freepose_tpu_torch.io.bop_csv import read_results_csv
+    from freepose_tpu_torch.io.mesh import load_obj, pad_mesh
+    from freepose_tpu_torch.models.convert import random_cotracker_params, save_params
+    from freepose_tpu_torch.models.cotracker import CoTrackerConfig, PointTracker
+    from freepose_tpu_torch.models.dinov2 import VIT_B14_REG, VIT_L14_REG
+    from freepose_tpu_torch.ops.attention import (bf16_error_bound, dense_attention, flash_attention_fn,
+                                                  flash_attention_k2, sm90_key_tile)
+    from freepose_tpu_torch.ops import rasterizer_cuda
+    from freepose_tpu_torch.ops.rasterizer import RasterSettings, rasterize, rasterize_plain
+    from freepose_tpu_torch.ops.rasterizer_cuda import prologue, raster_tile_plain
+    from freepose_tpu_torch.ops.sampling import resize_bilinear
+    from freepose_tpu_torch.pipeline.online_pose_estimator import (AutoRefineChain, CachedRefineChain,
+                                                                   OnlinePoseEstimator)
+    from freepose_tpu_torch.pipeline.renderer import TemplateRenderer
+    from freepose_tpu_torch.pipeline.template_bank import TemplateBank, normalize_feats
+    from freepose_tpu_torch.pipeline.tracking_refiner import StreamingInliers, TrackingRefiner
+    from freepose_tpu_torch.scripts import vis_features, vis_poses_video
+    from freepose_tpu_torch.scripts.common import load_dino_extractor
+    from freepose_tpu_torch.scripts.smooth_poses_video import smooth_track
+
+    phase_t0 = time.perf_counter()
+    for name, cfg, seed in (("dinov2.npz", VIT_L14_REG, SEED), ("dinov2_vitb.npz", VIT_B14_REG, SEED + 9)):
+        if not (WORK_DIR / name).exists():
+            save_params(random_dinov2_params(cfg, seed=seed), WORK_DIR / name)
+
+    # The chain: an estimator at the refine cell's widths, the walk's crops.
+    extractor = load_dino_extractor(str(WORK_DIR / "dinov2.npz"), device=dev)
+
+    def feature_fn(imgs):
+        return extractor(imgs, layer=DINO_LAYER, feature_type="patch")
+
+    renderer = TemplateRenderer(n_poses=N_VIEWS, device=dev)
+    est = OnlinePoseEstimator(feature_fn, TemplateBank(feature_fn, renderer, cache_size=1, device=dev), renderer,
+                              n_coarse_poses=N_VIEWS, n_fine_poses=N_FINE, n_neighbors=LEFT_NEIGHBORS,
+                              extractor=extractor, feature_layer=DINO_LAYER, fine_cache_capacity=LEFT_CAPACITY)
+    walk = leftover_trajectory(est)
+    crops = []
+    for gi in walk:
+        rgb, depth = renderer.render_from_poses(mesh, est.fine_poses[gi][None])
+        props, masks, boxes = renderer.generate_proposals(rgb, depth)
+        crops.append((props[0], masks[0], boxes[0].float()))
+    k_r, prev0 = renderer.k, est.fine_poses[walk[0]]
+
+    # The smooth cell: the smooth phase's frames, coarse rows and mesh.
+    frames_s = load_frame_dir(WORK_DIR / "smooth_frames")
+    hs, ws_ = frames_s.shape[1:3]
+    k_s = default_video_intrinsics(ws_, hs)
+    coarse = sorted(read_results_csv(WORK_DIR / "coarse.csv", t_scale=1.0), key=lambda r: r.im_id)
+    mesh_s = load_obj(WORK_DIR / "meshes" / str(coarse[0].obj_id) / f"{coarse[0].obj_id}.obj").normalized().scaled(
+        coarse[0].scale)
+    poses_s = np.stack([np.vstack([np.hstack([r.R, r.t[:, None]]), [0, 0, 0, 1]]) for r in coarse]).astype(np.float32)
+    extractor_b = load_dino_extractor(str(WORK_DIR / "dinov2_vitb.npz"), model="vitb", device=dev)
+    refiner = TrackingRefiner(feature_fn=lambda imgs: extractor_b(imgs, layer=None, feature_type="patch"),
+                              tracker=PointTracker(device=dev), device=dev)
+    staged = stage_frames_hbm(frames_s, device=dev)
+
+    # The learned CoTracker: the video's 10 frames and 2 repeats of the last
+    # (an interval padded to 12, as smooth_track pads), 512 seeded queries.
+    video = synthetic_video()[0]
+    video = np.concatenate([video, np.repeat(video[-1:], LEARNED_FRAMES - len(video), axis=0)])
+    h, w = video.shape[1:3]
+    rng = np.random.default_rng(SEED + 12)
+    queries = np.stack([rng.uniform(0, w - 1, LEARNED_QUERIES), rng.uniform(0, h - 1, LEARNED_QUERIES)],
+                       -1).astype(np.float32)
+    ct_cfg = CoTrackerConfig()
+    ct_params = random_cotracker_params(ct_cfg, seed=SEED + 12)
+    learned = PointTracker(ct_cfg, params=ct_params, mode="learned", device=dev)
+
+    # The viz CLIs' inputs: every row of the refine phase's CSV (both
+    # tracks carry the torus's name, so a frame can hold two rows).
+    shutil.copy(WORK_DIR / "chain.csv", WORK_DIR / "vis_rows.csv")
+    images = [str(p) for p in sorted((WORK_DIR / "frames").glob("*.png"))[:VIS_FEATURE_FRAMES]]
+    vis_poses_argv = ["--video-dir", str(WORK_DIR / "frames"), "--poses", str(WORK_DIR / "vis_rows.csv"),
+                      "--mesh-dir", str(WORK_DIR / "meshes"), "--out-dir", str(WORK_DIR / "overlays"),
+                      "--device", str(dev)]
+    vis_features_argv = ["--images", *images, "--out", str(WORK_DIR / "feature_panels"),
+                         "--weights", str(WORK_DIR / "dinov2.npz"), "--layer", str(DINO_LAYER), "--device", str(dev)]
+    cli_out = io.StringIO()
+
+    def run_chain(key):
+        chain = CachedRefineChain(est, mesh, key, neighborhood_deg=NEIGHBORHOOD, lag=LEFT_LAG)
+        for t, (crop, cmask, bbox) in enumerate(crops):
+            chain.submit(crop, cmask, k_r, bbox, LEFT_SCALE, prev_pose=prev0 if t == 0 else None)
+        chain.finalize_all()
+        return chain
+
+    def run_smooth(**kw):
+        return smooth_track(refiner, mesh_s, staged, k_s, poses_s, interval=12, cap=512, **kw)
+
+    # The path, once, with the launch counts.
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    chain = run_chain("chain")
+    torch.cuda.synchronize()
+    chain_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    batched, batched_inliers = run_smooth(batched_intervals=True)
+    batched_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        tracks, vis = learned.model(learned._video(video), learned._queries(queries), 0)
+    torch.cuda.synchronize()
+    learned_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(cli_out):
+        vis_poses_video.main(vis_poses_argv)
+    torch.cuda.synchronize()
+    vis_poses_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(cli_out):
+        vis_features.main(vis_features_argv)
+    torch.cuda.synchronize()
+    vis_features_s = time.perf_counter() - t0
+    launches = read_launches()
+
+    # Chain against the serial closed loop on the same frames.
+    serial, prev = [], prev0
+    for crop, cmask, bbox in crops:
+        o = est.refine_cached(crop, cmask, mesh, k_r, bbox, LEFT_SCALE, prev, NEIGHBORHOOD, cache_key="serial")
+        serial.append((o.tcos[0].cpu().numpy(), float(o.scores[0])))
+        prev = o.tcos[0]
+    cache, cache_serial = est._fine_caches["chain"], est._fine_caches["serial"]
+    table = cache.slot_table.cpu().numpy()[:-1]
+    chain_check = dict(
+        walk=walk, pose_max_abs_err=max(float(np.abs(a[0] - b[0]).max()) for a, b in zip(chain.results, serial)),
+        score_max_abs_err=max(abs(a[1] - b[1]) for a, b in zip(chain.results, serial)), atol=LEFT_CHAIN_ATOL,
+        n_spec_hits=chain.n_spec_hits, n_replayed=chain.n_replayed, rows=len(chain.results),
+        slot_table_mirrors_slot_of={gi: s for gi, s in enumerate(table) if s >= 0} == cache.slot_of,
+        slot_of_equal_serial=cache.slot_of == cache_serial.slot_of, lru_equal_serial=list(cache.lru) ==
+        list(cache_serial.lru), cached_views=len(cache.slot_of))
+    refine_check = refine_kernels_vs_plain(est, extractor, "chain", mesh, *crops[2][:2], k_r, crops[2][2],
+                                           LEFT_SCALE, torch.as_tensor(serial[1][0], device=dev))
+
+    # ms per hit frame, each timed to the card's finish: the chain, the
+    # device-cache chain and the serial loop, after one seeding frame.
+    def hit_run(kind):
+        crop, cmask, bbox = crops[0]
+        key = f"timing_{kind}"
+        if kind == "serial":
+            def step(prev):
+                o = est.refine_cached(crop, cmask, mesh, k_r, bbox, LEFT_SCALE, prev, NEIGHBORHOOD, cache_key=key)
+                return o.tcos[0].cpu().numpy()
+            prev = step(prev0)
+        else:
+            runner = (CachedRefineChain(est, mesh, key, neighborhood_deg=NEIGHBORHOOD, lag=LEFT_LAG) if kind == "chain"
+                      else AutoRefineChain(est, mesh, key, neighborhood_deg=NEIGHBORHOOD, lag=LEFT_LAG,
+                                           miss_bucket=LEFT_NEIGHBORS))
+            runner.submit(crop, cmask, k_r, bbox, LEFT_SCALE, prev_pose=prev0)
+            runner.finalize_all()
+        torch.cuda.synchronize()
+        before = read_launches()
+        t0 = time.perf_counter()
+        for _ in range(LEFT_HIT_FRAMES):
+            if kind == "serial":
+                prev = step(prev)
+            else:
+                runner.submit(crop, cmask, k_r, bbox, LEFT_SCALE)
+        if kind != "serial":
+            runner.finalize_all()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / LEFT_HIT_FRAMES
+        after = read_launches()
+        out = {"ms_per_frame": ms,
+               "launches_per_frame": {key_: (after[key_] - before[key_]) / LEFT_HIT_FRAMES for key_ in ("K1", "K2")}}
+        if kind == "chain":
+            out["spec_hits"] = runner.n_spec_hits
+        if kind == "auto":
+            out["misses"] = sum(runner.miss_counts[1:])
+        return out
+
+    hit_frames = {kind: hit_run(kind) for kind in ("chain", "auto", "serial")}
+
+    # Batched intervals against the pipelined path; StreamingInliers' counts
+    # through inliers= against the path that computes them.
+    def timed_s(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    (pipelined, pipelined_inliers), pipelined_s = timed_s(lambda: run_smooth())
+    _, batched_warm_s = timed_s(lambda: run_smooth(batched_intervals=True))
+    stream = StreamingInliers(refiner, mesh_s, staged, k_s, chunk=SMOOTH_CHUNK)
+    for t, pose in enumerate(poses_s):
+        stream.add(t, pose)
+    stream_counts, _ = stream.finalize()
+    fed, _ = run_smooth(inliers=stream_counts)
+    n_s = staged.n
+    batched_check = dict(frames=n_s, staged_frames=int(staged.frames.shape[0]),
+                         interval_bucket=-(-(int(staged.frames.shape[0]) // 12 + 2) // 4) * 4,
+                         starts=len(set(range(int(np.argmax(batched_inliers)), n_s, 12))
+                                    | set(range(int(np.argmax(batched_inliers)), -1, -12))),
+                         pose_max_abs_err=float(np.abs(batched - pipelined).max()), atol=BATCHED_POSE_ATOL,
+                         inliers_equal=bool(np.array_equal(batched_inliers, pipelined_inliers)),
+                         streaming_inliers=stream_counts.tolist(),
+                         streaming_equal_computed=bool(np.array_equal(stream_counts, pipelined_inliers)),
+                         inliers_rows_identical=bool(np.array_equal(fed, pipelined)),
+                         ms_per_video={"batched": batched_warm_s * 1e3, "pipelined": pipelined_s * 1e3},
+                         first_run_s=batched_s)
+
+    # The learned CoTracker: gates on the path's run, its time and busy
+    # share, and a cut of its inputs on the card against the CPU.
+    tracks_np, vis_np = tracks.cpu().numpy(), vis.cpu().numpy()
+    _, learned_ms = timed_s(lambda: learned.track(video, queries, 0))
+    learned_profile = profile_device_time(lambda: learned.track(video, queries, 0), "learned_interval", top=10)
+    n_cut, q_cut = LEARNED_CUT
+    cut = {}
+    for name, device, cfg in (("card", dev, ct_cfg), ("cpu", torch.device("cpu"), ct_cfg),
+                              ("cpu_one_iteration_fewer", torch.device("cpu"),
+                               dataclasses.replace(ct_cfg, n_iters=ct_cfg.n_iters - 1))):
+        tracker = learned if name == "card" else PointTracker(cfg, params=ct_params, mode="learned", device=device)
+        with torch.inference_mode():
+            cut[name] = tracker.model(tracker._video(video[:n_cut]), tracker._queries(queries[:q_cut]), 0)[0].cpu()
+    learned_check = dict(frames=LEARNED_FRAMES, frame_hw=[h, w], queries=LEARNED_QUERIES,
+                         config=dataclasses.asdict(ct_cfg) | {"dtype": str(ct_cfg.dtype)},
+                         tracks_finite=bool(np.isfinite(tracks_np).all()),
+                         query_frame_pinned=bool(np.array_equal(tracks_np[0], queries)),
+                         vis_range=[float(vis_np.min()), float(vis_np.max())],
+                         visible_share=float((vis_np > 0.5).mean()),
+                         track_extent_px=float(np.abs(tracks_np - queries[None]).max()),
+                         ms_per_interval=learned_ms * 1e3, first_run_s=learned_s,
+                         cut=[n_cut, q_cut], cut_card_vs_cpu_max_abs_px=float((cut["card"] - cut["cpu"]).abs().max()),
+                         cut_one_iteration_fewer_max_abs_px=float(
+                             (cut["cpu_one_iteration_fewer"] - cut["cpu"]).abs().max()),
+                         atol_px=LEARNED_TRACK_ATOL)
+
+    # vis_poses_video: one overlay per distinct frame, every row in its K1
+    # call, which is held against the plain rasterizer.
+    vis_rows = sorted(read_results_csv(WORK_DIR / "vis_rows.csv", t_scale=1.0), key=lambda r: r.im_id)
+    hv, wv = load_frame_dir(WORK_DIR / "frames").shape[1:3]
+    vmesh = load_obj(WORK_DIR / "meshes" / str(vis_rows[0].obj_id) / f"{vis_rows[0].obj_id}.obj").normalized().scaled(
+        vis_rows[0].scale)
+    vargs = [torch.as_tensor(x, device=dev) for x in pad_mesh(vmesh, 16384, 32768)]
+    vposes = torch.as_tensor(np.stack([np.vstack([np.hstack([r.R, r.t[:, None]]), [0, 0, 0, 1]]) for r in vis_rows]),
+                             dtype=torch.float32, device=dev)
+    vscale = 480 / max(hv, wv)
+    vk = torch.as_tensor(default_video_intrinsics(wv, hv).numpy() * np.array([[vscale], [vscale], [1]]),
+                         dtype=torch.float32, device=dev)
+    vsettings = RasterSettings(resolution=480, tile=32, max_faces_per_tile=256)
+    _, vdepth = rasterize(*vargs, vposes, vk, vsettings)
+    _, vdepth_plain = rasterize_plain(*vargs, vposes, vk, vsettings)
+    # K1 alone at this shape, from the call's prologue: times and bound.
+    vrows, vslots = prologue(*vargs, vposes, vk.expand(len(vposes), 3, 3), vsettings)
+    kb = k1_bound(vrows, vslots, vsettings.resolution, vsettings.tile, False)
+
+    def k1_at(fn):
+        return fn(vrows, vslots, vsettings.resolution, vsettings.tile, vsettings.ambient, False)
+
+    def k1_kernel():
+        return k1_at(rasterizer_cuda.raster_tile)
+
+    k1_480 = {"poses": int(vrows.shape[0]), "tiles": int(vslots.shape[1]), "faces_per_tile": int(vslots.shape[2]),
+              "hit_mask_mismatches": int(((k1_kernel()[..., 0] > 0) != (k1_at(raster_tile_plain)[..., 0] > 0)).sum()),
+              "ms": cuda_ms(k1_kernel, reps=10), "device_ms": device_ms(k1_kernel),
+              "plain_ms": cuda_ms(lambda: k1_at(raster_tile_plain), reps=1), "bound_ms": kb["bound_ms"],
+              "bound_by": kb["bound_by"]}
+    del vrows, vslots
+    overlays = sorted((WORK_DIR / "overlays").glob("*.jpg"))
+    vis_frames = sorted({r.im_id for r in vis_rows})
+    vis_poses_check = dict(rows=len(vis_rows), frames=len(vis_frames), overlays=len(overlays),
+                           poses=int(vposes.shape[0]),
+                           frame_ids_equal=[p.stem for p in overlays] == [f"{i:06d}" for i in vis_frames],
+                           k1_hit_mask_mismatches=int(((vdepth > 0) != (vdepth_plain > 0)).sum()),
+                           k1_depth_max_err=float((vdepth - vdepth_plain).abs().max()), atol=K1_ATOL,
+                           hit_px=int((vdepth > 0).sum()), cli_s=vis_poses_s,
+                           ms_per_row=vis_poses_s * 1e3 / len(vis_rows),
+                           k1_call_ms=cuda_ms(lambda: rasterize(*vargs, vposes, vk, vsettings), reps=5), k1_480=k1_480)
+    del vdepth, vdepth_plain
+
+    # vis_features: the panels, and the CLI's features (the chain's
+    # extractor: the same weights and config) with K2 against every
+    # attention call on its plain version on the same resized frames.
+    from PIL import Image
+
+    panels = sorted((WORK_DIR / "feature_panels").glob("*_feats.png"))
+    fe = extractor
+    size = fe.config.image_size
+    squares = torch.stack([
+        resize_bilinear(torch.as_tensor(np.array(Image.open(p).convert("RGB")), dtype=torch.float32,
+                                        device=dev).permute(2, 0, 1), (size, size)) for p in images]) / 255.0
+    feats = {}
+    for plain in (False, True):
+        for blk in fe.model.blocks:
+            blk.attn.attention_fn = dense_attention if plain else flash_attention_fn
+        with torch.inference_mode():
+            feats[plain] = torch.cat([normalize_feats(fe(s[None], layer=DINO_LAYER, feature_type="patch").float())
+                                      for s in squares])
+    for blk in fe.model.blocks:
+        blk.attn.attention_fn = flash_attention_fn
+    panel_shapes = [list(np.asarray(Image.open(p)).shape) for p in panels]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    cfg_l = VIT_L14_REG
+    heads, d = cfg_l.num_heads, cfg_l.hidden_size // cfg_l.num_heads
+    ntok = 1 + cfg_l.num_registers + cfg_l.native_grid ** 2
+    q, kk, v = (torch.randn((1, heads, ntok, d), generator=gen, device=dev) for _ in range(3))
+    q, kk, v = (q * QUERY_STD).to(torch.bfloat16), kk.to(torch.bfloat16), v.to(torch.bfloat16)
+    scale = d ** -0.5
+    ref = dense_attention(q, kk, v, scale)
+    k2 = check_attention(flash_attention_k2(q, kk, v, scale), ref, bf16_error_bound(q, kk, v, scale, ref), {
+        "drops_last_keys": dense_attention(q, kk[:, :, :-DROPPED_KEYS], v[:, :, :-DROPPED_KEYS], scale),
+        "reads_next_head": reads_next_head(q, kk, v, scale, sm90_key_tile(d))})
+    k2_bound, k2_bound_by = bound(4 * heads * ntok * ntok * d, 4 * heads * ntok * d * 2)
+    vis_features_check = dict(images=len(images), panels=len(panels), panel_shapes=panel_shapes,
+                              feature_cos_min=float((feats[False] * feats[True]).sum(-1).min()),
+                              feature_cos_floor=FEATURE_COS_MIN, cli_s=vis_features_s,
+                              k2_1374={"shape": [1, heads, ntok, d], **k2, "tol": ATTN_TOL,
+                                       "ms": cuda_ms(lambda: flash_attention_k2(q, kk, v, scale), reps=20),
+                                       "device_ms": device_ms(lambda: flash_attention_k2(q, kk, v, scale)),
+                                       "plain_ms": cuda_ms(lambda: dense_attention(q, kk, v, scale), reps=5),
+                                       "sdpa_ms": cuda_ms(lambda: F.scaled_dot_product_attention(q, kk, v, scale=scale),
+                                                          reps=20),
+                                       "sdpa_device_ms": device_ms(lambda: F.scaled_dot_product_attention(
+                                           q, kk, v, scale=scale)),
+                                       "bound_ms": k2_bound, "bound_by": k2_bound_by})
+    del q, kk, v, ref, feats
+
+    result = dict(launches=launches, chain_s=chain_s, chain=chain_check, refine_kernels_vs_plain=refine_check,
+                  hit_frames=hit_frames, batched_intervals=batched_check, learned_cotracker=learned_check,
+                  learned_profile=learned_profile, vis_poses_video=vis_poses_check,
+                  vis_features=vis_features_check, cli_last_lines=cli_out.getvalue().strip().splitlines()[-2:],
+                  phase_s=time.perf_counter() - phase_t0, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log("leftovers", **result)
+    if min(launches["K1"], launches["K2_by_dim"].get("64", 0)) <= 0:
+        raise AssertionError(f"leftovers path did not launch K1 and K2 at d 64: {launches}")
+    c = chain_check
+    if not (c["pose_max_abs_err"] <= LEFT_CHAIN_ATOL and c["score_max_abs_err"] <= LEFT_CHAIN_ATOL
+            and c["rows"] == len(walk) and c["n_spec_hits"] > 0 and c["n_replayed"] > 0
+            and c["slot_table_mirrors_slot_of"] and c["slot_of_equal_serial"] and c["lru_equal_serial"]):
+        raise AssertionError(f"CachedRefineChain against the serial loop: {c}")
+    if refine_check["render_mask_mismatches"] or not refine_check["score_max_abs_err"] <= REFINE_SCORE_ATOL or \
+            not refine_check["one_slot_off_max_abs_err"] > REFINE_SCORE_ATOL or \
+            min(refine_check["launches"]["kernels"].values()) <= 0 or \
+            max(refine_check["launches"]["plain"].values()) != 0:
+        raise AssertionError(f"leftovers refine step, kernels vs plain versions: {refine_check}")
+    if hit_frames["chain"]["spec_hits"] < LEFT_HIT_FRAMES:
+        raise AssertionError(f"chain timing frames were not all speculative hits: {hit_frames}")
+    b = batched_check
+    if not (b["pose_max_abs_err"] <= BATCHED_POSE_ATOL and b["inliers_equal"] and b["streaming_equal_computed"]
+            and b["inliers_rows_identical"]):
+        raise AssertionError(f"batched intervals and inliers= against the pipelined path: {b}")
+    lc = learned_check
+    if not (lc["tracks_finite"] and lc["query_frame_pinned"] and 0.0 <= lc["vis_range"][0]
+            and lc["vis_range"][1] <= 1.0 and lc["cut_card_vs_cpu_max_abs_px"] <= LEARNED_TRACK_ATOL
+            and lc["cut_one_iteration_fewer_max_abs_px"] > LEARNED_TRACK_ATOL):
+        raise AssertionError(f"learned CoTracker: {lc}")
+    vp = vis_poses_check
+    if not (vp["overlays"] == vp["frames"] > 0 and vp["poses"] == vp["rows"] and vp["frame_ids_equal"]
+            and vp["k1_hit_mask_mismatches"] == 0 and vp["k1_depth_max_err"] <= K1_ATOL
+            and k1_480["hit_mask_mismatches"] == 0):
+        raise AssertionError(f"vis_poses_video: {vp}")
+    vf = vis_features_check
+    if not (vf["panels"] == vf["images"] == VIS_FEATURE_FRAMES and vf["feature_cos_min"] >= FEATURE_COS_MIN):
+        raise AssertionError(f"vis_features: {vf}")
+    return result, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -3807,12 +4258,14 @@ def main() -> int:
         _, stride = phase_stride(dev, video_result["sam2_ms_per_frame"])
         torch.cuda.empty_cache()
         _, amg = phase_amg(dev)
+        torch.cuda.empty_cache()
+        _, leftovers = phase_leftovers(dev, mesh)
     finally:
         shutil.rmtree(WORK_DIR, ignore_errors=True)
     # Launches on each main path's run (`launches_by_path`) and their sum.
     paths = {"static": static, "video": video, "scale": scale, "refine": refine, "smooth": smooth,
              "proposals": proposals, "eval": evaluation, "vos": vos, "texture": texture, "coupled": coupled,
-             "stride": stride, "amg": amg}
+             "stride": stride, "amg": amg, "leftovers": leftovers}
     counts = {k1["name"]: lambda p: p["K1"], streams["K3"]["name"]: lambda p: p["K3"],
               streams["K4"]["name"]: lambda p: p["K4"], k5["name"]: lambda p: p["K5"],
               k5_combine["name"]: lambda p: p["K5_combine"],

@@ -7,7 +7,8 @@ Linear weights [out, in], the HWIO patch-embedding kernel becomes OIHW, and
 LayerNorm scale/bias become weight/bias. The SAM2, ZoeDepth, CLIP, Swin,
 BERT and GroundingDINO modules carry the JAX names, so `state_dict_from_jax`
 maps their trees leaf by leaf (`zoedepth_from_jax` and `clip_from_jax` first
-unstack the scanned blocks).
+unstack the scanned blocks, `cotracker_from_jax` flattens the learned
+CoTracker's attention kernels).
 `load_params` reads the flat '/'-joined .npz that the JAX CLIs' `save_params`
 writes, so both packages take the same --weights files. Pure numpy + torch;
 no JAX needed.
@@ -331,6 +332,67 @@ def random_grounding_dino_params(cfg, seed: int = 0) -> dict:
     for name in ("enc_output_norm", "decoder_ln"):
         tree[name]["scale"] = tree[name]["scale"] / np.float32(np.sqrt(cfg.d_model))
     return tree
+
+
+def _map_attention(tree: dict, fn) -> dict:
+    """A copy of the learned CoTracker's tree with `fn(leaf path, array)`
+    applied to every leaf of its attention modules (…_attn/{query, key,
+    value, out})."""
+    out = {}
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            out[key] = ({name: {leaf: fn((name, leaf), np.asarray(x)) for leaf, x in sub.items()}
+                         for name, sub in val.items()} if key.endswith("_attn") else _map_attention(val, fn))
+        else:
+            out[key] = val
+    return out
+
+
+def cotracker_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """The JAX learned CoTracker's tree -> the state dict of the port's
+    CoTracker. Its attention kernels are Flax DenseGeneral kernels, [D, H,
+    Dh] for q/k/v (biases [H, Dh]) and [H, Dh, D] for out, which
+    `state_dict_from_jax` would take for conv kernels: they are flattened to
+    the [D, D] Dense layout first; everything else maps leaf by leaf."""
+    def flatten(path, x):
+        name, leaf = path
+        if name == "out" and leaf == "kernel":
+            return x.reshape(-1, x.shape[-1])
+        return x.reshape(x.shape[0], -1) if leaf == "kernel" else x.reshape(-1)
+
+    return state_dict_from_jax(_map_attention(params, flatten))
+
+
+def random_cotracker_params(cfg, seed: int = 0) -> dict:
+    """Seeded random parameters of the learned CoTracker at `cfg`, in the JAX
+    package's tree layout (in place of Flax's init): lecun-normal kernels,
+    N(0, 0.02) biases and time embedding, norm scales 1 + N(0, 0.02)."""
+    from freepose_tpu_torch.models.cotracker import CoTracker
+
+    with torch.device("meta"):
+        model = CoTracker(cfg)
+    rng = np.random.default_rng(seed)
+    tree: dict = {}
+    for path, shape in jax_param_shapes(model).items():
+        if path[-1] == "kernel":
+            val = rng.standard_normal(shape, np.float32) / np.float32(np.sqrt(np.prod(shape[:-1])))
+        elif path[-1] == "scale":
+            val = 1.0 + 0.02 * rng.standard_normal(shape, np.float32)
+        else:
+            val = 0.02 * rng.standard_normal(shape, np.float32)
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = val.astype(np.float32, copy=False)
+    heads = cfg.num_heads
+
+    def unflatten(path, x):  # the [D, D] Dense layout -> Flax's DenseGeneral
+        name, leaf = path
+        if leaf == "kernel":
+            return x.reshape(heads, -1, x.shape[-1]) if name == "out" else x.reshape(x.shape[0], heads, -1)
+        return x if name == "out" else x.reshape(heads, -1)
+
+    return _map_attention(tree, unflatten)
 
 
 # Added to the CoTracker2 visibility probe's bias in random parameters, so

@@ -210,8 +210,25 @@ class TrackingRefiner:
     def pose_confidence_batch_sharded(self, *args, **kwargs):
         raise NotImplementedError(f"pose_confidence_batch_sharded {_SLICE_G}")
 
-    def correspondences_batch(self, *args, **kwargs):
-        raise NotImplementedError(f"correspondences_batch (the batched intervals) {_SLICE_G}")
+    @torch.inference_mode()
+    def correspondences_batch(self, mesh: TriMesh, k, poses, seed: int = 0, device_mesh=None):
+        """compute_2d3d_correspondences for a batch of interval-start poses
+        [I, 4, 4]: one render of every start (K1 on the card), then the patch
+        binning per start -> ([I, G², 2] query pixels, [I, G², 3] surface
+        points, [I, G²] valid) on the device. The starts over a device mesh
+        belong to slice G."""
+        if device_mesh is not None:
+            raise NotImplementedError(f"correspondences_batch over a device mesh {_SLICE_G}")
+        pts100 = self._t(mesh.sample_surface(100, seed=42))
+        surf = self._t(mesh.sample_surface(self.n_surface_samples, seed=seed))
+        v, c, f, fv = self._padded(mesh, 0.8)
+        k, poses = self._t(k), self._t(poses)
+        bboxes = crop_bbox_around_projection(poses, pts100, k, RES, RES, lamb=1.4)
+        new_ks = update_k_with_crop(k, bboxes, RES, RES)
+        _, depths = rasterize(v, c, f, fv, poses, new_ks, self.settings)
+        mask37 = _mask37(depths)
+        outs = [_bin_surface_to_patches(surf, *args) for args in zip(poses, new_ks, mask37, bboxes)]
+        return tuple(torch.stack(x) for x in zip(*outs))
 
     def n_inliers_per_pose(self, mesh: TriMesh, frames, k, poses, chunk: int = 8, channels_last: bool = False,
                            device_mesh=None):

@@ -62,15 +62,58 @@ def cap_set(cap: int, cap_buckets) -> tuple:
     return tuple(sorted({int(b) for b in cap_buckets if int(b) <= cap} | {int(cap)}))
 
 
+def _batched_intervals(refiner, mesh, frames_dev, k, poses, starts, step, n, cap, refined: dict) -> None:
+    """Every interval at once: one correspondence render of all starts, the
+    top-`cap` selection per start, one batch of ZNCC chains, one set of reads
+    and host EPnP per interval. The start batch pads to a bucket derived from
+    the staged frame count (`frames_dev.shape[0] // step + 2`, rounded up to
+    4, the JAX package's lcm(4, devices) on one device), with repeats of the
+    last start whose rows are dropped. Numerics are the pipelined path's: the
+    same selection order, chain and masked EPnP per interval."""
+    i_max = int(frames_dev.shape[0]) // step + 2
+    i_bucket = -(-i_max // 4) * 4
+    if len(starts) > i_bucket:
+        raise ValueError(f"{len(starts)} interval starts > bucket {i_bucket}")
+    starts_pad = list(starts) + [starts[-1]] * (i_bucket - len(starts))
+    query_b, surface_b, valid_b = refiner.correspondences_batch(mesh, k, np.stack([poses[s] for s in starts_pad]))
+    g2 = valid_b.shape[1]
+    order_b = torch.argsort(torch.where(valid_b, 0, g2 + 1) + torch.arange(g2, device=valid_b.device)[None],
+                            dim=1)[:, :min(cap, g2)]
+    qs_b = torch.take_along_dim(query_b, order_b[..., None], dim=1)
+    ss_b = torch.take_along_dim(surface_b, order_b[..., None], dim=1)
+    vs_b = torch.take_along_dim(valid_b, order_b, dim=1)
+    idx_rows = []
+    for s in starts_pad:
+        idxs = list(range(s, min(s + step, n)))
+        idx_rows.append([min(max(i, 0), n - 1) for i in idxs] + [idxs[-1]] * (step - len(idxs)))
+    subs = frames_dev[torch.as_tensor(idx_rows, device=frames_dev.device)]
+    tracks_b, scores_b = refiner.tracker.track_device_batch(subs, qs_b)
+    tracks_np, scores_np, vs_np_b, ss_np_b = (x.cpu().numpy() for x in (tracks_b, scores_b, vs_b, ss_b))
+    for ii, s in enumerate(starts):
+        idxs = list(range(s, min(s + step, n)))
+        if vs_np_b[ii].sum() < 4:
+            for i in idxs:
+                refined[i] = poses[s]
+            continue
+        pv = refiner.compute_pnp_batch(tracks_np[ii], ss_np_b[ii], (scores_np[ii] > 0.5) & vs_np_b[ii][None], k)
+        for li, fi in enumerate(idxs):
+            refined[fi] = pv[li]
+
+
 def smooth_track(refiner, mesh, frames, k, poses, interval: int = 12, pipelined: bool = True, cap: int = 512,
-                 keep_coarse_translation: bool = True, device_mesh=None, cap_buckets=None, telemetry=None):
+                 keep_coarse_translation: bool = True, inliers=None, device_mesh=None, mesh_axis: str = "data",
+                 batched_intervals: bool | None = None, cap_buckets=None, telemetry=None):
     """The track-refine pass over one video -> (smoothed [N, 4, 4], inliers
     [N]).
 
     `frames` is the host [T, H, W, 3] uint8 video, or (pipelined only) the
-    video staged on the device as one uint8 tensor (datasets/video.py:
-    stage_frames): confidence chunks and interval frames are then sliced
-    there.
+    video staged on the device: one uint8 tensor (datasets/video.py:
+    stage_frames) or a StagedVideo at a frame bucket (stage_frames_hbm).
+    Confidence chunks and interval frames are then sliced there.
+
+    `inliers` [N], when given, are the confidence scoring's counts (e.g. a
+    StreamingInliers pass that ran behind the refine loop): the pass starts
+    from them instead of scoring again.
 
     pipelined=True: each interval tracks the first `cap` valid
     correspondences in grid order, with padded rows masked out of EPnP, and
@@ -79,26 +122,50 @@ def smooth_track(refiner, mesh, frames, k, poses, interval: int = 12, pipelined:
     anchored on the refined pose of its start where there is one (the JAX
     script's exact path).
 
+    batched_intervals=True (a staged video and a ZNCC tracker) runs every
+    interval in one batch (`_batched_intervals`), with the pipelined path's
+    results; None takes it only with a device mesh, as in the JAX package,
+    and a device mesh belongs to slice G.
+
     `cap_buckets` (pipelined, ZNCC only) sizes each interval's cap to the
     smallest of `cap_set(cap, cap_buckets)` that holds its valid count: the
     same result as the static cap, since ZNCC tracks each point on its own.
     For CoTracker2 the cap stays static. `telemetry` (a dict) records the
     caps chosen under "cap_choices"."""
+    from freepose_tpu_torch.datasets.video import StagedVideo
+
     if device_mesh is not None:
-        raise NotImplementedError(f"batched intervals over a device mesh {_SLICE_G}")
-    staged = torch.is_tensor(frames)
+        raise NotImplementedError(f"the smooth pass over a device mesh {_SLICE_G}")
+    if isinstance(frames, StagedVideo):
+        frames_dev, n = frames.frames, frames.n
+    elif torch.is_tensor(frames):
+        frames_dev, n = frames, len(frames)
+    else:
+        frames_dev, n = None, len(frames)
+    staged = frames_dev is not None
     if staged and not pipelined:
         raise ValueError("a device-staged video takes the pipelined path")
-    n = len(frames)
-    if staged:
-        inliers, _ = refiner.n_inliers_per_pose(mesh, frames, k, poses, channels_last=True)
+    if inliers is not None:
+        inliers = np.asarray(inliers)
+        if len(inliers) != n:
+            raise ValueError(f"inliers length {len(inliers)} != {n} frames")
+    elif staged:
+        inliers, _ = refiner.n_inliers_per_pose(mesh, frames_dev[:n], k, poses, channels_last=True)
     else:
         inliers, _ = refiner.n_inliers_per_pose(mesh, frames.transpose(0, 3, 1, 2), k, poses)
     best = int(np.argmax(inliers))
     step = interval
     refined: dict[int, np.ndarray] = {}
     starts = [s for s in sorted(set(range(best, n, step)) | set(range(best, -1, -step))) if s < n]
-    if not pipelined:
+    if batched_intervals is None:
+        batched_intervals = device_mesh is not None
+    if batched_intervals and not staged:
+        raise ValueError("batched_intervals requires a device-staged video")
+    if batched_intervals and getattr(refiner.tracker, "track_device_batch", None) is None:
+        raise ValueError("batched_intervals requires a batch-capable tracker (ZNCC)")
+    if batched_intervals:
+        _batched_intervals(refiner, mesh, frames_dev, k, poses, starts, step, n, cap, refined)
+    elif not pipelined:
         for s in starts:
             idxs = list(range(s, min(s + step, n)))
             if idxs:
@@ -127,7 +194,7 @@ def smooth_track(refiner, mesh, frames, k, poses, interval: int = 12, pipelined:
             qs, ss, vs = query[order], surface[order], valid[order]
             # Every interval padded to `step` frames (repeats of its last).
             pad_idxs = [min(max(i, 0), n - 1) for i in idxs] + [idxs[-1]] * (step - len(idxs))
-            sub = frames[torch.as_tensor(pad_idxs, device=frames.device)] if staged else frames[pad_idxs]
+            sub = frames_dev[torch.as_tensor(pad_idxs, device=frames_dev.device)] if staged else frames[pad_idxs]
             if track_dev is not None:
                 tracks, scores = track_dev(sub, qs, 0)
                 vis = None

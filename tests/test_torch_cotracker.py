@@ -1,12 +1,21 @@
-"""The ZNCC point tracker of the PyTorch port vs the JAX package's
-correlation mode, on the same seeded numpy inputs.
+"""The point trackers of the PyTorch port vs the JAX package's, on the
+same seeded numpy inputs: the ZNCC chain (correlation mode, single and
+batched intervals) and the learned CoTracker-style model on one JAX
+parameter tree.
 
 Tolerances: tap grids within 1e-6 (the same bilinear weights, summed in
 another order); ZNCC scores within 1e-5 and coordinates within 1e-4 pixels;
 with planted argmax ties (candidate patches identical bit for bit) the
 winners are identical, the first in (dy, dx) row-major order; tracks over a
-moving-texture video within 1e-3 pixels and the same visibility.
+moving-texture video within 1e-3 pixels and the same visibility; batched
+intervals identical to the single-interval chain. Learned model: the
+encoder within 1e-5 of its largest output magnitude (fp32 convolutions and
+GroupNorms summed in another order, ~2e-6 of it measured; a wrong `SAME`
+padding moves outputs by O(1)), tracks within 1e-4 pixels
+and visibility within 1e-5 (two CoTracker iterations of fp32 sums in
+another order; 5e-5 pixels measured), the query frame pinned exactly.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -100,6 +109,110 @@ def test_point_tracker_matches_jax(query_frame):
     np.testing.assert_allclose(tr8.numpy(), np.asarray(ref8), atol=1e-3)
 
 
-def test_learned_mode_is_not_ported():
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        ct.PointTracker(mode="learned", device="cpu")
+def _flax_params(seed=0):
+    """The JAX learned tracker's own init at COTRACKER_TEST, as numpy."""
+    p = jax_ct.CoTracker(jax_ct.COTRACKER_TEST).init(jax.random.PRNGKey(seed), jnp.zeros((2, 32, 32, 3)),
+                                                     jnp.zeros((1, 2)))["params"]
+    return jax.tree_util.tree_map(np.array, p)
+
+
+def _random_tree(seed=1):
+    """Seeded random parameters in the JAX layout (non-zero biases, norm
+    scales off 1), which the port's converter must carry across too."""
+    from freepose_tpu_torch.models.convert import random_cotracker_params
+
+    return random_cotracker_params(ct.COTRACKER_TEST, seed)
+
+
+@pytest.mark.parametrize("hw", [(32, 40), (33, 47)], ids=["even", "odd"])
+def test_basic_encoder_matches_flax(hw):
+    """Flax's SAME padding at stride 2 (2 before and 3 after for the 7 x 7
+    stem on an even side, 3 and 3 on an odd one)."""
+    from freepose_tpu_torch.models.convert import cotracker_from_jax
+
+    params = _random_tree()
+    video = np.random.default_rng(0).random((2, *hw, 3)).astype(np.float32)
+    ref = np.asarray(jax_ct.BasicEncoder(jax_ct.COTRACKER_TEST).apply({"params": params["encoder"]},
+                                                                     jnp.asarray(video)))
+    enc = ct.BasicEncoder(ct.COTRACKER_TEST)
+    enc.load_state_dict({k[len("encoder."):]: v for k, v in cotracker_from_jax(params).items()
+                         if k.startswith("encoder.")})
+    with torch.no_grad():
+        out = enc(torch.as_tensor(video)).numpy()
+    assert out.shape == ref.shape == (2, -(-hw[0] // 4), -(-hw[1] // 4), ct.COTRACKER_TEST.feat_dim)
+    np.testing.assert_allclose(out, ref, atol=1e-5 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("query_frame", [0, 3])
+def test_learned_tracker_matches_jax(query_frame):
+    """PointTracker(mode="learned") on the JAX tracker's parameters (Flax's
+    init) and on seeded random ones (every leaf non-zero): tracks and
+    visibility as the JAX model's, the query frame pinned to the queries."""
+    rng = np.random.default_rng(5)
+    video = (rng.random((6, 40, 48, 3)) * 255).astype(np.uint8)
+    queries = rng.uniform(4, 36, (9, 2)).astype(np.float32)
+    for params in (_flax_params(), _random_tree()):
+        ours = ct.PointTracker(ct.COTRACKER_TEST, params=params, mode="learned", device="cpu")
+        with torch.no_grad():
+            tracks, vis = ours.model(ours._video(video), torch.as_tensor(queries), query_frame)
+        ref_tracks, ref_vis = jax_ct.CoTracker(jax_ct.COTRACKER_TEST).apply(
+            {"params": params}, jnp.asarray(video, jnp.float32) / 255.0, jnp.asarray(queries), query_frame)
+        np.testing.assert_allclose(tracks.numpy(), np.asarray(ref_tracks), atol=1e-4)
+        np.testing.assert_allclose(vis.numpy(), np.asarray(ref_vis), atol=1e-5)
+        np.testing.assert_array_equal(tracks[query_frame].numpy(), queries)
+        assert (vis[query_frame] == 1).all()
+        tr_np, vis_np = ours.track(video, queries, query_frame)
+        ref_np, ref_vis_np = jax_ct.PointTracker(jax_ct.COTRACKER_TEST, params=params, mode="learned").track(
+            video, queries, query_frame)
+        np.testing.assert_allclose(tr_np, ref_np, atol=1e-4)
+        sure = np.abs(np.asarray(ref_vis) - 0.5) > 1e-5  # away from the threshold
+        np.testing.assert_array_equal(vis_np[sure], ref_vis_np[sure])
+
+
+def test_cotracker_from_jax_layout():
+    """The converter's map: Flax's DenseGeneral q/k/v kernels [D, H, Dh] and
+    out kernel [H, Dh, D] become Linear weights; convolutions OIHW; norm
+    scales weights; the time embedding as it is. The random tree has Flax's
+    layout leaf for leaf."""
+    from freepose_tpu_torch.models.convert import cotracker_from_jax
+
+    params = _flax_params()
+    rand = _random_tree()
+    assert jax.tree_util.tree_structure(rand) == jax.tree_util.tree_structure(params)
+    for a, b in zip(jax.tree_util.tree_leaves(rand), jax.tree_util.tree_leaves(params)):
+        assert a.shape == b.shape and a.dtype == np.float32
+    sd = cotracker_from_jax(rand)
+    model = ct.CoTracker(ct.COTRACKER_TEST)
+    assert set(sd) == set(model.state_dict())
+    assert all(sd[k].shape == v.shape for k, v in model.state_dict().items())
+    attn = rand["block1"]["space_attn"]
+    d = ct.COTRACKER_TEST.hidden_dim
+    np.testing.assert_array_equal(sd["block1.space_attn.query.weight"].numpy(), attn["query"]["kernel"].reshape(d, d).T)
+    np.testing.assert_array_equal(sd["block1.space_attn.value.bias"].numpy(), attn["value"]["bias"].reshape(d))
+    np.testing.assert_array_equal(sd["block1.space_attn.out.weight"].numpy(), attn["out"]["kernel"].reshape(d, d).T)
+    np.testing.assert_array_equal(sd["encoder.stem.weight"].numpy(),
+                                  rand["encoder"]["stem"]["kernel"].transpose(3, 2, 0, 1))
+    np.testing.assert_array_equal(sd["encoder.res2.norm1.weight"].numpy(), rand["encoder"]["res2"]["norm1"]["scale"])
+    np.testing.assert_array_equal(sd["time_embed"].numpy(), rand["time_embed"])
+
+
+def test_track_device_batch_matches_the_chain_and_jax():
+    """Batched intervals: each is the single-interval chain from frame 0,
+    the query row (score 1) first, as JAX's _track_chain_batch; learned
+    mode and a device mesh refuse."""
+    videos = np.stack([_moving_pattern_video(t=4, seed=s, dx=1.0 + s)[0] for s in range(3)])
+    queries = np.stack([np.array([[18.0, 28.0], [20.5, 25.25], [5.0, 40.0]], np.float32) + s for s in range(3)])
+    tracker = ct.PointTracker(device="cpu")
+    tracks, scores = tracker.track_device_batch(torch.as_tensor(videos), torch.as_tensor(queries))
+    assert tracks.shape == (3, 4, 3, 2) and scores.shape == (3, 4, 3)
+    for i in range(3):
+        tr1, sc1 = tracker.track_device(videos[i], queries[i], 0)
+        np.testing.assert_array_equal(tracks[i].numpy(), tr1.numpy())
+        np.testing.assert_array_equal(scores[i].numpy(), sc1.numpy())
+    ref_tracks, ref_scores = jax_ct._track_chain_batch(jnp.asarray(videos), jnp.asarray(queries))
+    np.testing.assert_allclose(tracks.numpy(), np.asarray(ref_tracks), atol=1e-3)
+    np.testing.assert_allclose(scores.numpy(), np.asarray(ref_scores), atol=1e-5)
+    with pytest.raises(ValueError, match="ZNCC-only"):
+        ct.PointTracker(ct.COTRACKER_TEST, mode="learned", device="cpu").track_device_batch(videos, queries)
+    with pytest.raises(NotImplementedError, match="slice G"):
+        tracker.track_device_batch(videos, queries, device_mesh=object())

@@ -915,3 +915,68 @@ def test_streaming_inliers_on_the_card_equal_n_inliers_per_pose(cuda):
     assert raster_tile.launches > launches[0] and flash_attention_k2.launches > launches[1]
     np.testing.assert_array_equal(inl, ref_inl)
     assert thr == ref_thr and inl.shape == (7,)
+
+
+def test_cached_refine_chain_on_the_card_matches_the_cpu(cuda):
+    """CachedRefineChain with K1 and K2 on the card (the device slot table
+    updated in place, the speculative hit steps enqueued back to back, pinned
+    host copies read `lag` frames behind) against the same chain on the CPU:
+    grid poses identical, scores within 1e-4 (fp32 K2 against the plain
+    attention), the same speculative hits and replays, slot map and LRU
+    order; the table on the card mirrors the slot map."""
+    from freepose_tpu_torch.pipeline.online_pose_estimator import CachedRefineChain
+
+    mesh = _bumpy_sphere()
+    est_cpu = _refine_setup("cpu")
+    frames = []
+    for gi in (5, 6, 7, 60, 61, 5, 120, 121, 6, 7):
+        rgb, depth = est_cpu.renderer.render_from_poses(mesh, est_cpu.fine_poses[gi][None])
+        props, masks, boxes = est_cpu.renderer.generate_proposals(rgb, depth)
+        frames.append((props[0], masks[0], boxes[0].float()))
+    prev0 = est_cpu.fine_poses[5]
+    runs = {}
+    for device in ("cpu", cuda):
+        est = est_cpu if device == "cpu" else _refine_setup(cuda)
+        chain = CachedRefineChain(est, mesh, "ck", neighborhood_deg=40.0, lag=3)
+        launches = raster_tile.launches, flash_attention_k2.launches
+        for i, (prop, mask, box) in enumerate(frames):
+            chain.submit(prop, mask, est.renderer.k, box, 0.25, prev_pose=prev0 if i == 0 else None)
+        cache = est._fine_caches["ck"]
+        runs[str(device)] = (chain.finalize_all(), chain.n_spec_hits, chain.n_replayed, dict(cache.slot_of),
+                             list(cache.lru))
+        assert chain.n_spec_hits > 0 and chain.n_replayed > 0
+        table = cache.slot_table.cpu().numpy()[:-1]
+        assert {gi: s for gi, s in enumerate(table) if s >= 0} == cache.slot_of
+        if device != "cpu":
+            assert cache.slot_table.device.type == "cuda"
+            assert raster_tile.launches > launches[0] and flash_attention_k2.launches > launches[1]
+    card, cpu = runs[str(cuda)], runs["cpu"]
+    assert card[1:] == cpu[1:]
+    for (tc, sc), (tr, sr) in zip(card[0], cpu[0]):
+        np.testing.assert_allclose(tc[:3, :3], tr[:3, :3], rtol=0, atol=1e-6)
+        np.testing.assert_allclose(tc, tr, atol=1e-4)
+        assert abs(sc - sr) < 1e-4
+
+
+def test_learned_cotracker_on_the_card_matches_the_cpu(cuda):
+    """The learned CoTracker at COTRACKER_TEST on the card (cuDNN fp32
+    convolutions, TF32 off) against the CPU on the same seeded parameters:
+    tracks within 1e-3 pixels, visibility within 1e-4, the query frame
+    pinned."""
+    from freepose_tpu_torch.models.cotracker import COTRACKER_TEST, PointTracker
+    from freepose_tpu_torch.models.convert import random_cotracker_params
+
+    params = random_cotracker_params(COTRACKER_TEST, seed=3)
+    rng = np.random.default_rng(4)
+    video = (rng.random((6, 72, 96, 3)) * 255).astype(np.uint8)
+    queries = rng.uniform(8, 64, (16, 2)).astype(np.float32)
+    out = {}
+    for device in ("cpu", cuda):
+        tracker = PointTracker(COTRACKER_TEST, params=params, mode="learned", device=device)
+        with torch.inference_mode():
+            tracks, vis = tracker.model(tracker._video(video), tracker._queries(queries), 2)
+        out[str(device)] = tracks.cpu().numpy(), vis.cpu().numpy()
+    (tc, vc), (tr, vr) = out[str(cuda)], out["cpu"]
+    np.testing.assert_array_equal(tc[2], queries)
+    np.testing.assert_allclose(tc, tr, atol=1e-3)
+    np.testing.assert_allclose(vc, vr, atol=1e-4)

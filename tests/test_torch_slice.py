@@ -326,6 +326,11 @@ PROPOSALS_REST_MODULES = [
     "freepose_tpu_torch.scripts.vis_detections_video",
 ]
 
+LEFTOVERS_MODULES = [
+    "freepose_tpu_torch.models.cotracker", "freepose_tpu_torch.utils.viz",
+    "freepose_tpu_torch.scripts.vis_poses_video", "freepose_tpu_torch.scripts.vis_features",
+]
+
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     code = (
@@ -349,6 +354,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert set(EVAL_SLICE_MODULES) <= set(mods)
     assert set(ASSET_SLICE_MODULES) <= set(mods)
     assert set(PROPOSALS_REST_MODULES) <= set(mods)
+    assert set(LEFTOVERS_MODULES) <= set(mods)
     # No import of JAX, the JAX package or the tests anywhere in the sources,
     # not even inside a function that this import did not run.
     pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|freepose_tpu|scripts|tests)\b", re.M)

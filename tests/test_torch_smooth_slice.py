@@ -20,6 +20,17 @@ JSONs are identical. Two faults of
 the JAX script are not copied, and the port's own runs show the repairs:
 with CoTracker2 the default --cap-buckets leave the cap static, and a --cap
 above 512 is the largest bucket.
+
+smooth_track itself, both packages on the workspace's video staged at an
+8-frame bucket, the same weights and the ZNCC chain: every interval in one
+batch (batched_intervals=True) and with StreamingInliers' counts fed
+through inliers=, against JAX's, rows within the CLI tolerances; within the
+port, the batched path's and the inliers= path's rows equal the pipelined
+path's. Inlier counts within 1 of JAX's with the same best frame, which
+alone sets the intervals: a confidence within 1e-5 of the threshold (fp32
+ViT sums in another order) can cross it (test_torch_coupled_video).
+correspondences_batch against JAX's: valid patches and surface points
+identical, query pixels within 1e-3 (fp32 box arithmetic).
 """
 import dataclasses
 import importlib
@@ -236,3 +247,130 @@ def test_filter_predictions_matches_jax(workspace, tiny_env):
     ours = json.loads((ws / "kept_torch.json").read_text())
     assert ours == json.loads((ws / "kept_jax.json").read_text())
     assert len(ours) == N_FRAMES and {p["track_id"] for p in ours} == {0}
+
+
+# ------------------------------------------------------------- smooth_track
+
+@pytest.fixture(scope="module")
+def smooth_pair(workspace):
+    """(port refiner, JAX refiner, port mesh, JAX mesh, frames, poses), the
+    CLIs' refiners on the workspace's weights (VIT_TEST, ZNCC)."""
+    import os
+
+    from freepose_tpu.io.mesh import load_obj as jax_load_obj
+    from freepose_tpu.models.cotracker import COTRACKER_TEST
+    from freepose_tpu.models.cotracker import PointTracker as JaxPointTracker
+    from freepose_tpu.pipeline.tracking_refiner import TrackingRefiner as JaxRefiner
+    from freepose_tpu_torch.datasets.video import load_frame_dir
+    from freepose_tpu_torch.models.cotracker import PointTracker
+    from freepose_tpu_torch.pipeline.tracking_refiner import TrackingRefiner
+    from freepose_tpu_torch.scripts.common import load_dino_extractor
+    from scripts.common import load_dino_extractor as jax_load_dino_extractor
+
+    ws = workspace
+    old = os.environ.get("FREEPOSE_TINY_MODELS")
+    os.environ["FREEPOSE_TINY_MODELS"] = "1"
+    try:
+        fe = load_dino_extractor(str(ws / "dinov2.npz"), model="vitb", device="cpu")
+        jfe = jax_load_dino_extractor(str(ws / "dinov2.npz"), model="vitb")
+    finally:
+        if old is None:
+            del os.environ["FREEPOSE_TINY_MODELS"]
+        else:
+            os.environ["FREEPOSE_TINY_MODELS"] = old
+    ours = TrackingRefiner(feature_fn=lambda im: fe(im, layer=None, feature_type="patch"),
+                           tracker=PointTracker(device="cpu"), device="cpu")
+    ref = JaxRefiner(feature_fn=lambda im: jfe(im, layer=None, feature_type="patch"),
+                     tracker=JaxPointTracker(COTRACKER_TEST), extractor=jfe, feature_layer=None)
+    path = ws / "meshes" / MESH / f"{MESH}.obj"
+    coarse = sorted(read_results_csv(ws / "coarse.csv", t_scale=1.0), key=lambda r: r.im_id)
+    poses = np.stack([np.vstack([np.hstack([r.R, r.t[:, None]]), [0, 0, 0, 1]]) for r in coarse]).astype(np.float32)
+    return (ours, ref, load_obj(path).normalized().scaled(SCALE), jax_load_obj(path).normalized().scaled(SCALE),
+            load_frame_dir(ws / "frames"), poses)
+
+
+def _assert_inliers_match(ours, ref):
+    assert np.abs(np.asarray(ours) - np.asarray(ref)).max() <= 1
+    assert int(np.argmax(ours)) == int(np.argmax(ref))
+
+
+def _assert_poses_match(ours, ref, r_deg=R_DEG, t_atol=T_ATOL):
+    assert ours.shape == ref.shape == (N_FRAMES, 4, 4)
+    for o, r in zip(ours, ref):
+        assert _geodesic_deg(o[:3, :3], r[:3, :3]) <= r_deg
+        np.testing.assert_allclose(o[:3, 3], r[:3, 3], atol=t_atol)
+
+
+def test_smooth_track_batched_intervals_matches_jax(smooth_pair):
+    from freepose_tpu.datasets.video import stage_frames_hbm as jax_stage
+    from freepose_tpu_torch.datasets.video import stage_frames_hbm
+    from freepose_tpu_torch.scripts.smooth_poses_video import smooth_track
+    from scripts.smooth_poses_video import smooth_track as jax_smooth_track
+
+    ours, ref, mesh, jmesh, frames, poses = smooth_pair
+    staged = stage_frames_hbm(frames, bucket=8, device="cpu")
+    k = default_video_intrinsics(W, H)
+    batched, inl = smooth_track(ours, mesh, staged, k, poses, interval=3, batched_intervals=True)
+    pipelined, inl_p = smooth_track(ours, mesh, staged, k, poses, interval=3)
+    jbatched, jinl = jax_smooth_track(ref, jmesh, jax_stage(frames, bucket=8), jnp.asarray(k.numpy()), poses,
+                                      interval=3, batched_intervals=True)
+    np.testing.assert_array_equal(inl, inl_p)
+    _assert_inliers_match(inl, jinl)
+    np.testing.assert_allclose(batched, pipelined, atol=1e-5)
+    _assert_poses_match(batched, np.asarray(jbatched))
+    # The refine moved the coarse rotations (it is not the identity).
+    assert max(_geodesic_deg(b[:3, :3], p[:3, :3]) for b, p in zip(batched, poses)) > 0.1
+    with pytest.raises(ValueError, match="staged"):
+        smooth_track(ours, mesh, frames, k, poses, interval=3, batched_intervals=True)
+
+
+def test_smooth_track_with_streaming_inliers_matches_jax(smooth_pair):
+    """StreamingInliers' counts through inliers=: both packages' counts
+    agree, the port's rows equal those of the path that computes the counts
+    itself, and JAX's rows fed JAX's counts."""
+    from freepose_tpu.datasets.video import stage_frames_hbm as jax_stage
+    from freepose_tpu.pipeline.tracking_refiner import StreamingInliers as JaxStreamingInliers
+    from freepose_tpu_torch.datasets.video import stage_frames_hbm
+    from freepose_tpu_torch.pipeline.tracking_refiner import StreamingInliers
+    from freepose_tpu_torch.scripts.smooth_poses_video import smooth_track
+    from scripts.smooth_poses_video import smooth_track as jax_smooth_track
+
+    ours, ref, mesh, jmesh, frames, poses = smooth_pair
+    staged, jstaged = stage_frames_hbm(frames, bucket=8, device="cpu"), jax_stage(frames, bucket=8)
+    k = default_video_intrinsics(W, H)
+    jk = jnp.asarray(k.numpy())
+    stream, jstream = StreamingInliers(ours, mesh, staged, k, chunk=4), JaxStreamingInliers(ref, jmesh, jstaged, jk,
+                                                                                             chunk=4)
+    for t in (3, 0, 5, 1, 4, 2):
+        stream.add(t, poses[t])
+        jstream.add(t, poses[t])
+    counts, jcounts = stream.finalize()[0], jstream.finalize()[0]
+    _assert_inliers_match(counts, jcounts)
+    fed, fed_inl = smooth_track(ours, mesh, staged, k, poses, interval=3, inliers=counts)
+    computed, computed_inl = smooth_track(ours, mesh, staged, k, poses, interval=3)
+    np.testing.assert_array_equal(fed_inl, counts)
+    np.testing.assert_array_equal(computed_inl, counts)
+    np.testing.assert_array_equal(fed, computed)
+    jfed, _ = jax_smooth_track(ref, jmesh, jstaged, jk, poses, interval=3, inliers=jcounts)
+    _assert_poses_match(fed, np.asarray(jfed))
+    with pytest.raises(ValueError, match="inliers length"):
+        smooth_track(ours, mesh, staged, k, poses, interval=3, inliers=counts[:-1])
+    with pytest.raises(NotImplementedError, match="slice G"):
+        smooth_track(ours, mesh, staged, k, poses, interval=3, device_mesh=object())
+
+
+def test_correspondences_batch_matches_jax(smooth_pair):
+    ours, ref, mesh, jmesh, _, poses = smooth_pair
+    k = default_video_intrinsics(W, H)
+    q, s, v = (x.numpy() for x in ours.correspondences_batch(mesh, k, poses[:3]))
+    rq, rs, rv = (np.asarray(x) for x in ref.correspondences_batch(jmesh, jnp.asarray(k.numpy()),
+                                                                     jnp.asarray(poses[:3])))
+    assert q.shape == (3, 37 * 37, 2) and s.shape == (3, 37 * 37, 3) and v.shape == (3, 37 * 37)
+    np.testing.assert_array_equal(v, rv)
+    assert (v.sum(axis=1) > 20).all()
+    np.testing.assert_array_equal(s[v], rs[v])
+    np.testing.assert_allclose(q, rq, atol=1e-3)
+    for i in range(3):  # each start as the single-pose correspondences
+        one = ours.compute_2d3d_correspondences(mesh, None, k, poses[i])
+        for a, b in zip(one, (q[i], s[i], v[i])):
+            np.testing.assert_array_equal(a, b)

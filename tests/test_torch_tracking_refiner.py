@@ -200,6 +200,6 @@ def test_sharded_and_mesh_paths_name_slice_g(pair):
     with pytest.raises(NotImplementedError, match="slice G"):
         ours.pose_confidence_batch_sharded(mesh, None, K, None, device_mesh=object())
     with pytest.raises(NotImplementedError, match="slice G"):
-        ours.correspondences_batch(mesh, K, _gt_poses(1))
+        ours.correspondences_batch(mesh, K, _gt_poses(1), device_mesh=object())
     with pytest.raises(NotImplementedError, match="slice G"):
         ours.n_inliers_per_pose(mesh, np.zeros((1, 3, 8, 8), np.uint8), K, _gt_poses(1), device_mesh=object())
