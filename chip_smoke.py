@@ -300,8 +300,49 @@ Phases, one line each on stdout:
              AutoRefineChain and the serial loop with launches per frame,
              both smooth paths' ms per video and K1's P, the learned
              tracker's ms per interval and device busy share, ms per
-             overlay row, and K2's times with SDPA's and the bound; the
-             work directory is deleted after it;
+             overlay row, and K2's times with SDPA's and the bound;
+ 19. mesh    the multi-GPU paths on a device mesh of four shards on the
+             one card (make_mesh(data=2, model=2, devices=[cuda:0] * 4)),
+             each through the entry points a user calls, with the launch
+             counts zeroed before the first and read after the last (K1,
+             K2 at d 64, 72 and 256 and K4 > 0): (a) topk_search_sharded
+             over a seeded 46,037 x 1,024 bank (the Objaverse+GSO count,
+             padded to the "model" axis); (b) refine_sharded at the refine
+             cell's widths (DINOv2-L layer 22 bf16, 420² renders, 32
+             neighbours) on this mesh (16 views per shard) and on
+             make_mesh(data=1, model=4) (8 per shard); (c) the cached
+             composition (misses sharded) on the leftovers phase's walk;
+             (d) object-sharded SAM2 Hiera-L propagation of the video's two
+             boxed objects over "data"; (e) smooth_track(device_mesh=) on
+             the smooth cell (ZNCC, DINOv2-B at 518²); (f)
+             dino_inference_video --shard-refine and
+             extract_proposals_ground_video --shard-objects on the earlier
+             phases' inputs (one card: a one-shard mesh). Gates: (a)
+             indices identical to topk_search on the whole bank and scores
+             within MESH_TOPK_ATOL, which a stand-in that drops the shards'
+             row offsets must fail; (b) against refine() on the card,
+             render masks identical, the 32 scores within
+             REFINE_SCORE_ATOL and the lifted pose within MESH_POSE_ATOL,
+             which the shards reassembled in reverse order must fail; (c)
+             rows within MESH_POSE_ATOL (scores REFINE_SCORE_ATOL), slot map
+             and LRU order the unsharded cached run's; (d) each object's
+             binarised masks IoU >= MESH_SAM2_IOU_MIN on every frame of the
+             unsharded predictor's at the shard's batch (each object
+             alone), and the largest low-res logit difference within
+             MESH_SAM2_LOGIT_ATOL of the unsharded predictor with both
+             objects in one batch, each of which the shards' outputs
+             swapped must fail; the IoUs against both objects in one batch,
+             and that batch against the objects alone, are printed (bf16
+             rounds otherwise at another object count, and random weights
+             leave many logits near 0); (e) rows within BATCHED_POSE_ATOL of the unsharded
+             batched path, inlier counts within 1 with the same best frame;
+             (f) the CLIs' rows and proposals equal the unsharded CLIs'.
+             With two cards or more, (a) and (b) again on a mesh over the
+             real cards and K5 on cuda:1 against its plain version; with
+             one, the line says that part was skipped. Prints the mesh,
+             ms per refine and per SAM2 frame sharded and unsharded, launches
+             per shard, peak memory and the phase's seconds; the work
+             directory is deleted after it;
 then the kernels JSON line, the card's name and power limit, and last the
 device JSON line. Exits non-zero, printing no result, without a GPU or
 without the rest of the repository beside it.
@@ -4216,6 +4257,469 @@ def phase_leftovers(dev, mesh) -> tuple[dict, dict]:
     return result, launches
 
 
+MESH_TOPK_ROWS, MESH_TOPK_QUERIES, MESH_TOPK_K = 46037, 16, 10
+MESH_TOPK_ATOL = MESH_POSE_ATOL = 1e-5
+MESH_CLI_T_ATOL = 1e-4  # the CSV's translations, as the CPU CLI tests hold them
+MESH_SAM2_IOU_MIN = 0.99
+MESH_SAM2_LOGIT_ATOL = 1.0  # the video and vos phases' low-res logit limit
+MESH_REPS = 10
+
+
+def drops_shard_offset(bank_shards, queries, k, mesh):
+    """topk_search_sharded without the shards' row offsets: each shard's
+    local indices go into the global top-k as they are. The stand-in the
+    top-k gate must fail."""
+    from freepose_tpu_torch.ops.knn import topk_lowest_index, topk_search
+    from freepose_tpu_torch.parallel.mesh import gather
+
+    rows = bank_shards[0].shape[0]
+    parts = [topk_search(shard, queries.to(shard.device), min(k, rows)) for shard in bank_shards]
+    s_all = gather([s.T for s, _ in parts], mesh).T
+    i_all = gather([i.T for _, i in parts], mesh).T
+    top, pos = topk_lowest_index(s_all, k)
+    return top, torch.take_along_dim(i_all, pos, dim=1)
+
+
+def mesh_topk(mesh, dev) -> dict:
+    """(a): the sharded top-k over a seeded, normalised 46,037 x 1,024 bank
+    against topk_search on the whole bank, the offset-dropping stand-in,
+    and both times."""
+    from freepose_tpu_torch.ops.knn import topk_search, topk_search_sharded
+    from freepose_tpu_torch.parallel.mesh import shard_bank
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    bank = torch.randn((MESH_TOPK_ROWS, BANK_DIM), generator=gen, device=dev)
+    bank /= bank.norm(dim=-1, keepdim=True)
+    q = torch.randn((MESH_TOPK_QUERIES, BANK_DIM), generator=gen, device=dev)
+    q /= q.norm(dim=-1, keepdim=True)
+    shards = shard_bank(bank, mesh)
+
+    def sharded():
+        return topk_search_sharded(shards, q, MESH_TOPK_K, mesh)
+
+    s, i = sharded()
+    s1, i1 = topk_search(bank, q, MESH_TOPK_K)
+    _, io = drops_shard_offset(shards, q, MESH_TOPK_K, mesh)
+    out = dict(rows=MESH_TOPK_ROWS, padded_rows=sum(int(x.shape[0]) for x in shards), shards=len(shards),
+               shard_devices=[str(x.device) for x in shards], queries=MESH_TOPK_QUERIES, k=MESH_TOPK_K,
+               indices_identical=bool(torch.equal(i.cpu(), i1.cpu())),
+               score_max_abs_err=float((s.cpu() - s1.cpu()).abs().max()), atol=MESH_TOPK_ATOL,
+               offset_dropped_indices_identical=bool(torch.equal(io.cpu(), i1.cpu())),
+               offset_dropped_wrong_rows=int((io.cpu() != i1.cpu()).sum()),
+               ms=cuda_ms(sharded, reps=MESH_REPS), whole_bank_ms=cuda_ms(lambda: topk_search(bank, q, MESH_TOPK_K),
+                                                                          reps=MESH_REPS))
+    del bank, shards
+    return out
+
+
+def mesh_refine(est, torus, crop, cmask, bbox, prev, mesh) -> dict:
+    """(b): refine_sharded against refine() on the same frame: the 32
+    rescored views (render masks, scores), the lifted pose, the shards
+    reassembled in reverse order (which must fail), and ms per frame of
+    both, in turns."""
+    from freepose_tpu_torch.pipeline import online_pose_estimator as ope
+    from freepose_tpu_torch.parallel.mesh import gather
+
+    r = est.renderer
+    qf = est.coarse.query_features(crop)
+    v, c, f, fv = r._padded(torus, est.rendering_scale)
+    args = (est.fine_poses, prev, NEIGHBORHOOD, v, c, f, fv, r.k, r.settings, est.n_neighbors, r.pose_chunk,
+            r.resolution, est.extractor, DINO_LAYER)
+    grid = r.resolution // est.extractor.config.patch_size
+
+    def scored(prep):
+        return prep[4], ope.rescore_views(prep[3], qf, prep[2], prep[4], cmask, grid, False)
+
+    masks1, scores1 = scored(ope._refine_prepare_fused(*args))
+    masks_s, scores_s = scored(ope._refine_prepare_fused_sharded(*args, mesh, "model"))
+    ope.gather = lambda parts, m: gather(parts[::-1], m)
+    try:
+        masks_r, scores_r = scored(ope._refine_prepare_fused_sharded(*args, mesh, "model"))
+    finally:
+        ope.gather = gather
+    valid = torch.isfinite(scores1)
+
+    def score_err(x):
+        if not torch.equal(torch.isfinite(x), valid):
+            return float("inf")
+        return float((x[valid] - scores1[valid]).abs().max())
+
+    refine_args = (qf, cmask, torus, r.k, bbox, LEFT_SCALE, prev, NEIGHBORHOOD)
+    one = est.refine(*refine_args)
+    sh = est.refine_sharded(*refine_args[:7], device_mesh=mesh, neighborhood_deg=NEIGHBORHOOD)
+    # One shard's block alone: its launches.
+    per_shard = est.n_neighbors // mesh.shape["model"]
+    torch.cuda.synchronize()
+    before = read_launches()
+    ope._render_and_featurize(v, c, f, fv, r.k, est.fine_poses[:per_shard], r.settings, r.pose_chunk, r.resolution,
+                              est.extractor, DINO_LAYER, False)
+    torch.cuda.synchronize()
+    after = read_launches()
+
+    def frame_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(MESH_REPS):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / MESH_REPS
+
+    timed = {"sharded": [], "unsharded": []}
+    for kind in ("unsharded", "sharded", "sharded", "unsharded"):
+        timed[kind].append(frame_ms(lambda: est.refine(*refine_args)) if kind == "unsharded" else
+                           frame_ms(lambda: est.refine_sharded(*refine_args[:7], device_mesh=mesh,
+                                                               neighborhood_deg=NEIGHBORHOOD)))
+    return dict(mesh=mesh.shape, views=est.n_neighbors, views_per_shard=per_shard,
+                valid_views=int(valid.sum()),
+                render_mask_mismatches=int((masks_s != masks1).sum()), score_max_abs_err=score_err(scores_s),
+                score_atol=REFINE_SCORE_ATOL,
+                reversed_render_mask_mismatches=int((masks_r != masks1).sum()),
+                reversed_score_max_abs_err=score_err(scores_r),
+                pose_max_abs_err=float((sh.tcos - one.tcos).abs().max()), pose_atol=MESH_POSE_ATOL,
+                view_index_equal=int(sh.view_indices) == int(one.view_indices),
+                launches_per_shard={k: after[k] - before[k] for k in ("K1", "K2")},
+                ms_per_frame={k: float(np.mean(x)) for k, x in timed.items()}, ms_in_turns=timed)
+
+
+def phase_mesh(dev, torus) -> tuple[dict, dict]:
+    """The multi-GPU paths on four shards of the one card, each through the
+    entry points a user calls, then each against its unsharded version on
+    the same card (docstring, phase 19)."""
+    import contextlib
+    import io
+
+    from freepose_tpu_torch.datasets.video import load_frame_dir, stage_frames_hbm
+    from freepose_tpu_torch.geometry.camera import default_video_intrinsics
+    from freepose_tpu_torch.io.bop_csv import read_results_csv
+    from freepose_tpu_torch.io.mesh import load_obj
+    from freepose_tpu_torch.models.cotracker import PointTracker
+    from freepose_tpu_torch.models.convert import random_sam2_video_params
+    from freepose_tpu_torch.models.sam2.predictor import Sam2VideoPredictor
+    from freepose_tpu_torch.parallel.mesh import make_mesh
+    from freepose_tpu_torch.pipeline.online_pose_estimator import OnlinePoseEstimator
+    from freepose_tpu_torch.pipeline.renderer import TemplateRenderer
+    from freepose_tpu_torch.pipeline.template_bank import TemplateBank
+    from freepose_tpu_torch.pipeline.tracking_refiner import TrackingRefiner
+    from freepose_tpu_torch.scripts import dino_inference_video, extract_proposals_ground_video
+    from freepose_tpu_torch.scripts.common import load_dino_extractor, production_sam2_video_config
+    from freepose_tpu_torch.scripts.smooth_poses_video import smooth_track
+
+    phase_t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = make_mesh(data=2, model=2, devices=[dev] * 4)
+    mesh_1x4 = make_mesh(data=1, model=4, devices=[dev] * 4)
+    mesh_info = dict(shape=mesh.shape, devices=[str(d) for d in mesh.devices],
+                     distinct_devices=len(mesh.distinct_devices), first=str(mesh.first))
+
+    # (b), (c): an estimator at the refine cell's widths, and the leftovers
+    # walk's estimators (8 neighbours, 12 slots), unsharded and sharded.
+    extractor = load_dino_extractor(str(WORK_DIR / "dinov2.npz"), device=dev)
+
+    def feature_fn(imgs):
+        return extractor(imgs, layer=DINO_LAYER, feature_type="patch")
+
+    renderer = TemplateRenderer(n_poses=N_VIEWS, device=dev)
+    bank = TemplateBank(feature_fn, renderer, cache_size=1, device=dev)
+
+    def estimator(n_neighbors, cap=0, shard_mesh=None):
+        return OnlinePoseEstimator(feature_fn, bank, renderer, n_coarse_poses=N_VIEWS, n_fine_poses=N_FINE,
+                                   n_neighbors=n_neighbors, extractor=extractor, feature_layer=DINO_LAYER,
+                                   fine_cache_capacity=cap, shard_mesh=shard_mesh)
+
+    est = estimator(N_NEIGHBORS)
+    walk_est, walk_sharded = estimator(LEFT_NEIGHBORS, LEFT_CAPACITY), estimator(LEFT_NEIGHBORS, LEFT_CAPACITY, mesh)
+    walk = leftover_trajectory(walk_est)
+    crops = []
+    for gi in walk:
+        rgb, depth = renderer.render_from_poses(torus, est.fine_poses[gi][None])
+        props, masks, boxes = renderer.generate_proposals(rgb, depth)
+        crops.append((props[0], masks[0], boxes[0].float()))
+    k_r = renderer.k
+    prevs = [est.fine_poses[walk[0]]] + [est.fine_poses[g] for g in walk[:-1]]
+
+    # (d): SAM2 on the video cell's frames and boxes, one parameter tree.
+    frames_v = load_frame_dir(WORK_DIR / "frames")
+    boxes0 = np.load(WORK_DIR / "boxes.npy")
+    sam_cfg = production_sam2_video_config(dev)
+    sam_params = random_sam2_video_params(sam_cfg, seed=SEED)
+    sam_sharded = Sam2VideoPredictor(sam_cfg, sam_params, device_mesh=mesh)
+    sam_base = Sam2VideoPredictor(sam_cfg, sam_params, device=dev)
+    del sam_params
+
+    def propagate(pred, objects=range(len(boxes0))):
+        state = pred.init_state(frames_v)
+        for i in objects:
+            state = pred.add_new_points_or_box(state, 0, obj_id=i, box=boxes0[i])
+        out, ms = [], []
+        gen = pred.propagate_in_video(state, chunk=1)
+        while True:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            item = next(gen, None)
+            if item is None:
+                break
+            ms.append((time.perf_counter() - t0) * 1e3)
+            out.append((item[2], item[3]))
+        return out, ms
+
+    # (e): the smooth cell, its refiner with the extractor it replicates.
+    frames_s = load_frame_dir(WORK_DIR / "smooth_frames")
+    hs, ws_ = frames_s.shape[1:3]
+    k_s = default_video_intrinsics(ws_, hs)
+    coarse = sorted(read_results_csv(WORK_DIR / "coarse.csv", t_scale=1.0), key=lambda r: r.im_id)
+    mesh_s = load_obj(WORK_DIR / "meshes" / str(coarse[0].obj_id) / f"{coarse[0].obj_id}.obj").normalized().scaled(
+        coarse[0].scale)
+    poses_s = np.stack([np.vstack([np.hstack([r.R, r.t[:, None]]), [0, 0, 0, 1]]) for r in coarse]).astype(np.float32)
+    extractor_b = load_dino_extractor(str(WORK_DIR / "dinov2_vitb.npz"), model="vitb", device=dev)
+    refiner = TrackingRefiner(feature_fn=lambda imgs: extractor_b(imgs, layer=None, feature_type="patch"),
+                              tracker=PointTracker(device=dev), device=dev, extractor=extractor_b, feature_layer=None)
+    staged = stage_frames_hbm(frames_s, device=dev)
+
+    # (f): the CLIs' arguments as the refine and video phases ran them.
+    refine_argv = ["--video-dir", str(WORK_DIR / "frames"), "--proposals", str(WORK_DIR / "scaled.json"),
+                   "--wds-dir", str(WORK_DIR / "shards"), "--weights", str(WORK_DIR / "dinov2.npz"),
+                   "--layer", str(DINO_LAYER), "--filelist", str(WORK_DIR / "refine_meshes.txt"),
+                   "--mesh-dir", str(WORK_DIR / "meshes"), "--device", str(dev)]
+    video_argv = ["--video-dir", str(WORK_DIR / "frames"), "--bank", str(WORK_DIR / "bank.npy"),
+                  "--filelist", str(WORK_DIR / "filelist.txt"), "--detector", "boxes",
+                  "--boxes", str(WORK_DIR / "boxes.npy"), "--layer", str(DINO_LAYER),
+                  "--min-mask-px", str(MIN_MASK_PX), "--device", str(dev)]
+    cli_out = io.StringIO()
+    crop, cmask, bbox = crops[2]
+    setup_s = time.perf_counter() - phase_t0
+
+    # The path, once, with the launch counts.
+    torch.cuda.synchronize()
+    reset_launches()
+    t_path = time.perf_counter()
+    topk = mesh_topk(mesh, dev)
+    sharded_refine = est.refine_sharded(est.coarse.query_features(crop), cmask, torus, k_r, bbox, LEFT_SCALE,
+                                        prevs[2], device_mesh=mesh, neighborhood_deg=NEIGHBORHOOD)
+    walk_rows = [walk_sharded.refine_cached(cr, cm, torus, k_r, bb, LEFT_SCALE, pv, NEIGHBORHOOD, cache_key="walk")
+                 for (cr, cm, bb), pv in zip(crops, prevs)]
+    sam_out, sam_ms = propagate(sam_sharded)
+    smooth_rows, smooth_inliers = smooth_track(refiner, mesh_s, staged, k_s, poses_s, interval=12, cap=512,
+                                               device_mesh=mesh)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(cli_out):
+        dino_inference_video.main([*refine_argv, "--shard-refine", "--out", str(WORK_DIR / "mesh_shard.csv")])
+    torch.cuda.synchronize()
+    refine_cli_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(cli_out):
+        extract_proposals_ground_video.main([*video_argv, "--shard-objects",
+                                             "--out", str(WORK_DIR / "mesh_proposals.json")])
+    torch.cuda.synchronize()
+    video_cli_s = time.perf_counter() - t0
+    path_s = time.perf_counter() - t_path
+    launches = read_launches()
+    assert sharded_refine.tcos.shape == (1, 4, 4)
+
+    # (b) against refine() on this mesh and on the 1 x 4 mesh.
+    refine_checks = {"2x2": mesh_refine(est, torus, crop, cmask, bbox, prevs[2], mesh),
+                     "1x4": mesh_refine(est, torus, crop, cmask, bbox, prevs[2], mesh_1x4)}
+
+    # (c) against the unsharded cached refine on the same frames and prevs.
+    plain_rows = [walk_est.refine_cached(cr, cm, torus, k_r, bb, LEFT_SCALE, pv, NEIGHBORHOOD, cache_key="walk")
+                  for (cr, cm, bb), pv in zip(crops, prevs)]
+    cache_s, cache_p = walk_sharded._fine_caches["walk"], walk_est._fine_caches["walk"]
+    cached_check = dict(walk=walk, rows=len(walk_rows),
+                        pose_max_abs_err=max(float((a.tcos - b.tcos).abs().max()) for a, b in zip(walk_rows, plain_rows)),
+                        score_max_abs_err=max(float((a.scores - b.scores).abs().max())
+                                              for a, b in zip(walk_rows, plain_rows)),
+                        view_indices_equal=all(int(a.view_indices) == int(b.view_indices)
+                                               for a, b in zip(walk_rows, plain_rows)),
+                        slot_of_equal=cache_s.slot_of == cache_p.slot_of, lru_equal=list(cache_s.lru) == list(cache_p.lru),
+                        cached_views=len(cache_s.slot_of), pose_atol=MESH_POSE_ATOL, score_atol=REFINE_SCORE_ATOL)
+
+    # (d) against the unsharded predictor, at each shard's batch (one
+    # object: each alone) and at the whole batch (both objects). bf16
+    # kernels and GEMMs round otherwise at another object count, and with
+    # random weights many logits sit near 0, so the whole batch is held
+    # apart: the unsharded predictor against itself at the two batch sizes
+    # shows how far that alone moves the masks.
+    def agreement(run, ref):
+        ious, low_err, bit_equal = [], 0.0, True
+        for (low_a, high_a), (low_b, high_b) in zip(run, ref):
+            for o in range(len(boxes0)):
+                a, b = high_a[o] > 0, high_b[o] > 0
+                union = int((a | b).sum())
+                ious.append(1.0 if union == 0 else int((a & b).sum()) / union)
+            low_err = max(low_err, float(np.abs(low_a - low_b).max()))
+            bit_equal &= bool(np.array_equal(low_a, low_b) and np.array_equal(high_a, high_b))
+        return dict(iou_min=min(ious), iou_mean=float(np.mean(ious)), low_res_logit_max_abs_diff=low_err,
+                    bit_equal=bit_equal)
+
+    base_out, base_ms = propagate(sam_base)
+    alone = [propagate(sam_base, [o])[0] for o in range(len(boxes0))]
+    per_object = [tuple(np.concatenate([alone[o][t][i] for o in range(len(boxes0))]) for i in (0, 1))
+                  for t in range(len(base_out))]
+    swapped = [(low[::-1], high[::-1]) for low, high in sam_out]
+    sam_check = dict(frames=len(sam_out), objects=len(boxes0), shards=mesh.shape["data"],
+                     objects_per_shard=len(boxes0) // mesh.shape["data"], iou_floor=MESH_SAM2_IOU_MIN,
+                     vs_unsharded_per_object=agreement(sam_out, per_object),
+                     shards_swapped_vs_unsharded_per_object=agreement(swapped, per_object),
+                     vs_unsharded_both_objects=agreement(sam_out, base_out),
+                     shards_swapped_vs_unsharded_both_objects=agreement(swapped, base_out),
+                     logit_atol=MESH_SAM2_LOGIT_ATOL,
+                     unsharded_per_object_vs_both_objects=agreement(per_object, base_out),
+                     ms_per_frame={"sharded": float(np.median(sam_ms[1:])), "unsharded": float(np.median(base_ms[1:]))})
+    del sam_sharded, sam_base, sam_out, base_out, alone, per_object, swapped
+
+    # (e) against the unsharded batched path.
+    batched_rows, batched_inliers = smooth_track(refiner, mesh_s, staged, k_s, poses_s, interval=12, cap=512,
+                                                 batched_intervals=True)
+    smooth_check = dict(frames=staged.n, pose_max_abs_err=float(np.abs(smooth_rows - batched_rows).max()),
+                        atol=BATCHED_POSE_ATOL,
+                        inliers_max_abs_diff=int(np.abs(np.asarray(smooth_inliers) - batched_inliers).max()),
+                        best_frame_equal=int(np.argmax(smooth_inliers)) == int(np.argmax(batched_inliers)))
+
+    # (f) against the unsharded CLIs' outputs of the earlier phases.
+    shard_rows = read_results_csv(WORK_DIR / "mesh_shard.csv", t_scale=1.0)
+    serial_rows = read_results_csv(WORK_DIR / "serial.csv", t_scale=1.0)
+    shard_props = json.loads((WORK_DIR / "mesh_proposals.json").read_text())
+    plain_props = json.loads((WORK_DIR / "proposals.json").read_text())
+
+    def prop_key(p):
+        return (p["track_id"], p["image_id"], p["mesh"], list(p["bbox"]), p["segmentation"])
+
+    cli_check = dict(
+        refine=dict(rows=len(shard_rows), same_rows=[(a.im_id, str(a.obj_id)) for a in shard_rows] ==
+                    [(b.im_id, str(b.obj_id)) for b in serial_rows],
+                    grid_poses_equal=sum(bool(np.array_equal(a.R, b.R)) for a, b in zip(shard_rows, serial_rows)),
+                    t_max_abs_diff=max(float(np.abs(a.t - b.t).max()) for a, b in zip(shard_rows, serial_rows)),
+                    score_max_abs_diff=max(abs(a.score - b.score) for a, b in zip(shard_rows, serial_rows)),
+                    cli_s=refine_cli_s),
+        proposals=dict(count=len(shard_props), equal=[prop_key(p) for p in shard_props] ==
+                       [prop_key(p) for p in plain_props],
+                       score_max_abs_diff=max((abs(a["score"] - b["score"]) for a, b in zip(shard_props, plain_props)),
+                                              default=0.0), cli_s=video_cli_s))
+
+    cards_check = mesh_over_cards(dev, est, torus, crop, cmask, bbox, prevs[2])
+
+    result = dict(mesh=mesh_info, launches=launches, path_s=path_s, setup_s=setup_s, topk=topk,
+                  refine=refine_checks, cached=cached_check, sam2=sam_check, smooth=smooth_check, clis=cli_check,
+                  real_cards=cards_check, cli_last_lines=cli_out.getvalue().strip().splitlines()[-2:],
+                  phase_s=time.perf_counter() - phase_t0, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log("mesh", **result)
+    by_dim = launches["K2_by_dim"]
+    if min(launches["K1"], launches["K4"], by_dim.get("64", 0), by_dim.get("72", 0), by_dim.get("256", 0)) <= 0:
+        raise AssertionError(f"mesh path did not launch K1, K2 at d 64/72/256 and K4: {launches}")
+    gate_topk("one card", topk)
+    for label, rc in refine_checks.items():
+        gate_refine(label, rc)
+    c = cached_check
+    if not (c["pose_max_abs_err"] <= MESH_POSE_ATOL and c["score_max_abs_err"] <= REFINE_SCORE_ATOL
+            and c["view_indices_equal"] and c["slot_of_equal"] and c["lru_equal"]):
+        raise AssertionError(f"cached composition against the unsharded cache: {c}")
+    if not (sam_check["vs_unsharded_per_object"]["iou_min"] >= MESH_SAM2_IOU_MIN
+            and sam_check["shards_swapped_vs_unsharded_per_object"]["iou_min"] < MESH_SAM2_IOU_MIN
+            and sam_check["vs_unsharded_both_objects"]["low_res_logit_max_abs_diff"] <= MESH_SAM2_LOGIT_ATOL
+            and sam_check["shards_swapped_vs_unsharded_both_objects"]["low_res_logit_max_abs_diff"]
+            > MESH_SAM2_LOGIT_ATOL):
+        raise AssertionError(f"object-sharded SAM2 against the unsharded predictor: {sam_check}")
+    sm = smooth_check
+    if not (sm["pose_max_abs_err"] <= BATCHED_POSE_ATOL and sm["inliers_max_abs_diff"] <= 1
+            and sm["best_frame_equal"]):
+        raise AssertionError(f"sharded smooth pass against the batched path: {sm}")
+    rf, pr = cli_check["refine"], cli_check["proposals"]
+    if not (rf["same_rows"] and rf["grid_poses_equal"] == rf["rows"] and rf["t_max_abs_diff"] <= MESH_CLI_T_ATOL
+            and rf["score_max_abs_diff"] <= REFINE_SCORE_ATOL and pr["equal"] and pr["count"] > 0
+            and pr["score_max_abs_diff"] <= REFINE_SCORE_ATOL):
+        raise AssertionError(f"CLIs with their shard flags against the unsharded CLIs: {cli_check}")
+    gate_cards(cards_check)
+    return result, launches
+
+
+def mesh_over_cards(dev, est, torus, crop, cmask, bbox, prev) -> dict:
+    """With two cards or more: (a) and (b) on a mesh over every card ("model"
+    axis), and K5 on cuda:1 against its plain version; with one, what was
+    skipped."""
+    from freepose_tpu_torch.ops.attention import dense_attention_bias, flash_attention_bias
+    from freepose_tpu_torch.parallel.mesh import make_mesh
+
+    cards = torch.cuda.device_count()
+    out = {"cards": cards}
+    if cards < 2:
+        out["skipped"] = "one card: the mesh over real cards ((a) and (b) again) and K5 on cuda:1 need two or more"
+        return out
+    card_mesh = make_mesh(data=1, devices=[torch.device("cuda", i) for i in range(cards)])
+    out["mesh"] = dict(shape=card_mesh.shape, devices=[str(d) for d in card_mesh.devices],
+                       distinct_devices=len(card_mesh.distinct_devices))
+    out["topk"] = mesh_topk(card_mesh, dev)
+    if est.n_neighbors % cards == 0:
+        out["refine"] = mesh_refine(est, torus, crop, cmask, bbox, prev, card_mesh)
+    else:
+        out["refine"] = f"skipped: {est.n_neighbors} views do not divide over {cards} cards"
+    d1 = torch.device("cuda", 1)
+    gen = torch.Generator(device=d1).manual_seed(SEED + 15)
+    h, n, d = K5_SHAPE[1:]
+    q = torch.randn(K5_SHAPE, generator=gen, device=d1) * QUERY_STD
+    kk, vv = (torch.randn(K5_SHAPE, generator=gen, device=d1) for _ in range(2))
+    bias = torch.randn((h, n, n), generator=gen, device=d1)
+    got = flash_attention_bias(q, kk, vv, d ** -0.5, bias)
+    ref = dense_attention_bias(q, kk, vv, d ** -0.5, bias, None)
+    torch.cuda.synchronize(d1)
+    out["k5_cuda1"] = {"max_abs_err": float((got - ref).abs().max()),
+                       "tol_ratio": float(((got - ref).abs() / (K5_TOL["atol"] + K5_TOL["rtol"] * ref.abs())).max())}
+    return out
+
+
+def gate_topk(label: str, tk: dict) -> None:
+    if not (tk["indices_identical"] and tk["score_max_abs_err"] <= MESH_TOPK_ATOL
+            and not tk["offset_dropped_indices_identical"]):
+        raise AssertionError(f"sharded top-k ({label}): {tk}")
+
+
+def gate_refine(label: str, rc: dict) -> None:
+    if not (rc["render_mask_mismatches"] == 0 and rc["score_max_abs_err"] <= REFINE_SCORE_ATOL
+            and rc["pose_max_abs_err"] <= MESH_POSE_ATOL and rc["view_index_equal"]
+            and (rc["reversed_render_mask_mismatches"] > 0 or rc["reversed_score_max_abs_err"] > REFINE_SCORE_ATOL)
+            and min(rc["launches_per_shard"].values()) > 0):
+        raise AssertionError(f"refine_sharded on {label}: {rc}")
+
+
+def gate_cards(out: dict) -> None:
+    if out["cards"] < 2:
+        return
+    gate_topk("cards", out["topk"])
+    if isinstance(out["refine"], dict):
+        gate_refine("cards", out["refine"])
+    if not out["k5_cuda1"]["tol_ratio"] <= 1.0:
+        raise AssertionError(f"K5 on cuda:1 against its plain version: {out['k5_cuda1']}")
+
+
+def phase_mesh_cards(dev) -> dict:
+    """The mesh phase's part over real cards alone, without the earlier
+    phases' files: the refine cell's estimator (seeded random DINOv2-L
+    weights), the torus rendered at the leftovers walk's third pose, the
+    walk's second as the previous pose. For a machine with several cards:
+    python -c "import torch, chip_smoke as s; s.phase_build();
+    s.phase_mesh_cards(torch.device('cuda', 0))"."""
+    from freepose_tpu_torch.pipeline.online_pose_estimator import OnlinePoseEstimator
+    from freepose_tpu_torch.pipeline.renderer import TemplateRenderer
+    from freepose_tpu_torch.pipeline.template_bank import TemplateBank
+    from freepose_tpu_torch.scripts.common import load_dino_extractor
+
+    extractor = load_dino_extractor(None, device=dev)
+
+    def feature_fn(imgs):
+        return extractor(imgs, layer=DINO_LAYER, feature_type="patch")
+
+    renderer = TemplateRenderer(n_poses=N_VIEWS, device=dev)
+    est = OnlinePoseEstimator(feature_fn, TemplateBank(feature_fn, renderer, cache_size=1, device=dev), renderer,
+                              n_coarse_poses=N_VIEWS, n_fine_poses=N_FINE, n_neighbors=N_NEIGHBORS,
+                              extractor=extractor, feature_layer=DINO_LAYER)
+    torus = bumpy_torus()
+    walk = leftover_trajectory(est)
+    rgb, depth = renderer.render_from_poses(torus, est.fine_poses[walk[2]][None])
+    props, masks, boxes = renderer.generate_proposals(rgb, depth)
+    out = mesh_over_cards(dev, est, torus, props[0], masks[0], boxes[0].float(), est.fine_poses[walk[1]])
+    log("mesh_cards", **out, card=torch.cuda.get_device_name(0))
+    gate_cards(out)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -4260,12 +4764,14 @@ def main() -> int:
         _, amg = phase_amg(dev)
         torch.cuda.empty_cache()
         _, leftovers = phase_leftovers(dev, mesh)
+        torch.cuda.empty_cache()
+        _, mesh_path = phase_mesh(dev, mesh)
     finally:
         shutil.rmtree(WORK_DIR, ignore_errors=True)
     # Launches on each main path's run (`launches_by_path`) and their sum.
     paths = {"static": static, "video": video, "scale": scale, "refine": refine, "smooth": smooth,
              "proposals": proposals, "eval": evaluation, "vos": vos, "texture": texture, "coupled": coupled,
-             "stride": stride, "amg": amg, "leftovers": leftovers}
+             "stride": stride, "amg": amg, "leftovers": leftovers, "mesh": mesh_path}
     counts = {k1["name"]: lambda p: p["K1"], streams["K3"]["name"]: lambda p: p["K3"],
               streams["K4"]["name"]: lambda p: p["K4"], k5["name"]: lambda p: p["K5"],
               k5_combine["name"]: lambda p: p["K5_combine"],

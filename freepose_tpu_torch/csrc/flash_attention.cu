@@ -604,9 +604,17 @@ flash_bias_kernel_f32(const float* __restrict__ q, const float* __restrict__ k, 
 inline int launch_bias(const void* q, const void* k, const void* v, const void* bias, const void* mask, void* o,
                        void* part_acc, void* part_m, void* part_l, int bh, int heads, int n, int nk, int splits,
                        float scale, cudaStream_t stream) {
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(flash_bias_kernel_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)K5_SMEM);
+  // K5_SMEM is above the 48 KB default, and the limit is an attribute of
+  // each device: raise it once on every device the kernel launches on.
+  static bool smem_allowed[64] = {};
+  int dev = 0;
+  cudaError_t attr = cudaGetDevice(&dev);
   if (attr != cudaSuccess) return (int)attr;
+  if (dev >= 64 || !smem_allowed[dev]) {
+    attr = cudaFuncSetAttribute(flash_bias_kernel_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)K5_SMEM);
+    if (attr != cudaSuccess) return (int)attr;
+    if (dev < 64) smem_allowed[dev] = true;
+  }
   const dim3 grid(bh, (n + K5_BQ - 1) / K5_BQ, splits);
   flash_bias_kernel_f32<<<grid, K5_THREADS, K5_SMEM, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (const float*)bias, (const uint8_t*)mask, (float*)o,

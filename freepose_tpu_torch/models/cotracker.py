@@ -38,9 +38,6 @@ from torch import nn
 
 from freepose_tpu_torch.ops.sampling import hat_taps
 
-SLICE_G = "the multi-GPU slice G (ROADMAP queue 1, item 6), which is not ported yet"
-
-
 @dataclasses.dataclass(frozen=True)
 class CoTrackerConfig:
     feat_dim: int = 128
@@ -378,16 +375,28 @@ class PointTracker:
             parts_sc.insert(0, sc.flip(0))
         return torch.cat(parts_tr), torch.cat(parts_sc)
 
-    def track_device_batch(self, videos, queries, device_mesh=None):
+    def track_device_batch(self, videos, queries, device_mesh=None, axis: str = "data"):
         """ZNCC chains for a batch of intervals: videos [I, T, H, W, 3],
         queries [I, N, 2] on frame 0 (the batched smooth path's layout) ->
-        (tracks [I, T, N, 2], scores [I, T, N]). Intervals over a device
-        mesh belong to slice G."""
+        (tracks [I, T, N, 2], scores [I, T, N]). The chains are independent,
+        so with `device_mesh` the interval axis splits over `axis`: each
+        shard runs its own chains on its device, and the results are
+        gathered on the mesh's first device."""
         if self.mode == "learned":
             raise ValueError("batched interval tracking is ZNCC-only")
-        if device_mesh is not None:
-            raise NotImplementedError(f"track_device_batch over a device mesh belongs to {SLICE_G}")
-        return _track_chain_batch(self._video(videos), self._queries(queries))
+        if device_mesh is None:
+            return _track_chain_batch(self._video(videos), self._queries(queries))
+        from freepose_tpu_torch.parallel.mesh import gather, split
+
+        videos = torch.as_tensor(videos)
+        if videos.shape[0] % device_mesh.shape[axis]:
+            raise ValueError(f"interval batch {videos.shape[0]} must divide over the '{axis}' axis "
+                             f"({device_mesh.shape[axis]} devices)")
+        parts = [
+            _track_chain_batch(v.float() / 255.0 if v.dtype == torch.uint8 else v.float(), q)
+            for v, q in zip(split(videos, device_mesh, axis), split(self._queries(queries), device_mesh, axis))
+        ]
+        return gather(parts, device_mesh)
 
 
 def _track_chain_batch(v: torch.Tensor, q: torch.Tensor):

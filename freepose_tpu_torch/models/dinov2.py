@@ -9,6 +9,7 @@ dtype, as in the JAX model; everything else runs in `config.dtype`.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 from typing import Optional
@@ -148,3 +149,34 @@ class DinoFeatureExtractor:
         images = images.to(self.device)
         tokens = self.model(normalize_images(images.to(self.config.dtype)), layer=layer)
         return split_tokens(tokens, self.config.num_registers)[feature_type]
+
+    def replica(self, device) -> "DinoFeatureExtractor":
+        """This extractor on `device`: itself where it already runs there,
+        else a copy with the model's weights copied over
+        (parallel/mesh.py:replicate)."""
+        device = torch.device(device)
+        if next(self.model.parameters()).device == device:
+            return self
+        out = copy.copy(self)
+        out.device = device
+        out.model = copy.deepcopy(self.model).to(device)
+        return out
+
+    def extract_sharded(self, images: torch.Tensor, layer: int = 22, feature_type: str = "patch",
+                        mesh=None) -> torch.Tensor:
+        """Data-parallel extraction: the batch split over the mesh's "data"
+        axis (padded with zero images to a multiple of it), each block
+        through this model's replica on its shard's device, the features
+        gathered on mesh.first -> [B, ...]. mesh=None: every CUDA card on
+        "data"."""
+        from freepose_tpu_torch.parallel.mesh import gather, make_mesh, replicate, split
+
+        if mesh is None:
+            mesh = make_mesh(data=torch.cuda.device_count(), model=1)
+        n = images.shape[0]
+        pad = (-n) % mesh.shape["data"]
+        if pad:
+            images = torch.cat([images, images.new_zeros((pad,) + tuple(images.shape[1:]))])
+        replicas = replicate(self, mesh)
+        parts = [replicas[x.device](x, layer=layer, feature_type=feature_type) for x in split(images, mesh, "data")]
+        return gather(parts, mesh)[:n]

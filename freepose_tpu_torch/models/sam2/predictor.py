@@ -17,6 +17,13 @@ every frame's numbers equal frame-at-a-time propagation.
 `propagate_batched` keeps the batch's binarised masks and frames on the
 device for the coupled video step (pipeline/proposals.py:
 proposals_from_masks_video).
+
+With a device mesh (parallel/mesh.py) each group's objects split over its
+"data" axis: the group pads to a multiple of the axis with no-prompt dummy
+objects (every point label -10, as the JAX predictor pads), each shard
+steps its block of object states on its device with the model replicated
+there, the frame's pyramid is computed once per distinct device, and the
+masks are gathered on the mesh's first device, the dummies' dropped.
 """
 from __future__ import annotations
 
@@ -147,20 +154,31 @@ class Sam2VideoPredictor:
     """Multi-object video tracker. params: the JAX package's parameter tree
     (nested dicts of numpy arrays), converted by
     models/convert.py:sam2_video_from_jax; None gives seeded random
-    weights. Runs on `device` ("cuda" unless the caller asks for the CPU)."""
+    weights. Runs on `device` ("cuda" unless the caller asks for the CPU);
+    with `device_mesh` on the mesh's first device, the objects split over
+    its "data" axis."""
 
-    def __init__(self, config: Sam2VideoConfig, params=None, max_objects: int = 8, device=None, seed: int = 0):
+    def __init__(self, config: Sam2VideoConfig, params=None, max_objects: int = 8, device=None, seed: int = 0,
+                 device_mesh=None):
         from freepose_tpu_torch.device import resolve_device
         from freepose_tpu_torch.models.convert import random_sam2_video_params, sam2_video_from_jax
+        from freepose_tpu_torch.parallel.mesh import canonical_device, replicate
 
         self.config = config
+        if device_mesh is not None and device is None:
+            device = device_mesh.first
         self.device = resolve_device(device)
+        if device_mesh is not None and canonical_device(self.device) != device_mesh.first:
+            raise ValueError(f"device {self.device} is not the mesh's first device {device_mesh.first}")
         self.max_objects = max_objects
         if params is None:
             params = random_sam2_video_params(config, seed=seed)
         model = Sam2VideoModel(config)
         model.load_state_dict(sam2_video_from_jax(params))
         self.model = model.to(self.device).eval()
+        # The device of each object shard, and the model on each device.
+        self._shard_devices = device_mesh.axis_devices("data") if device_mesh is not None else [self.device]
+        self._models = replicate(self.model, device_mesh) if device_mesh is not None else {self.device: self.model}
 
     def init_state(self, frames):
         """frames: [T, H, W, 3] uint8 or float on the host (each batch is
@@ -187,16 +205,23 @@ class Sam2VideoPredictor:
             batch = torch.as_tensor(np.stack([np.asarray(src[t]) for t in range(lo, hi)])).to(self.device)
         return batch if ts[0] == lo else batch.flip(0)
 
-    @torch.inference_mode()
     def _frame_pyramid(self, state, frame_idx: int, frame: torch.Tensor | None = None):
-        """The frame's pyramid, from a one-frame cache (as the reference
-        keeps); `frame` is the frame on the device, else it is uploaded."""
+        """The frame's (pyramid, pos) on the predictor's device."""
+        return self._frame_pyramids(state, frame_idx, frame)[self._shard_devices[0]]
+
+    @torch.inference_mode()
+    def _frame_pyramids(self, state, frame_idx: int, frame: torch.Tensor | None = None) -> dict:
+        """The frame's (pyramid, pos) on each device of the object shards,
+        computed once per distinct device, from a one-frame cache (as the
+        reference keeps); `frame` is the frame on the device, else it is
+        uploaded."""
         cache = state["pyramid_cache"]
         if frame_idx not in cache:
             cache.clear()
             if frame is None:
                 frame = self._frame_batch(state, [frame_idx])[0]
-            cache[frame_idx] = self.model.embed_frame(prepare_image(frame, self.config.image_size))
+            cache[frame_idx] = {d: self._models[d].embed_frame(prepare_image(frame.to(d), self.config.image_size))
+                                for d in dict.fromkeys(self._shard_devices)}
         return cache[frame_idx]
 
     def _register(self, state, obj_id: int, prompt) -> None:
@@ -272,18 +297,56 @@ class Sam2VideoPredictor:
             groups.setdefault((p[0], kind), []).append(i)
         prompt_frame = min(k[0] for k in groups)
 
-        def init_group(key, idxs, pyramid, pos, t):
-            st = init_object_state(cfg, len(idxs), device=dev)
-            if key[1] == "mask":
-                ms = torch.as_tensor(np.stack([np.asarray(state["prompts"][i][3], np.float32) for i in idxs]),
-                                     device=dev)
-                mk = (resize_bilinear(ms, (cfg.image_size, cfg.image_size)) >= 0.5).float()
-                return self.model.track_step(st, pyramid, pyramid[2], pos[2], t, num_frames, mask_inputs=mk,
-                                             is_init=True)
-            pts = torch.as_tensor(np.stack([state["prompts"][i][1] for i in idxs]), device=dev)[:, None]
-            lbl = torch.as_tensor(np.stack([state["prompts"][i][2] for i in idxs]), device=dev).long()[:, None]
-            return self.model.track_step(st, pyramid, pyramid[2], pos[2], t, num_frames, points=pts, labels=lbl,
-                                         is_init=True)
+        # Each group pads to a multiple of the shard count with dummy objects
+        # (index None: no points, every label -10, or an empty mask), and
+        # shard j steps the group's j-th block of objects on its device.
+        shard_devs = self._shard_devices
+        n_shards = len(shard_devs)
+
+        def blocks(idxs):
+            padded = list(idxs) + [None] * ((-len(idxs)) % n_shards)
+            per = len(padded) // n_shards
+            return [padded[j * per:(j + 1) * per] for j in range(n_shards)]
+
+        def gather_outputs(outs, idxs):
+            """The shards' low- and high-res logits on `dev`, dummies dropped."""
+            return tuple(torch.cat([o[name].to(dev) for o in outs])[:len(idxs)]
+                         for name in ("pred_masks", "high_res_masks"))
+
+        def init_group(key, idxs, pyramids, t):
+            states, outs = [], []
+            for block, d in zip(blocks(idxs), shard_devs):
+                st = init_object_state(cfg, len(block), device=d)
+                (pyramid, pos), model = pyramids[d], self._models[d]
+                if key[1] == "mask":
+                    first_mask = np.asarray(state["prompts"][idxs[0]][3], np.float32)
+                    ms = torch.as_tensor(np.stack([np.zeros_like(first_mask) if i is None else
+                                                   np.asarray(state["prompts"][i][3], np.float32) for i in block]),
+                                         device=d)
+                    mk = (resize_bilinear(ms, (cfg.image_size, cfg.image_size)) >= 0.5).float()
+                    st, out = model.track_step(st, pyramid, pyramid[2], pos[2], t, num_frames, mask_inputs=mk,
+                                               is_init=True)
+                else:
+                    cap = cfg.max_point_prompts
+                    pts = np.stack([np.zeros((cap, 2), np.float32) if i is None else state["prompts"][i][1]
+                                    for i in block])
+                    lbl = np.stack([np.full((cap,), -10, np.int32) if i is None else state["prompts"][i][2]
+                                    for i in block])
+                    st, out = model.track_step(st, pyramid, pyramid[2], pos[2], t, num_frames,
+                                               points=torch.as_tensor(pts, device=d)[:, None],
+                                               labels=torch.as_tensor(lbl, device=d).long()[:, None], is_init=True)
+                states.append(st)
+                outs.append(out)
+            return states, gather_outputs(outs, idxs)
+
+        def step_group(key, pyramids, t):
+            outs = []
+            for j, d in enumerate(shard_devs):
+                (pyramid, pos), st = pyramids[d], live[key][j]
+                live[key][j], out = self._models[d].track_step(st, pyramid, pyramid[2], pos[2], t, num_frames,
+                                                               reverse=reverse)
+                outs.append(out)
+            return gather_outputs(outs, groups[key])
 
         live: dict = {}
         if reverse:
@@ -293,31 +356,28 @@ class Sam2VideoPredictor:
             # prompt frame first, so every object is tracked on every frame.
             for key in sorted(groups):
                 if key[0] != prompt_frame:
-                    pyramid_pf, pos_pf = self._frame_pyramid(state, key[0])
-                    live[key], _ = init_group(key, groups[key], pyramid_pf, pos_pf, key[0])
+                    live[key], _ = init_group(key, groups[key], self._frame_pyramids(state, key[0]), key[0])
         else:
             order = range(prompt_frame, end)
 
         def run_frame(t, frame):
-            pyramid, pos = self._frame_pyramid(state, t, frame)
+            pyramids = self._frame_pyramids(state, t, frame)
             outs = []
             for key in sorted(groups):
                 if key[0] == t and key not in live:
-                    live[key], out = init_group(key, groups[key], pyramid, pos, t)
+                    live[key], out = init_group(key, groups[key], pyramids, t)
                     outs.append((groups[key], out))
             for key in sorted(live):
                 if key[0] == t:
                     continue  # just initialised on this frame
-                live[key], out = self.model.track_step(live[key], pyramid, pyramid[2], pos[2], t, num_frames,
-                                                       reverse=reverse)
-                outs.append((groups[key], out))
-            l0, h0 = outs[0][1]["pred_masks"], outs[0][1]["high_res_masks"]
+                outs.append((groups[key], step_group(key, pyramids, t)))
+            l0, h0 = outs[0][1]
             low_raw = torch.full((n,) + l0.shape[1:], -32.0, dtype=l0.dtype, device=dev)
             high_raw = torch.full((n,) + h0.shape[1:], -32.0, dtype=h0.dtype, device=dev)
-            for idxs, out in outs:  # objects whose prompt frame has not come keep no-object logits
+            for idxs, (low, high) in outs:  # objects whose prompt frame has not come keep no-object logits
                 ii = torch.as_tensor(idxs, device=dev)
-                low_raw[ii] = out["pred_masks"]
-                high_raw[ii] = out["high_res_masks"]
+                low_raw[ii] = low
+                high_raw[ii] = high
             return postprocess_video_masks(low_raw, high_raw, state["orig_hw"], non_overlap_masks, binarize)
 
         plan = batch_plan(list(order), {k[0] for k in groups}, {k[0] for k in live}, chunk)

@@ -2,7 +2,9 @@
 
 Counterpart of freepose_tpu.ops.knn (none of it is a Pallas kernel there):
 a brute-force `queries @ bank.T` and top-k, exact where a KD-tree would be
-pointer-chasing. `topk_search_sharded` waits for the multi-GPU slice.
+pointer-chasing. `topk_search_sharded` searches a bank split over a device
+mesh's "model" axis (parallel/mesh.py): a local top-k on each shard, the
+k x shards candidates gathered, then a global top-k.
 """
 from __future__ import annotations
 
@@ -23,6 +25,30 @@ def topk_search(bank: torch.Tensor, queries: torch.Tensor, k: int) -> tuple[torc
     the lower bank row."""
     scores = torch.matmul(queries.float(), bank.float().T)
     return topk_lowest_index(scores, k)
+
+
+def topk_search_sharded(bank_shards, queries: torch.Tensor, k: int, mesh) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k over a bank split into equal row blocks over the mesh's
+    "model" axis (parallel/mesh.py:shard_bank's BankShards), -> (scores
+    [N, k], global row indices [N, k]) on mesh.first. Each shard searches
+    its own rows on its device and adds its row offset; the k x shards
+    candidates are gathered in shard order and a global top-k breaks ties
+    by the lowest row, as topk_search on the whole bank does. The zero
+    padding rows (at and past bank_shards.n_rows) score -inf, so they never
+    enter the top-k."""
+    from freepose_tpu_torch.parallel.mesh import gather
+
+    shard_rows = bank_shards[0].shape[0]
+    scores, rows = [], []
+    for j, shard in enumerate(bank_shards):
+        s, i = topk_search(shard, queries.to(shard.device), min(k, shard_rows))
+        gi = i + j * shard_rows
+        s = torch.where(gi < bank_shards.n_rows, s, -torch.inf)
+        scores.append(s.T)
+        rows.append(gi.T)
+    s_all, gi_all = gather(scores, mesh).T, gather(rows, mesh).T  # [N, shards * k], shard order
+    top_s, pos = topk_lowest_index(s_all, k)
+    return top_s, torch.take_along_dim(gi_all, pos, dim=1)
 
 
 def fine_rerank_scores(fine_feats: torch.Tensor, query: torch.Tensor, topk: int) -> torch.Tensor:

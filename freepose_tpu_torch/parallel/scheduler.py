@@ -1,10 +1,12 @@
 """Work scheduling across hosts/cards — the SLURM-array replacement.
 
 A WorkShard names this worker's slice of any indexable work list, resolved
-from (in priority order) explicit arguments, the FREEPOSE_* env, or legacy
-SLURM_ARRAY_TASK_ID for drop-in cluster compatibility. Counterpart of
-freepose_tpu.parallel.scheduler without its jax.process_index branch: the
-port resolves shards from the environment only.
+from (in priority order) explicit arguments, the FREEPOSE_* env, legacy
+SLURM_ARRAY_TASK_ID for drop-in cluster compatibility, or the rank and
+world size of a torch.distributed process group
+(parallel/mesh.py:maybe_initialize_distributed). Counterpart of
+freepose_tpu.parallel.scheduler, which reads jax.process_index() and
+process_count() where this reads the group's rank and world size.
 """
 from __future__ import annotations
 
@@ -41,6 +43,10 @@ def current_shard(index: int | None = None, count: int | None = None) -> WorkSha
             int(env["SLURM_ARRAY_TASK_ID"]),
             int(env.get("SLURM_ARRAY_TASK_COUNT", env.get("SLURM_ARRAY_TASK_MAX", "0")) or 1),
         )
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
+        return WorkShard(dist.get_rank(), dist.get_world_size())
     return WorkShard(0, 1)
 
 

@@ -36,6 +36,7 @@ from freepose_tpu_torch.pipeline.online_pose_estimator import (
     rescore_views,
     score_and_lift_from_stats,
     select_neighborhood,
+    shard_views,
 )
 from freepose_tpu_torch.pipeline.template_bank import normalize_feats
 
@@ -228,17 +229,31 @@ def cached_refine_update(
     k,  # [3, 3] query intrinsics
     bbox,  # [4] xyxy
     est_scale,
-    *, extractor, layer, settings, pose_chunk, resolution, mask_scores, rendering_scale, zoom=False,
+    *, extractor, layer, settings, pose_chunk, resolution, mask_scores, rendering_scale, device_mesh=None,
+    shard_axis="model", zoom=False,
 ):
     """Miss step: render the M views, featurize them in one batch with the
     query crop, write them into the cache, gather the neighbourhood,
-    rescore, z-lift -> (tcos, score, local index, query features)."""
-    props, rmasks, (smin, smax, smean) = render_view_block(
-        v, c, f, fv, fine_poses[new_idx], k_render, settings, pose_chunk, resolution, zoom,
-    )
-    feats = _features(extractor, torch.cat([proposal[None].to(props.dtype), props]), layer)
-    qf = feats[0]
-    cache.feats[write_slots] = feats[1:].to(cache.feats.dtype)
+    rescore, z-lift -> (tcos, score, local index, query features).
+
+    With `device_mesh` the M views' renders and features split over
+    `shard_axis` (M must divide over it: bucket_size(multiple=)) and are
+    gathered on mesh.first, where the cache lives and the query crop is
+    featurized alone; the writes, gather and epilogue are unchanged (the
+    JAX package replicates the cache and runs them on every device)."""
+    if device_mesh is None:
+        props, rmasks, (smin, smax, smean) = render_view_block(
+            v, c, f, fv, fine_poses[new_idx], k_render, settings, pose_chunk, resolution, zoom,
+        )
+        feats = _features(extractor, torch.cat([proposal[None].to(props.dtype), props]), layer)
+        qf, new_feats = feats[0], feats[1:]
+    else:
+        new_feats, rmasks, (smin, smax, smean) = shard_views(
+            fine_poses[new_idx], v, c, f, fv, k_render, settings, pose_chunk, resolution, extractor, layer,
+            device_mesh, shard_axis, zoom,
+        )
+        qf = _features(extractor, proposal[None], layer)[0]
+    cache.feats[write_slots] = new_feats.to(cache.feats.dtype)
     cache.masks[write_slots] = rmasks
     cache.stats[write_slots] = torch.stack([smin, smax, smean], dim=1)
     tcos, score, local = _gather_rescore_lift(

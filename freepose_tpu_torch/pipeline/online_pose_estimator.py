@@ -12,6 +12,9 @@ features and pointcloud stats are computed once per track and reused while
 the pose stays in the neighbourhood; `CachedRefineChain` pipelines the
 frames of a track on that cache through a device mirror of its slot map,
 and `AutoRefineChain` keeps all of the cache's bookkeeping on the device.
+With a device mesh (parallel/mesh.py) the neighbourhood's renders and
+feature batch split over its "model" axis (`refine_sharded`), or, with the
+cache, each miss batch's do.
 
 The JAX package compiles each step into one program; here a step is a plain
 function of PyTorch calls. Neighbourhood selection and the final argmax keep
@@ -29,6 +32,7 @@ import torch
 from freepose_tpu_torch.geometry.rotation import geodesic_distance, template_poses
 from freepose_tpu_torch.ops.rasterizer import render_meshes
 from freepose_tpu_torch.ops.sampling import resize_area
+from freepose_tpu_torch.parallel.mesh import canonical_device, gather, make_mesh, replicate, split
 from freepose_tpu_torch.pipeline.pose_estimator import CoarsePoseEstimator, PoseEstimate
 from freepose_tpu_torch.pipeline.renderer import (
     DEGENERATE_MASK_MIN_PX,
@@ -38,8 +42,6 @@ from freepose_tpu_torch.pipeline.renderer import (
     zoom_intrinsics_for_poses,
 )
 from freepose_tpu_torch.pipeline.template_bank import depth_stats, depth_stats_per_k, normalize_feats
-
-SLICE_G = "the multi-GPU slice G (ROADMAP queue 1, item 6), which is not ported yet"
 
 
 def select_neighborhood(
@@ -147,10 +149,47 @@ def _refine_prepare_fused(fine_poses, prev_pose, neighborhood_deg, v, c, f, fv, 
     return sel_poses, sel_idx, valid, normalize_feats(feats), render_masks, stats
 
 
-def _refine_prepare_fused_sharded(*args, **kwargs):
-    """_refine_prepare_fused with the renders and features split over
-    several devices: slice G."""
-    raise NotImplementedError(f"sharded refine (renders and features over several GPUs) belongs to {SLICE_G}")
+def _render_and_featurize(v, c, f, fv, k_render, poses, settings, pose_chunk, resolution, extractor, layer,
+                          zoom):
+    """One shard's block of fine views: render_view_block, then normalized
+    patch features -> (feats, masks, min, max, mean), all on the poses'
+    device."""
+    props, masks, (smin, smax, smean) = render_view_block(
+        v, c, f, fv, poses, k_render, settings, pose_chunk, resolution, zoom
+    )
+    feats = normalize_feats(extractor(props, layer=layer, feature_type="patch"))
+    return feats, masks, smin, smax, smean
+
+
+def shard_views(poses, v, c, f, fv, k_render, settings, pose_chunk, resolution, extractor, layer, device_mesh,
+                axis, zoom=False):
+    """Fine views [P] split over the mesh's `axis`: each shard renders and
+    featurizes its block on its device, with the mesh buffers and the
+    extractor replicated there (parallel/mesh.py:replicate); the blocks are
+    gathered on mesh.first in shard order -> (feats [P, G², D], masks
+    [P, R, R], (min, max, mean) [P, 3] each)."""
+    bufs = replicate((v, c, f, fv, k_render), device_mesh)
+    extractors = replicate(extractor, device_mesh)
+    parts = [
+        _render_and_featurize(*bufs[block.device], block, settings, pose_chunk, resolution,
+                              extractors[block.device], layer, zoom)
+        for block in split(poses, device_mesh, axis)
+    ]
+    feats, masks, smin, smax, smean = gather(parts, device_mesh)
+    return feats, masks, (smin, smax, smean)
+
+
+def _refine_prepare_fused_sharded(fine_poses, prev_pose, neighborhood_deg, v, c, f, fv, k_render, settings,
+                                  n_neighbors, pose_chunk, resolution, extractor, layer, device_mesh, axis,
+                                  zoom=False):
+    """_refine_prepare_fused with the render and feature work split over
+    `axis`: the neighbourhood is selected once on the estimator's device,
+    its [n_neighbors] poses split across the shards (shard_views), and the
+    blocks reassemble into the arrays the epilogue reads."""
+    sel_poses, sel_idx, valid = select_neighborhood(fine_poses, prev_pose, neighborhood_deg, n_neighbors)
+    feats, render_masks, stats = shard_views(sel_poses, v, c, f, fv, k_render, settings, pose_chunk, resolution,
+                                             extractor, layer, device_mesh, axis, zoom)
+    return sel_poses, sel_idx, valid, feats, render_masks, stats
 
 
 def _refine_finish(render_feats, query_feat, valid, render_masks, proposal_mask, stats,
@@ -184,10 +223,14 @@ class OnlinePoseEstimator:
         `feature_fn`. `fine_cache_capacity` > 0 (needs `extractor`) caches
         each fine-grid view's features, mask and stats across the frames of
         a track (pipeline/fine_cache.py). `zoom_renders` renders fine views
-        under per-pose zoomed intrinsics. `shard_mesh` (refine fanned over
-        several devices) belongs to slice G and raises."""
-        if shard_mesh is not None:
-            raise NotImplementedError(f"shard_mesh (refine over several GPUs) belongs to {SLICE_G}")
+        under per-pose zoomed intrinsics.
+
+        `shard_mesh` (a parallel/mesh.py DeviceMesh whose first device is the
+        renderer's; needs `extractor`) fans each frame's neighbour renders
+        and feature batch over its "model" axis (refine_sharded). With the
+        fine cache only each miss batch's renders and features shard; the
+        cache stays on the mesh's first device
+        (fine_cache.cached_refine_update)."""
         self.coarse = CoarsePoseEstimator(feature_fn, bank, n_poses=n_coarse_poses)
         self.feature_fn = feature_fn
         self.renderer = renderer or bank.renderer
@@ -205,6 +248,17 @@ class OnlinePoseEstimator:
                 f"least one neighbourhood (n_neighbors={n_neighbors})"
             )
         self.fine_cache_capacity = fine_cache_capacity
+        if shard_mesh is not None and extractor is None:
+            raise ValueError("shard_mesh requires `extractor`")
+        if shard_mesh is not None and shard_mesh.first != canonical_device(self.device):
+            raise ValueError(f"shard_mesh's first device {shard_mesh.first} is not the renderer's {self.device}")
+        if shard_mesh is not None and fine_cache_capacity and n_neighbors % shard_mesh.shape["model"]:
+            # Miss buckets must divide over the axis, and the largest is n_neighbors.
+            raise ValueError(
+                f"n_neighbors ({n_neighbors}) must divide evenly over the "
+                f"'model' mesh axis ({shard_mesh.shape['model']} devices)"
+            )
+        self.shard_mesh = shard_mesh
         self.zoom_renders = zoom_renders
         # Extra views pre-cached per miss frame by rounding the miss batch up
         # a bucket, filled with prefetch ordered around the predicted next
@@ -248,6 +302,10 @@ class OnlinePoseEstimator:
             )
         if query_feat is None:
             query_feat = self.coarse.query_features(proposal)
+        if self.shard_mesh is not None:
+            return self.refine_sharded(query_feat, proposal_mask, mesh, k, bbox, est_scale, prev_pose,
+                                       device_mesh=self.shard_mesh, neighborhood_deg=neighborhood_deg,
+                                       mask_scores=mask_scores)
         return self.refine(query_feat, proposal_mask, mesh, k, bbox, est_scale, prev_pose,
                            neighborhood_deg, mask_scores)
 
@@ -314,12 +372,14 @@ class OnlinePoseEstimator:
 
         common = dict(extractor=self.extractor, layer=self.feature_layer, resolution=res,
                       mask_scores=mask_scores, rendering_scale=self.rendering_scale)
-        if len(misses) == 1:
-            pos, o, key, cache, sel_idx, valid, near_extra, missing = misses[0]
-            results[pos] = self._dispatch_cached(
-                key, cache, sel_idx, valid, near_extra, missing, o["proposal"], o["proposal_mask"],
-                o["mesh"], o["k"], o["bbox"], o["est_scale"], mask_scores,
-            )
+        if len(misses) == 1 or self.shard_mesh is not None:
+            # The fused multi-miss update takes no mesh: under sharding each
+            # miss takes the sharded per-object step.
+            for pos, o, key, cache, sel_idx, valid, near_extra, missing in misses:
+                results[pos] = self._dispatch_cached(
+                    key, cache, sel_idx, valid, near_extra, missing, o["proposal"], o["proposal_mask"],
+                    o["mesh"], o["k"], o["bbox"], o["est_scale"], mask_scores,
+                )
         elif misses:
             # Shared bucket: every miss object renders the same view count
             # (smaller-miss objects get extra prefetch; results unchanged).
@@ -387,10 +447,38 @@ class OnlinePoseEstimator:
         )
         return PoseEstimate(tcos, top_scores, sel_idx[local_idx], query_feat)
 
-    def refine_sharded(self, *args, **kwargs) -> PoseEstimate:
-        """refine() with the neighbourhood's renders and features fanned over
-        several devices: slice G."""
-        raise NotImplementedError(f"refine_sharded (refine over several GPUs) belongs to {SLICE_G}")
+    def refine_sharded(self, query_feat, proposal_mask, mesh, k, bbox, est_scale: float, prev_pose,
+                       device_mesh=None, axis: str = "model", neighborhood_deg: float = 15.0,
+                       mask_scores: bool = False) -> PoseEstimate:
+        """refine() with the per-frame hot work, the n_neighbors renders and
+        their ViT batch, split over a device mesh axis: each shard renders
+        and featurizes n_neighbors / axis-size views on its device, and the
+        rescore and z-lift run on the gathered arrays on mesh.first. The
+        same result as refine(). device_mesh=None: every CUDA card on
+        "model"."""
+        if self.extractor is None:
+            raise ValueError("refine_sharded requires `extractor`")
+        if device_mesh is None:
+            device_mesh = make_mesh()
+        n_dev = device_mesh.shape[axis]
+        if self.n_neighbors % n_dev:
+            raise ValueError(
+                f"n_neighbors ({self.n_neighbors}) must divide evenly over "
+                f"the '{axis}' mesh axis ({n_dev} devices)"
+            )
+        v, c, f, fv = self.renderer._padded(mesh, self.rendering_scale)
+        sel_poses, sel_idx, valid, render_feats, render_masks, stats = _refine_prepare_fused_sharded(
+            self.fine_poses, self._f32(prev_pose), neighborhood_deg, v, c, f, fv, self.renderer.k,
+            self.renderer.settings, self.n_neighbors, self.renderer.pose_chunk, self.renderer.resolution,
+            self.extractor, self.feature_layer, device_mesh, axis, self.zoom_renders,
+        )
+        grid = int(round(render_feats.shape[1] ** 0.5))
+        tcos, top_scores, local_idx = _refine_finish(
+            render_feats, query_feat, valid, render_masks, torch.as_tensor(proposal_mask, device=self.device),
+            stats, sel_poses, self._f32(k), self._f32(bbox), self._f32(est_scale), grid, mask_scores,
+            self.rendering_scale,
+        )
+        return PoseEstimate(tcos, top_scores, sel_idx[local_idx], query_feat)
 
     @staticmethod
     def _host_pose(pose) -> np.ndarray:
@@ -438,9 +526,10 @@ class OnlinePoseEstimator:
         quota, rounded up a bucket."""
         from freepose_tpu_torch.pipeline.fine_cache import bucket_size
 
+        n_dev = self.shard_mesh.shape["model"] if self.shard_mesh is not None else 1
         max_prefetch = cache.capacity - self.n_neighbors
         target = len(missing) + min(self.prefetch_quota, max_prefetch)
-        return bucket_size(min(target, self.n_neighbors), self.n_neighbors)
+        return bucket_size(min(target, self.n_neighbors), self.n_neighbors, multiple=n_dev)
 
     def _plan_miss(self, cache, missing, near_extra, sel_idx, m_b):
         """Fill the miss batch up to the bucket with prefetch (the nearest
@@ -508,7 +597,7 @@ class OnlinePoseEstimator:
                 cache, self.fine_poses, self._index(new_idx), self._index(write_slots),
                 *self._padded_mesh(key, mesh), self.renderer.k, *args,
                 settings=self.renderer.settings, pose_chunk=self.renderer.pose_chunk,
-                zoom=self.zoom_renders, **common,
+                device_mesh=self.shard_mesh, zoom=self.zoom_renders, **common,
             )
         else:
             tcos, score, local, qf = cached_refine_hit(cache, self.fine_poses, *args, **common)

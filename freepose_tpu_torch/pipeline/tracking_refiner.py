@@ -17,7 +17,9 @@ Counterpart of freepose_tpu.pipeline.tracking_refiner:
 On the card the renders run through kernel K1 (ops/rasterizer.py) and
 DINOv2-B through K2; EPnP runs on the host CPU in float32, as in the JAX
 package. `StreamingInliers` scores a staged video's confidence chunks as
-the refine loop finalises their poses.
+the refine loop finalises their poses. Over a device mesh
+(parallel/mesh.py) the confidence frames and the correspondence starts
+split over an axis, each shard on its own device.
 """
 from __future__ import annotations
 
@@ -30,14 +32,13 @@ from freepose_tpu_torch.geometry.camera import crop_bbox_around_projection, upda
 from freepose_tpu_torch.io.mesh import TriMesh, pad_mesh
 from freepose_tpu_torch.ops.rasterizer import RasterSettings, rasterize
 from freepose_tpu_torch.ops.sampling import resize_area, roi_align
+from freepose_tpu_torch.parallel.mesh import gather, replicate, split
 from freepose_tpu_torch.pipeline.pnp import epnp
 from freepose_tpu_torch.pipeline.template_bank import normalize_feats
 
 RES = 518  # DINOv2-B input -> 37 x 37 patches
 PATCH = 14
 GRID = RES // PATCH  # 37
-
-_SLICE_G = "(slice G, ROADMAP queue 1 item 6: multi-GPU is not ported)"
 
 
 def confidence_map(photo_feats: torch.Tensor, render_feats: torch.Tensor, render_mask37: torch.Tensor) -> torch.Tensor:
@@ -113,6 +114,39 @@ def _correspondences(v, c, f, fv, pts100, surf, k, pose, mask, settings):
     return _bin_surface_to_patches(surf, pose, new_k, mask37, bbox)
 
 
+def _frames_float(frames, device) -> torch.Tensor:
+    """uint8 frames move to `device` as they are and are normalised there."""
+    frames = torch.as_tensor(frames).to(device)
+    return frames.to(torch.float32) / 255.0 if frames.dtype == torch.uint8 else frames.to(torch.float32)
+
+
+def _confidence_block(v, c, f, valid, pts, k, frames, poses, patch_feats, settings, channels_last=False):
+    """[B] photos (uint8 or float, on any device) and poses -> [B, 37, 37]
+    confidence on the poses' device: crops around the projected model
+    points, renders at the crops' intrinsics, one feature batch of both
+    (`patch_feats` -> L2-normalized fp32 [2B, G², D]), the masked patch
+    cosine."""
+    frames = _frames_float(frames, poses.device)
+    if channels_last:
+        frames = frames.permute(0, 3, 1, 2)
+    bboxes = crop_bbox_around_projection(poses, pts, k, RES, RES, lamb=1.4)
+    crops = torch.cat([roi_align(img, bb[None], RES, RES, sampling_ratio=2) for img, bb in zip(frames, bboxes)])
+    render_rgb, render_depth = rasterize(v, c, f, valid, poses, update_k_with_crop(k, bboxes, RES, RES), settings)
+    b = frames.shape[0]
+    feats = patch_feats(torch.cat([crops, render_rgb.permute(0, 3, 1, 2)]))
+    return (feats[:b] * feats[b:]).sum(dim=-1).reshape(b, GRID, GRID) * _mask37(render_depth)
+
+
+def _correspondences_batch(v, c, f, fv, pts100, surf, k, poses, settings):
+    """One render of every start pose [I] (K1 on the card), then the patch
+    binning per start -> ([I, G², 2], [I, G², 3], [I, G²])."""
+    bboxes = crop_bbox_around_projection(poses, pts100, k, RES, RES, lamb=1.4)
+    new_ks = update_k_with_crop(k, bboxes, RES, RES)
+    _, depths = rasterize(v, c, f, fv, poses, new_ks, settings)
+    outs = [_bin_surface_to_patches(surf, *args) for args in zip(poses, new_ks, _mask37(depths), bboxes)]
+    return tuple(torch.stack(x) for x in zip(*outs))
+
+
 def _epnp_batch(object_pts, image_pts, k, valid):
     """EPnP for every frame: [N, 3], [T, N, 2], [3, 3], [T, N] -> [T, 4, 4]."""
     return epnp(object_pts, image_pts, k, valid)
@@ -122,7 +156,9 @@ def _epnp_batch(object_pts, image_pts, k, valid):
 class TrackingRefiner:
     """feature_fn: the DINOv2-B patch extractor, [B, 3, 518, 518] in [0, 1]
     -> [B, 37², D]; tracker: PointTracker or CoTracker2Predictor. Device
-    tensors live on `device`."""
+    tensors live on `device`. `extractor` (the DinoFeatureExtractor behind
+    feature_fn, run to `feature_layer`) is what the sharded confidence
+    replicates on each device of a mesh."""
 
     feature_fn: object
     tracker: object
@@ -132,6 +168,8 @@ class TrackingRefiner:
     settings: RasterSettings = dataclasses.field(
         default_factory=lambda: RasterSettings(resolution=RES, tile=37, max_faces_per_tile=256))
     device: str | torch.device | None = None
+    extractor: object = None
+    feature_layer: int | None = None
 
     def __post_init__(self):
         from freepose_tpu_torch.device import resolve_device
@@ -171,16 +209,11 @@ class TrackingRefiner:
         """[B, 3, RES, RES] -> [B, G², D] L2-normalized float32 patch features."""
         return normalize_feats(self.feature_fn(images).to(torch.float32))
 
-    def _to_float(self, frames) -> torch.Tensor:
-        """uint8 frames move to the device as they are and are normalised there."""
-        frames = torch.as_tensor(frames).to(self.device)
-        return frames.to(torch.float32) / 255.0 if frames.dtype == torch.uint8 else frames.to(torch.float32)
-
     # ---------------------------------------------------------------- #
     @torch.inference_mode()
     def pose_confidence(self, mesh: TriMesh, photo, k, pose) -> np.ndarray:
         """[3, H, W] photo (float in [0, 1] or uint8) -> [37, 37] confidence."""
-        photo, k, pose = self._to_float(photo), self._t(k), self._t(pose)
+        photo, k, pose = _frames_float(photo, self.device), self._t(k), self._t(pose)
         pts = self._t(mesh.sample_surface(100, seed=42))
         crop, _, new_k = self._crop_and_k(photo, pts, k, pose)
         render_rgb, render_depth = self._render(mesh, new_k, pose)
@@ -193,60 +226,79 @@ class TrackingRefiner:
         """[B, 3, H, W] photos (or [B, H, W, 3] with channels_last) + [B, 4, 4]
         poses -> [B, 37, 37]: one crop / render / feature batch. fetch=False
         keeps the result on the device."""
-        frames, k, poses = self._to_float(frames), self._t(k), self._t(poses)
-        if channels_last:
-            frames = frames.permute(0, 3, 1, 2)
-        pts = self._t(mesh.sample_surface(100, seed=42))
-        v, c, f, valid = self._padded(mesh)
-        bboxes = crop_bbox_around_projection(poses, pts, k, RES, RES, lamb=1.4)
-        crops = torch.cat([roi_align(img, bb[None], RES, RES, sampling_ratio=2) for img, bb in zip(frames, bboxes)])
-        render_rgb, render_depth = rasterize(v, c, f, valid, poses, update_k_with_crop(k, bboxes, RES, RES),
-                                             self.settings)
-        b = frames.shape[0]
-        feats = self._patch_feats(torch.cat([crops, render_rgb.permute(0, 3, 1, 2)]))
-        out = (feats[:b] * feats[b:]).sum(dim=-1).reshape(b, GRID, GRID) * _mask37(render_depth)
+        out = _confidence_block(*self._padded(mesh), self._t(mesh.sample_surface(100, seed=42)), self._t(k),
+                                frames, self._t(poses), self._patch_feats, self.settings, channels_last)
         return out.cpu().numpy() if fetch else out
 
-    def pose_confidence_batch_sharded(self, *args, **kwargs):
-        raise NotImplementedError(f"pose_confidence_batch_sharded {_SLICE_G}")
+    @torch.inference_mode()
+    def pose_confidence_batch_sharded(self, mesh: TriMesh, frames, k, poses, device_mesh, axis: str = "data",
+                                      fetch: bool = True, channels_last: bool = False):
+        """pose_confidence_batch with the frame batch split over a device
+        mesh axis: each shard crops, renders and featurizes B / axis-size
+        frames on its device (the extractor replicated there), and the maps
+        are gathered on the mesh's first device. Needs `extractor`."""
+        if self.extractor is None:
+            raise ValueError("sharded confidence requires `extractor`")
+        if frames.shape[0] % device_mesh.shape[axis]:
+            raise ValueError(
+                f"batch {frames.shape[0]} must divide over the '{axis}' axis ({device_mesh.shape[axis]} devices)")
+        bufs = replicate((*self._padded(mesh), self._t(mesh.sample_surface(100, seed=42)), self._t(k)), device_mesh)
+        extractors = replicate(self.extractor, device_mesh)
+
+        def feats_on(dev):
+            fe = extractors[dev]
+            return lambda images: normalize_feats(fe(images, layer=self.feature_layer, feature_type="patch").float())
+
+        parts = [
+            _confidence_block(*bufs[po.device], fr, po, feats_on(po.device), self.settings, channels_last)
+            for fr, po in zip(split(torch.as_tensor(frames), device_mesh, axis),
+                              split(self._t(poses), device_mesh, axis))
+        ]
+        out = gather(parts, device_mesh)
+        return out.cpu().numpy() if fetch else out
 
     @torch.inference_mode()
-    def correspondences_batch(self, mesh: TriMesh, k, poses, seed: int = 0, device_mesh=None):
+    def correspondences_batch(self, mesh: TriMesh, k, poses, seed: int = 0, device_mesh=None, axis: str = "data"):
         """compute_2d3d_correspondences for a batch of interval-start poses
         [I, 4, 4]: one render of every start (K1 on the card), then the patch
         binning per start -> ([I, G², 2] query pixels, [I, G², 3] surface
-        points, [I, G²] valid) on the device. The starts over a device mesh
-        belong to slice G."""
-        if device_mesh is not None:
-            raise NotImplementedError(f"correspondences_batch over a device mesh {_SLICE_G}")
+        points, [I, G²] valid) on the device. With `device_mesh` the starts
+        split over `axis`, each shard rendering and binning its own, and the
+        results are gathered on the mesh's first device."""
         pts100 = self._t(mesh.sample_surface(100, seed=42))
         surf = self._t(mesh.sample_surface(self.n_surface_samples, seed=seed))
-        v, c, f, fv = self._padded(mesh, 0.8)
-        k, poses = self._t(k), self._t(poses)
-        bboxes = crop_bbox_around_projection(poses, pts100, k, RES, RES, lamb=1.4)
-        new_ks = update_k_with_crop(k, bboxes, RES, RES)
-        _, depths = rasterize(v, c, f, fv, poses, new_ks, self.settings)
-        mask37 = _mask37(depths)
-        outs = [_bin_surface_to_patches(surf, *args) for args in zip(poses, new_ks, mask37, bboxes)]
-        return tuple(torch.stack(x) for x in zip(*outs))
+        args = (*self._padded(mesh, 0.8), pts100, surf, self._t(k))
+        poses = self._t(poses)
+        if device_mesh is None:
+            return _correspondences_batch(*args, poses, self.settings)
+        if poses.shape[0] % device_mesh.shape[axis]:
+            raise ValueError(f"interval batch {poses.shape[0]} must divide over the '{axis}' axis "
+                             f"({device_mesh.shape[axis]} devices)")
+        bufs = replicate(args, device_mesh)
+        return gather([_correspondences_batch(*bufs[po.device], po, self.settings)
+                       for po in split(poses, device_mesh, axis)], device_mesh)
 
     def n_inliers_per_pose(self, mesh: TriMesh, frames, k, poses, chunk: int = 8, channels_last: bool = False,
-                           device_mesh=None):
+                           device_mesh=None, mesh_axis: str = "data"):
         """Confidence and inlier count of every frame -> (inliers [T] int,
         threshold). `frames` is [T, 3, H, W] on the host, or with
         channels_last the device-resident [T, H, W, 3] uint8 video, sliced on
         the device. Chunks of `chunk` frames; the tail chunk repeats its last
-        frame and pose (the rows past the video are dropped)."""
-        if device_mesh is not None:
-            raise NotImplementedError(f"n_inliers_per_pose over a device mesh {_SLICE_G}")
+        frame and pose (the rows past the video are dropped). With
+        `device_mesh` each chunk's frames split over `mesh_axis`
+        (pose_confidence_batch_sharded)."""
         n = len(frames)
         poses = np.asarray(poses)
         outs = []
         for i in range(0, n, chunk):
             idx = np.minimum(np.arange(i, i + chunk), n - 1)
             part = frames[torch.as_tensor(idx, device=frames.device)] if torch.is_tensor(frames) else frames[idx]
-            outs.append(self.pose_confidence_batch(mesh, part, k, poses[idx], fetch=False,
-                                                   channels_last=channels_last))
+            if device_mesh is not None:
+                outs.append(self.pose_confidence_batch_sharded(mesh, part, k, poses[idx], device_mesh, mesh_axis,
+                                                               fetch=False, channels_last=channels_last))
+            else:
+                outs.append(self.pose_confidence_batch(mesh, part, k, poses[idx], fetch=False,
+                                                       channels_last=channels_last))
         confs = torch.cat(outs)[:n].cpu()
         thr = float(quantile_threshold(confs))
         return (confs > thr).sum(dim=(1, 2)).numpy(), thr

@@ -8,7 +8,8 @@ default each track runs as an AutoRefineChain, whose cache bookkeeping lives
 on the device. Tracks are keyed by mesh id. Synthetic K from the image
 diagonal; CSV translations in metres; real per-frame seconds in the `time`
 column. The flag set is the JAX package's scripts/dino_inference_video.py
-plus --device.
+plus --device. --shard-refine fans the refine over every card (a one-shard
+mesh on one card or under --device cpu) and turns the chain off.
 
 Usage: python -m freepose_tpu_torch.scripts.dino_inference_video --video-dir FRAMES \
          --proposals scaled.json --wds-dir shards --filelist meshes.txt \
@@ -33,7 +34,8 @@ from freepose_tpu_torch.geometry.rotation import template_poses
 from freepose_tpu_torch.io.bop_csv import PoseResult, write_results_csv
 from freepose_tpu_torch.io.mesh import load_obj
 from freepose_tpu_torch.io.proposals_json import load_proposals, proposal_bbox_xyxy, proposal_mask
-from freepose_tpu_torch.pipeline.online_pose_estimator import SLICE_G, AutoRefineChain, OnlinePoseEstimator
+from freepose_tpu_torch.parallel.mesh import cards_mesh
+from freepose_tpu_torch.pipeline.online_pose_estimator import AutoRefineChain, OnlinePoseEstimator
 from freepose_tpu_torch.pipeline.proposals import extract_proposals
 from freepose_tpu_torch.pipeline.renderer import TemplateRenderer
 from freepose_tpu_torch.pipeline.template_bank import TemplateBank
@@ -82,18 +84,19 @@ def main(argv: list[str] | None = None) -> None:
                     help="put all of a frame's cache-hit (resp. cache-miss) objects into one ViT batch; "
                          "same results as the serial per-object refine")
     ap.add_argument("--shard-refine", action="store_true",
-                    help="fan refine work over several devices (slice G: not ported, raises)")
+                    help="fan refine work over every card: each frame's neighbour renders and feature batch "
+                         "(with the fine cache, each miss batch's) split over the mesh's model axis; the cache "
+                         "stays on the first card; turns --chain-refine off. One host thread launches every "
+                         "shard's work, so this is slower than one card (measured on four H100s)")
     ap.add_argument("--chain-refine", type=int, default=1, metavar="0|1",
                     help="run each track as an AutoRefineChain (fine_cache.DeviceCache: the cache's slot "
                          "table, LRU and evictions on the device); results equal the serial path; needs "
-                         "--fine-cache, off with --fuse-objects and --no-rescore")
+                         "--fine-cache, off with --shard-refine, --fuse-objects and --no-rescore")
     ap.add_argument("--adaptive-bucket", action="store_true",
                     help="chain refine: move the stream miss bucket with the observed per-frame miss rate; "
                          "results are exact either way")
     add_device_arg(ap)
     args = ap.parse_args(argv)
-    if args.shard_refine:
-        raise NotImplementedError(f"--shard-refine (refine over several GPUs) belongs to {SLICE_G}")
     dev = resolve_device(args.device)
 
     frames = load_frame_dir(args.video_dir)
@@ -112,7 +115,7 @@ def main(argv: list[str] | None = None) -> None:
         feature_fn, bank, renderer, n_coarse_poses=args.n_coarse, n_fine_poses=args.n_fine,
         n_neighbors=args.n_neighbors, extractor=extractor, feature_layer=args.layer,
         fine_cache_capacity=max(args.fine_cache, args.n_neighbors) if args.fine_cache else 0,
-        zoom_renders=args.zoom_renders,
+        shard_mesh=cards_mesh(dev, "model") if args.shard_refine else None, zoom_renders=args.zoom_renders,
     )
 
     by_frame: dict[int, list] = {}
@@ -135,7 +138,8 @@ def main(argv: list[str] | None = None) -> None:
     mesh_cache: dict[str, object] = {}
     packs: dict[str, object] = {}
     results: list[PoseResult] = []
-    use_chain = bool(args.chain_refine and args.fine_cache and not args.fuse_objects and not args.no_rescore)
+    use_chain = bool(args.chain_refine and args.fine_cache and not args.shard_refine and not args.fuse_objects
+                     and not args.no_rescore)
     chains: dict[str, AutoRefineChain] = {}
     chain_meta: dict[str, list] = {}
     all_scores: dict[str, list] = {}  # --no-rescore: mesh_id -> [V] per frame

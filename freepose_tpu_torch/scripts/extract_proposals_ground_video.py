@@ -9,8 +9,10 @@ GroundingDINO-B, `--detector grounding`, the default, or given with
 pooling, scored against the mesh bank -> temporal soft voting (the mean of
 per-frame bank scores per track) -> one mesh id per track.
 
-Object-sharded propagation (`--shard-objects`) belongs to the multi-GPU
-slice G (ROADMAP queue 1, item 6) and raises.
+`--shard-objects` joins the process group the FREEPOSE_* environment
+describes (parallel/mesh.py:maybe_initialize_distributed) and splits SAM2's
+objects over every card on the mesh's "data" axis (one shard on one card
+or under --device cpu).
 
 Usage: python -m freepose_tpu_torch.scripts.extract_proposals_ground_video \
          --video-dir FRAMES --bank bank.npy --filelist meshes.txt --out props.json \
@@ -40,13 +42,14 @@ from freepose_tpu_torch.scripts.common import (
 )
 
 
-def load_video_predictor(sam2_weights: str | None, device=None):
-    """Sam2VideoPredictor at the production config on `device`; seeded
+def load_video_predictor(sam2_weights: str | None, device=None, device_mesh=None):
+    """Sam2VideoPredictor at the production config on `device` (with
+    `device_mesh`, its objects split over the mesh's "data" axis); seeded
     random weights when no .npz of JAX-layout params is given."""
     from freepose_tpu_torch.models.sam2.predictor import Sam2VideoPredictor
 
     params = load_params(sam2_weights) if sam2_weights else None
-    return Sam2VideoPredictor(production_sam2_video_config(device), params, device=device)
+    return Sam2VideoPredictor(production_sam2_video_config(device), params, device=device, device_mesh=device_mesh)
 
 
 def retrieve_frame(extractor, bank: torch.Tensor, frame: np.ndarray, masks: np.ndarray, layer: int,
@@ -125,13 +128,18 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--layer", type=int, default=22)
     ap.add_argument("--min-mask-px", type=int, default=400)
     ap.add_argument("--shard-objects", action="store_true",
-                    help="shard SAM2 mask propagation per object over several GPUs (not ported)")
+                    help="split SAM2 mask propagation's objects over every card (the mesh's data axis). One "
+                         "host thread launches every shard's work in turn; not yet timed across cards")
     add_shard_args(ap)
     add_device_arg(ap)
     args = ap.parse_args(argv)
+    device_mesh = None
     if args.shard_objects:
-        raise NotImplementedError("--shard-objects (object-sharded propagation over several GPUs) belongs "
-                                  "to the multi-GPU slice G (ROADMAP queue 1, item 6), which is not ported yet")
+        from freepose_tpu_torch.device import resolve_device
+        from freepose_tpu_torch.parallel.mesh import cards_mesh, maybe_initialize_distributed
+
+        maybe_initialize_distributed()
+        device_mesh = cards_mesh(resolve_device(args.device), "data")
 
     frames = load_frame_dir(args.video_dir)
     if args.detector == "boxes":
@@ -144,7 +152,7 @@ def main(argv: list[str] | None = None) -> None:
         print("no detections on frame 0")
         return
 
-    predictor = load_video_predictor(args.sam2_weights, device=args.device)
+    predictor = load_video_predictor(args.sam2_weights, device=args.device, device_mesh=device_mesh)
     names = load_filelist(args.filelist)
     bank = np.load(args.bank).astype(np.float32)
     bank /= np.maximum(np.linalg.norm(bank, axis=-1, keepdims=True), 1e-12)

@@ -39,7 +39,8 @@ from freepose_tpu_torch.geometry.se3 import smooth_transforms
 from freepose_tpu_torch.io.bop_csv import PoseResult, read_results_csv, write_results_csv
 from freepose_tpu_torch.io.mesh import load_obj
 from freepose_tpu_torch.models.cotracker import PointTracker
-from freepose_tpu_torch.pipeline.tracking_refiner import _SLICE_G, TrackingRefiner
+from freepose_tpu_torch.parallel.mesh import pad_to_multiple
+from freepose_tpu_torch.pipeline.tracking_refiner import TrackingRefiner
 from freepose_tpu_torch.scripts.common import add_device_arg, full_fp32, load_dino_extractor
 
 
@@ -62,20 +63,23 @@ def cap_set(cap: int, cap_buckets) -> tuple:
     return tuple(sorted({int(b) for b in cap_buckets if int(b) <= cap} | {int(cap)}))
 
 
-def _batched_intervals(refiner, mesh, frames_dev, k, poses, starts, step, n, cap, refined: dict) -> None:
+def _batched_intervals(refiner, mesh, frames_dev, k, poses, starts, step, n, cap, refined: dict,
+                       device_mesh=None, mesh_axis: str = "data") -> None:
     """Every interval at once: one correspondence render of all starts, the
     top-`cap` selection per start, one batch of ZNCC chains, one set of reads
     and host EPnP per interval. The start batch pads to a bucket derived from
     the staged frame count (`frames_dev.shape[0] // step + 2`, rounded up to
-    4, the JAX package's lcm(4, devices) on one device), with repeats of the
-    last start whose rows are dropped. Numerics are the pipelined path's: the
-    same selection order, chain and masked EPnP per interval."""
-    i_max = int(frames_dev.shape[0]) // step + 2
-    i_bucket = -(-i_max // 4) * 4
+    lcm(4, devices on `mesh_axis`)), with repeats of the last start whose
+    rows are dropped. With `device_mesh` the starts' renders and chains split
+    over `mesh_axis`, each shard on its device. Numerics are the pipelined
+    path's: the same selection order, chain and masked EPnP per interval."""
+    n_dev = device_mesh.shape[mesh_axis] if device_mesh is not None else 1
+    i_bucket = pad_to_multiple(int(frames_dev.shape[0]) // step + 2, 4, n_dev)
     if len(starts) > i_bucket:
         raise ValueError(f"{len(starts)} interval starts > bucket {i_bucket}")
     starts_pad = list(starts) + [starts[-1]] * (i_bucket - len(starts))
-    query_b, surface_b, valid_b = refiner.correspondences_batch(mesh, k, np.stack([poses[s] for s in starts_pad]))
+    query_b, surface_b, valid_b = refiner.correspondences_batch(mesh, k, np.stack([poses[s] for s in starts_pad]),
+                                                                device_mesh=device_mesh, axis=mesh_axis)
     g2 = valid_b.shape[1]
     order_b = torch.argsort(torch.where(valid_b, 0, g2 + 1) + torch.arange(g2, device=valid_b.device)[None],
                             dim=1)[:, :min(cap, g2)]
@@ -87,7 +91,7 @@ def _batched_intervals(refiner, mesh, frames_dev, k, poses, starts, step, n, cap
         idxs = list(range(s, min(s + step, n)))
         idx_rows.append([min(max(i, 0), n - 1) for i in idxs] + [idxs[-1]] * (step - len(idxs)))
     subs = frames_dev[torch.as_tensor(idx_rows, device=frames_dev.device)]
-    tracks_b, scores_b = refiner.tracker.track_device_batch(subs, qs_b)
+    tracks_b, scores_b = refiner.tracker.track_device_batch(subs, qs_b, device_mesh=device_mesh, axis=mesh_axis)
     tracks_np, scores_np, vs_np_b, ss_np_b = (x.cpu().numpy() for x in (tracks_b, scores_b, vs_b, ss_b))
     for ii, s in enumerate(starts):
         idxs = list(range(s, min(s + step, n)))
@@ -124,8 +128,11 @@ def smooth_track(refiner, mesh, frames, k, poses, interval: int = 12, pipelined:
 
     batched_intervals=True (a staged video and a ZNCC tracker) runs every
     interval in one batch (`_batched_intervals`), with the pipelined path's
-    results; None takes it only with a device mesh, as in the JAX package,
-    and a device mesh belongs to slice G.
+    results; None takes it only with a device mesh, as in the JAX package.
+
+    `device_mesh` (parallel/mesh.py; a staged video) splits the pass over
+    its `mesh_axis`: each confidence chunk's frames, and the batched
+    intervals' starts and chains, one block per shard.
 
     `cap_buckets` (pipelined, ZNCC only) sizes each interval's cap to the
     smallest of `cap_set(cap, cap_buckets)` that holds its valid count: the
@@ -134,8 +141,6 @@ def smooth_track(refiner, mesh, frames, k, poses, interval: int = 12, pipelined:
     caps chosen under "cap_choices"."""
     from freepose_tpu_torch.datasets.video import StagedVideo
 
-    if device_mesh is not None:
-        raise NotImplementedError(f"the smooth pass over a device mesh {_SLICE_G}")
     if isinstance(frames, StagedVideo):
         frames_dev, n = frames.frames, frames.n
     elif torch.is_tensor(frames):
@@ -143,6 +148,8 @@ def smooth_track(refiner, mesh, frames, k, poses, interval: int = 12, pipelined:
     else:
         frames_dev, n = None, len(frames)
     staged = frames_dev is not None
+    if device_mesh is not None and not staged:
+        raise ValueError("device_mesh requires a device-staged video")
     if staged and not pipelined:
         raise ValueError("a device-staged video takes the pipelined path")
     if inliers is not None:
@@ -150,7 +157,8 @@ def smooth_track(refiner, mesh, frames, k, poses, interval: int = 12, pipelined:
         if len(inliers) != n:
             raise ValueError(f"inliers length {len(inliers)} != {n} frames")
     elif staged:
-        inliers, _ = refiner.n_inliers_per_pose(mesh, frames_dev[:n], k, poses, channels_last=True)
+        inliers, _ = refiner.n_inliers_per_pose(mesh, frames_dev[:n], k, poses, channels_last=True,
+                                                device_mesh=device_mesh, mesh_axis=mesh_axis)
     else:
         inliers, _ = refiner.n_inliers_per_pose(mesh, frames.transpose(0, 3, 1, 2), k, poses)
     best = int(np.argmax(inliers))
@@ -164,7 +172,8 @@ def smooth_track(refiner, mesh, frames, k, poses, interval: int = 12, pipelined:
     if batched_intervals and getattr(refiner.tracker, "track_device_batch", None) is None:
         raise ValueError("batched_intervals requires a batch-capable tracker (ZNCC)")
     if batched_intervals:
-        _batched_intervals(refiner, mesh, frames_dev, k, poses, starts, step, n, cap, refined)
+        _batched_intervals(refiner, mesh, frames_dev, k, poses, starts, step, n, cap, refined, device_mesh,
+                           mesh_axis)
     elif not pipelined:
         for s in starts:
             idxs = list(range(s, min(s + step, n)))

@@ -199,7 +199,8 @@ def test_cotracker_from_jax_layout():
 def test_track_device_batch_matches_the_chain_and_jax():
     """Batched intervals: each is the single-interval chain from frame 0,
     the query row (score 1) first, as JAX's _track_chain_batch; learned
-    mode and a device mesh refuse."""
+    mode refuses; over a device mesh the intervals split, with the same
+    results, and a batch that does not divide over the axis refuses."""
     videos = np.stack([_moving_pattern_video(t=4, seed=s, dx=1.0 + s)[0] for s in range(3)])
     queries = np.stack([np.array([[18.0, 28.0], [20.5, 25.25], [5.0, 40.0]], np.float32) + s for s in range(3)])
     tracker = ct.PointTracker(device="cpu")
@@ -214,5 +215,11 @@ def test_track_device_batch_matches_the_chain_and_jax():
     np.testing.assert_allclose(scores.numpy(), np.asarray(ref_scores), atol=1e-5)
     with pytest.raises(ValueError, match="ZNCC-only"):
         ct.PointTracker(ct.COTRACKER_TEST, mode="learned", device="cpu").track_device_batch(videos, queries)
-    with pytest.raises(NotImplementedError, match="slice G"):
-        tracker.track_device_batch(videos, queries, device_mesh=object())
+    from freepose_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(data=3, devices=["cpu"] * 3)
+    sharded = tracker.track_device_batch(torch.as_tensor(videos), torch.as_tensor(queries), device_mesh=mesh)
+    np.testing.assert_array_equal(sharded[0].numpy(), tracks.numpy())
+    np.testing.assert_array_equal(sharded[1].numpy(), scores.numpy())
+    with pytest.raises(ValueError, match="must divide over the 'data' axis"):
+        tracker.track_device_batch(videos[:2], queries[:2], device_mesh=mesh)

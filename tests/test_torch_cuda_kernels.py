@@ -980,3 +980,28 @@ def test_learned_cotracker_on_the_card_matches_the_cpu(cuda):
     np.testing.assert_array_equal(tc[2], queries)
     np.testing.assert_allclose(tc, tr, atol=1e-3)
     np.testing.assert_allclose(vc, vr, atol=1e-4)
+
+
+def test_refine_sharded_on_a_repeated_device_mesh_matches_refine(cuda):
+    """refine_sharded over make_mesh(data=2, model=2) on the one card (each
+    "model" shard renders and featurizes 4 of the 8 views with K1 and fp32
+    K2) against refine() on the same card: the same grid pose, the lifted
+    pose within 1e-5 and the score within 1e-5; both masked and unmasked
+    scores."""
+    from freepose_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = _bumpy_sphere()
+    est = _refine_setup(cuda)
+    rgb, depth = est.renderer.render_from_poses(mesh, est.fine_poses[61][None])
+    props, masks, boxes = est.renderer.generate_proposals(rgb, depth)
+    qf = est.coarse.query_features(props[0])
+    dev_mesh = make_mesh(data=2, model=2, devices=[cuda] * 4)
+    args = (qf, masks[0], mesh, est.renderer.k, boxes[0].float(), 0.25, est.fine_poses[60])
+    for mask_scores in (False, True):
+        launches = raster_tile.launches, flash_attention_k2.launches
+        got = est.refine_sharded(*args, device_mesh=dev_mesh, neighborhood_deg=40.0, mask_scores=mask_scores)
+        assert raster_tile.launches >= launches[0] + 2 and flash_attention_k2.launches > launches[1]
+        ref = est.refine(*args, neighborhood_deg=40.0, mask_scores=mask_scores)
+        assert int(got.view_indices) == int(ref.view_indices)
+        np.testing.assert_allclose(got.tcos.cpu().numpy(), ref.tcos.cpu().numpy(), atol=1e-5)
+        np.testing.assert_allclose(got.scores.cpu().numpy(), ref.scores.cpu().numpy(), atol=1e-5)

@@ -310,9 +310,17 @@ def test_refine_matches_jax(pair, extractor):
 
 
 def test_sharded_refine_raises_naming_slice_g(pair):
-    with pytest.raises(NotImplementedError, match="slice G"):
-        pair.port_estimator().refine_sharded(None, None, pair.mesh, pair.tr.k, np.zeros(4), 0.25, pair.grid[0])
-    with pytest.raises(NotImplementedError, match="slice G"):
-        ope._refine_prepare_fused_sharded()
-    with pytest.raises(NotImplementedError, match="slice G"):
-        ope.OnlinePoseEstimator(pair.tfn, pair.tbank, pair.tr, shard_mesh=object())
+    """The sharded refine's refusals, as JAX's: no extractor, a
+    neighbourhood that does not divide over the "model" axis
+    (tests/test_torch_sharded_refine.py holds its results against JAX's)."""
+    from freepose_tpu_torch.parallel.mesh import make_mesh
+
+    mesh3 = make_mesh(devices=["cpu"] * 3)
+    with pytest.raises(ValueError, match="divide evenly"):
+        pair.port_estimator().refine_sharded(None, None, pair.mesh, pair.tr.k, np.zeros(4), 0.25, pair.grid[0],
+                                             device_mesh=mesh3)
+    with pytest.raises(ValueError, match="requires `extractor`"):
+        pair.port_estimator(extractor=False).refine_sharded(None, None, pair.mesh, pair.tr.k, np.zeros(4), 0.25,
+                                                            pair.grid[0], device_mesh=mesh3)
+    with pytest.raises(ValueError, match="requires `extractor`"):
+        ope.OnlinePoseEstimator(pair.tfn, pair.tbank, pair.tr, shard_mesh=mesh3)

@@ -355,8 +355,10 @@ def test_smooth_track_with_streaming_inliers_matches_jax(smooth_pair):
     _assert_poses_match(fed, np.asarray(jfed))
     with pytest.raises(ValueError, match="inliers length"):
         smooth_track(ours, mesh, staged, k, poses, interval=3, inliers=counts[:-1])
-    with pytest.raises(NotImplementedError, match="slice G"):
-        smooth_track(ours, mesh, staged, k, poses, interval=3, device_mesh=object())
+    from freepose_tpu_torch.parallel.mesh import make_mesh
+
+    with pytest.raises(ValueError, match="device_mesh requires a device-staged video"):
+        smooth_track(ours, mesh, frames, k, poses, interval=3, device_mesh=make_mesh(devices=["cpu"] * 2))
 
 
 def test_correspondences_batch_matches_jax(smooth_pair):

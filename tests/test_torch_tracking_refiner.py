@@ -196,10 +196,17 @@ def test_compute_pnp_or_need_resample_matches_jax(pair):
 
 
 def test_sharded_and_mesh_paths_name_slice_g(pair):
+    """The mesh paths' refusals, as JAX's: no extractor, a batch that does
+    not divide over the axis (tests/test_torch_sharded_smooth.py holds
+    their results against JAX's)."""
+    from freepose_tpu_torch.parallel.mesh import make_mesh
+
     ours, _, mesh, _ = pair
-    with pytest.raises(NotImplementedError, match="slice G"):
-        ours.pose_confidence_batch_sharded(mesh, None, K, None, device_mesh=object())
-    with pytest.raises(NotImplementedError, match="slice G"):
-        ours.correspondences_batch(mesh, K, _gt_poses(1), device_mesh=object())
-    with pytest.raises(NotImplementedError, match="slice G"):
-        ours.n_inliers_per_pose(mesh, np.zeros((1, 3, 8, 8), np.uint8), K, _gt_poses(1), device_mesh=object())
+    mesh2 = make_mesh(data=2, devices=["cpu"] * 2)
+    frames = np.zeros((3, 3, 8, 8), np.uint8)
+    with pytest.raises(ValueError, match="requires `extractor`"):
+        ours.pose_confidence_batch_sharded(mesh, frames, K, _gt_poses(3), device_mesh=mesh2)
+    with pytest.raises(ValueError, match="must divide over the 'data' axis"):
+        ours.correspondences_batch(mesh, K, _gt_poses(3), device_mesh=mesh2)
+    with pytest.raises(ValueError, match="requires `extractor`"):
+        ours.n_inliers_per_pose(mesh, frames, K, _gt_poses(3), device_mesh=mesh2)

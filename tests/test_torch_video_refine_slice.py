@@ -224,8 +224,21 @@ def test_no_rescore_scores_match_jax(workspace, tiny_env):
 
 
 def test_cli_refuses_what_is_not_ported(workspace, tiny_env):
-    with pytest.raises(NotImplementedError, match="slice G"):
-        _run_port(_argv(workspace, workspace / "x.csv", "--shard-refine"))
+    """--shard-refine: the JAX CLI fans the cached refine's miss batches
+    over its 8 CPU devices, the port's over a one-device CPU mesh (it adds
+    no shard count); the rows agree as the unsharded CLIs' do, and the
+    port's equal its serial cached rows (the flag turns the chain off)."""
+    ws = workspace
+    _run_jax(_argv(ws, ws / "jax_shard.csv", "--shard-refine"), tiny_env)
+    _run_port(_argv(ws, ws / "torch_shard.csv", "--shard-refine"))
+    ours = read_results_csv(ws / "torch_shard.csv", t_scale=1.0)
+    _assert_rows_match(ours, read_results_csv(ws / "jax_shard.csv", t_scale=1.0), ws)
+    _run_port(_argv(ws, ws / "serial_ref.csv", "--chain-refine", "0"))
+    serial = read_results_csv(ws / "serial_ref.csv", t_scale=1.0)
+    for a, b in zip(ours, serial):
+        np.testing.assert_array_equal(a.R, b.R)
+        np.testing.assert_allclose(a.t, b.t, atol=1e-5)
+        np.testing.assert_allclose(a.score, b.score, atol=1e-5)
 
 
 def test_async_loader_matches_load_frame_dir(workspace):

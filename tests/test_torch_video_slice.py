@@ -111,16 +111,20 @@ def test_video_proposals_cli_drops_small_masks_as_jax(workspace, monkeypatch):
     assert ref == [(0, 0), (0, 2), (1, 1), (1, 2), (1, 3)]
 
 
-def test_video_cli_refuses_what_is_not_ported(workspace):
+def test_video_cli_refuses_what_is_not_ported(workspace, monkeypatch):
+    """--shard-objects is ported: under --device cpu it builds a one-device
+    mesh (the flag adds no shard count) and writes the proposals of the
+    unsharded run."""
     from freepose_tpu_torch.scripts import extract_proposals_ground_video
 
-    argv = _argv(workspace, "x.json") + ["--device", "cpu"]
-    # --detector grounding is ported (tests/test_torch_proposals_slice.py);
-    # object-sharded propagation is not, and names its ROADMAP item.
-    with pytest.raises(NotImplementedError, match=r"slice G \(ROADMAP queue 1, item 6\)"):
-        extract_proposals_ground_video.main(argv + ["--shard-objects"])
-    with pytest.raises(NotImplementedError, match=r"slice G \(ROADMAP queue 1, item 6\)"):
-        extract_proposals_ground_video.main([a if a != "boxes" else "grounding" for a in argv] + ["--shard-objects"])
+    monkeypatch.setenv("FREEPOSE_TINY_MODELS", "1")
+    monkeypatch.delenv("FREEPOSE_COORDINATOR", raising=False)
+    argv = _argv(workspace, "plain.json") + ["--device", "cpu"]
+    extract_proposals_ground_video.main(argv)
+    extract_proposals_ground_video.main([a.replace("plain.json", "shard.json") for a in argv] + ["--shard-objects"])
+    plain, shard = (json.loads((workspace / name).read_text()) for name in ("plain.json", "shard.json"))
+    assert len(shard) == len(plain) > 0
+    assert shard == plain
 
 
 @pytest.mark.parametrize("reverse", [False, True])
