@@ -1,0 +1,117 @@
+"""Resampling ops: area/bilinear/bicubic resize, ROI-align.
+
+Counterpart of freepose_tpu.ops.sampling, in plain PyTorch (none of these
+is a Pallas kernel in the JAX package). Resizes work on the last two axes of
+[..., H, W]. The linear and bicubic resizes are separable products with
+small interpolation matrices, as in the JAX package, so they round alike;
+`resize_bilinear` matches torch's F.interpolate(mode="bilinear",
+align_corners=False) and `resize_bicubic_torch` its bicubic mode.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+def resize_area(img: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
+    """Area-averaging resize of [..., H, W] to fp32 (cv2.INTER_AREA for
+    downsampling). Integer factors take the exact box mean; other sizes an
+    antialiased linear resize, as jax.image.resize(linear, antialias) does."""
+    h, w = img.shape[-2], img.shape[-1]
+    oh, ow = out_hw
+    img = img.to(torch.float32)
+    if h % oh == 0 and w % ow == 0:
+        r = img.reshape(img.shape[:-2] + (oh, h // oh, ow, w // ow))
+        return r.mean(dim=(-3, -1))
+    lead = img.shape[:-2]
+    flat = img.reshape(-1, 1, h, w)
+    out = F.interpolate(flat, size=(oh, ow), mode="bilinear", align_corners=False, antialias=True)
+    return out.reshape(lead + (oh, ow))
+
+
+def _linear_resize_matrix(n_in: int, n_out: int, align_corners: bool, device) -> torch.Tensor:
+    """[n_out, n_in] 1-D linear interpolation matrix (2 non-zeros a row)."""
+    dst = torch.arange(n_out, dtype=torch.float32, device=device)
+    if align_corners:
+        s = dst * ((n_in - 1) / max(n_out - 1, 1))
+    else:
+        s = (dst + 0.5) * (n_in / n_out) - 0.5  # torch bilinear source coordinate
+    i0 = torch.clamp(torch.floor(s), 0, n_in - 1)
+    i1 = torch.clamp(i0 + 1, 0, n_in - 1)
+    wgt = torch.clamp(s - i0, 0.0, 1.0)
+    cols = torch.arange(n_in, device=device)[None, :]
+    m = (cols == i0.long()[:, None]) * (1.0 - wgt)[:, None]
+    return m + (cols == i1.long()[:, None]) * wgt[:, None]
+
+
+def _resize_linear_mm(img: torch.Tensor, out_hw: tuple[int, int], align_corners: bool) -> torch.Tensor:
+    h, w = img.shape[-2], img.shape[-1]
+    oh, ow = out_hw
+    out = img.to(torch.float32)
+    if oh != h:
+        out = torch.matmul(_linear_resize_matrix(h, oh, align_corners, img.device), out)
+    if ow != w:
+        out = torch.matmul(out, _linear_resize_matrix(w, ow, align_corners, img.device).T)
+    return out
+
+
+def resize_bilinear(img: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
+    """Bilinear resize of [..., H, W] to fp32, as torch F.interpolate
+    (align_corners=False, no antialias)."""
+    return _resize_linear_mm(img, out_hw, align_corners=False)
+
+
+def roi_align(image: torch.Tensor, boxes: torch.Tensor, out_h: int, out_w: int,
+              sampling_ratio: int = 2) -> torch.Tensor:
+    """torchvision-style ROI align (aligned=False): image [C, H, W], boxes
+    [N, 4] xyxy -> [N, C, out_h, out_w]. The s x s bilinear taps of an
+    axis-aligned box factor into one weight matrix per axis, as in the JAX
+    package."""
+    c, h, w = image.shape
+    s = sampling_ratio
+    boxes = boxes.to(torch.float32)
+    dev = image.device
+
+    def axis_weights(lo, size, n_out, n_src):  # lo, size [N] -> [N, n_out, n_src]
+        i = torch.arange(n_out, dtype=torch.float32, device=dev)
+        t = torch.arange(s, dtype=torch.float32, device=dev)
+        coords = lo[:, None, None] + (i[None, :, None] + (t[None, None, :] + 0.5) / s) * (size / n_out)[:, None, None]
+        valid = (coords > -1.0) & (coords < n_src)  # torchvision's zero padding
+        cc = torch.clamp(coords, 0.0, n_src - 1)
+        src = torch.arange(n_src, dtype=torch.float32, device=dev)
+        tri = torch.clamp(1.0 - torch.abs(src - cc[..., None]), min=0.0)
+        return (tri * valid[..., None]).mean(dim=2)
+
+    x1, y1, x2, y2 = boxes.unbind(-1)
+    wy = axis_weights(y1, torch.clamp(y2 - y1, min=1e-6), out_h, h)  # [N, oh, H]
+    wx = axis_weights(x1, torch.clamp(x2 - x1, min=1e-6), out_w, w)  # [N, ow, W]
+    return torch.einsum("noi,cij,npj->ncop", wy, image.to(torch.float32), wx)
+
+
+def _bicubic_axis_matrix(in_size: int, out_size: int) -> np.ndarray:
+    """[out, in] matrix of torch's 4-tap bicubic weights (a = -0.75,
+    align_corners=False, clamped taps)."""
+    scale = in_size / out_size
+    src = (np.arange(out_size, dtype=np.float32) + 0.5) * scale - 0.5
+    base = np.floor(src).astype(np.int32)
+    frac = src - base
+    taps = np.arange(-1, 3)
+    idx = np.clip(base[:, None] + taps[None, :], 0, in_size - 1)
+    t = np.abs(frac[:, None] - taps[None, :].astype(np.float32))
+    a = -0.75
+    wts = np.where(t <= 1.0, (a + 2.0) * t**3 - (a + 3.0) * t**2 + 1.0,
+                   np.where(t < 2.0, a * t**3 - 5.0 * a * t**2 + 8.0 * a * t - 4.0 * a, 0.0)).astype(np.float32)
+    mat = np.zeros((out_size, in_size), np.float32)
+    np.add.at(mat, (np.repeat(np.arange(out_size), 4), idx.reshape(-1)), wts.reshape(-1))
+    return mat
+
+
+def resize_bicubic_torch(img: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
+    """Bicubic resize of [..., H, W] to fp32, as torch F.interpolate
+    (mode="bicubic", align_corners=False, antialias=False); the Hiera
+    windowed position embedding's resample."""
+    h, w = img.shape[-2], img.shape[-1]
+    wy = torch.as_tensor(_bicubic_axis_matrix(h, out_hw[0]), device=img.device)
+    wx = torch.as_tensor(_bicubic_axis_matrix(w, out_hw[1]), device=img.device)
+    return torch.matmul(torch.matmul(wy, img.to(torch.float32)), wx.T)
