@@ -63,7 +63,7 @@ Phases, one line each on stdout:
              depth_stats); estimate_batch on 4 proposals cut from a rendered
              frame. Launch counts are zeroed before the pack build, read after
              the frame, and must be > 0 for K1, K2 and the wgmma + TMA kernel
-             (launches_by_kernel["sm90"]); then a torch.profiler breakdown of
+             (`launch.sm90`); then a torch.profiler breakdown of
              one ViT batch and one frame;
   7. video   the video proposal path at full width through its CLI
              (extract_proposals_ground_video --detector boxes): a seeded
@@ -491,34 +491,29 @@ def device_ms(fn, reps: int = 5) -> float | None:
 
 
 def reset_launches() -> None:
-    """Set every kernel wrapper's launch count to 0."""
-    from freepose_tpu_torch.ops import attention
-    from freepose_tpu_torch.ops.rasterizer_cuda import raster_tile
+    """Count every kernel launch from 0: a new tracing session
+    (utils/timing.py; `main` runs with tracing on)."""
+    from freepose_tpu_torch.utils import timing
 
-    raster_tile.launches = attention.flash_attention_k3.launches = attention.flash_attention_stream.launches = 0
-    attention.flash_attention_k2.launches = attention.flash_attention_bias.launches = 0
-    attention.bias_combine.launches = 0
-    attention.attention_combine.launches = attention.key_tiles.launches = 0
-    attention.flash_attention_k2.launches_by_dim = {}
-    for kernel in attention.launches_by_kernel:
-        attention.launches_by_kernel[kernel] = 0
+    timing.reset()
 
 
 def read_launches() -> dict:
-    """Every kernel wrapper's launch count, K2 also by head dim, and the
-    attention launches by device program (`launches_by_kernel`: "sm90" the
-    wgmma + TMA kernel, "tile" the mma.sync tile kernel, "f32" the fp32
-    one); "key_tiles" counts K4's list kernel."""
-    from freepose_tpu_torch.ops import attention
-    from freepose_tpu_torch.ops.rasterizer_cuda import raster_tile
+    """Every kernel wrapper's launch count (the `launch.<kernel>` counters),
+    K2 also by head dim, and the attention launches by device program
+    (`launches_by_kernel`: "sm90" the wgmma + TMA kernel, "tile" the
+    mma.sync tile kernel, "f32" the fp32 one); "key_tiles" counts K4's list
+    kernel."""
+    from freepose_tpu_torch.utils import timing
 
-    return {"K1": raster_tile.launches, "K2": attention.flash_attention_k2.launches,
-            "K3": attention.flash_attention_k3.launches, "K4": attention.flash_attention_stream.launches,
-            "K5": attention.flash_attention_bias.launches, "K5_combine": attention.bias_combine.launches,
-            "combine": attention.attention_combine.launches,
-            "key_tiles": attention.key_tiles.launches,
-            "K2_by_dim": {str(d): n for d, n in sorted(attention.flash_attention_k2.launches_by_dim.items())},
-            "launches_by_kernel": dict(attention.launches_by_kernel)}
+    def n(kernel: str) -> int:
+        return timing.counts.get("launch." + kernel, 0)
+
+    by_dim = {name[len("launch.k2.d"):]: c for name, c in timing.counts.items() if name.startswith("launch.k2.d")}
+    return {"K1": n("k1"), "K2": n("k2"), "K3": n("k3"), "K4": n("k4"), "K5": n("k5"),
+            "K5_combine": n("bias_combine"), "combine": n("attention_combine"), "key_tiles": n("key_tiles"),
+            "K2_by_dim": {d: by_dim[d] for d in sorted(by_dim, key=int)},
+            "launches_by_kernel": {kernel: n(kernel) for kernel in ("sm90", "tile", "f32")}}
 
 
 def check_attention(out: torch.Tensor, ref: torch.Tensor, allowed: torch.Tensor, wrong: dict) -> dict:
@@ -1317,8 +1312,7 @@ def phase_main(dev, mesh) -> tuple[dict, dict]:
     import dataclasses
 
     from freepose_tpu_torch.models.dinov2 import VIT_L14_REG, DinoFeatureExtractor
-    from freepose_tpu_torch.ops.attention import dense_attention, flash_attention_fn, flash_attention_k2
-    from freepose_tpu_torch.ops.rasterizer_cuda import raster_tile
+    from freepose_tpu_torch.ops.attention import dense_attention, flash_attention_fn
     from freepose_tpu_torch.pipeline.pose_estimator import CoarsePoseEstimator
     from freepose_tpu_torch.pipeline.proposals import extract_proposals
     from freepose_tpu_torch.pipeline.renderer import TemplateRenderer
@@ -1342,7 +1336,7 @@ def phase_main(dev, mesh) -> tuple[dict, dict]:
     pack = bank.build_pack("smoke_torus", mesh)
     torch.cuda.synchronize()
     pack_s = time.perf_counter() - t0
-    pack_launches = {"K1": raster_tile.launches, "K2": flash_attention_k2.launches}
+    pack_launches = {name: n for name, n in read_launches().items() if name in ("K1", "K2")}
     t0 = time.perf_counter()
     bank.build_pack("smoke_torus", mesh)  # again, warm
     torch.cuda.synchronize()
@@ -4725,13 +4719,18 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
     import freepose_tpu_torch  # noqa: F401  (fails outside a checkout of the repository)
+    from freepose_tpu_torch.utils import timing
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     log("env", python=sys.version.split()[0], torch=torch.__version__, cuda=torch.version.cuda,
         device=torch.cuda.get_device_name(0))
+    with timing.tracing():  # the phases' launch counts (read_launches)
+        return run_phases(dev)
 
+
+def run_phases(dev) -> int:
     phase_build()
     k2 = phase_k2(dev)
     streams = phase_stream_kernels(dev)

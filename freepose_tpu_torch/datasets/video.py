@@ -68,15 +68,18 @@ def stage_frames_hbm(frames: np.ndarray, bucket: int = FRAME_BUCKET, device=None
     import torch
 
     from freepose_tpu_torch.device import resolve_device
+    from freepose_tpu_torch.utils import timing
 
     frames = np.asarray(frames, np.uint8)
     n = len(frames)
     if n == 0:
         raise ValueError("stage_frames_hbm: empty frame array")
-    b = -(-n // bucket) * bucket
-    if b > n:
-        frames = np.concatenate([frames, np.repeat(frames[-1:], b - n, axis=0)])
-    return StagedVideo(torch.as_tensor(frames).to(resolve_device(device)), n)
+    with timing.span("stage"):
+        b = -(-n // bucket) * bucket
+        if b > n:
+            frames = np.concatenate([frames, np.repeat(frames[-1:], b - n, axis=0)])
+        with timing.wait("stage.upload"):  # an upload from pageable memory synchronises
+            return StagedVideo(torch.as_tensor(frames).to(resolve_device(device)), n)
 
 
 def stage_frames(frames: np.ndarray, device) -> "torch.Tensor":

@@ -18,6 +18,7 @@ import torch
 from torch import nn
 
 from freepose_tpu_torch.models.vit import TransformerBlock, interpolate_pos_embed
+from freepose_tpu_torch.utils import timing
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -85,8 +86,9 @@ class DinoV2(nn.Module):
 
 def normalize_images(images: torch.Tensor) -> torch.Tensor:
     """[B, 3, H, W] in [0, 1] -> ImageNet-normalized."""
-    mean = torch.tensor(IMAGENET_MEAN, dtype=images.dtype, device=images.device).reshape(1, 3, 1, 1)
-    std = torch.tensor(IMAGENET_STD, dtype=images.dtype, device=images.device).reshape(1, 3, 1, 1)
+    with timing.wait("dinov2.normalize"):  # uploads from pageable memory synchronise
+        mean = torch.tensor(IMAGENET_MEAN, dtype=images.dtype, device=images.device).reshape(1, 3, 1, 1)
+        std = torch.tensor(IMAGENET_STD, dtype=images.dtype, device=images.device).reshape(1, 3, 1, 1)
     return (images - mean) / std
 
 

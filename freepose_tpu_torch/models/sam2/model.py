@@ -14,6 +14,7 @@ from freepose_tpu_torch.models.sam2.hiera import HIERA_L, FpnNeck, Hiera, HieraC
 from freepose_tpu_torch.models.layers import Conv
 from freepose_tpu_torch.models.sam2.mask_decoder import MaskDecoder, MaskDecoderConfig
 from freepose_tpu_torch.models.sam2.prompt import PromptConfig, PromptEncoder
+from freepose_tpu_torch.utils import timing
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,8 +45,9 @@ IMAGE_STD = (0.229, 0.224, 0.225)
 
 def sam2_normalize(images: torch.Tensor) -> torch.Tensor:
     """[B, 3, H, W] in [0, 1] -> normalised."""
-    mean = torch.tensor(IMAGE_MEAN, dtype=images.dtype, device=images.device).reshape(1, 3, 1, 1)
-    std = torch.tensor(IMAGE_STD, dtype=images.dtype, device=images.device).reshape(1, 3, 1, 1)
+    with timing.wait("sam2.normalize"):  # uploads from pageable memory synchronise
+        mean = torch.tensor(IMAGE_MEAN, dtype=images.dtype, device=images.device).reshape(1, 3, 1, 1)
+        std = torch.tensor(IMAGE_STD, dtype=images.dtype, device=images.device).reshape(1, 3, 1, 1)
     return (images - mean) / std
 
 

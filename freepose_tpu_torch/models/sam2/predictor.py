@@ -33,6 +33,7 @@ import torch
 from freepose_tpu_torch.models.sam2.model import Sam2Config, Sam2ImageModel, sam2_normalize
 from freepose_tpu_torch.models.sam2.video import Sam2VideoConfig, Sam2VideoModel, init_object_state
 from freepose_tpu_torch.ops.sampling import resize_bilinear
+from freepose_tpu_torch.utils import timing
 
 
 def prepare_image(image: torch.Tensor, size: int) -> torch.Tensor:
@@ -220,8 +221,9 @@ class Sam2VideoPredictor:
             cache.clear()
             if frame is None:
                 frame = self._frame_batch(state, [frame_idx])[0]
-            cache[frame_idx] = {d: self._models[d].embed_frame(prepare_image(frame.to(d), self.config.image_size))
-                                for d in dict.fromkeys(self._shard_devices)}
+            with timing.span("sam2.trunk"):
+                cache[frame_idx] = {d: self._models[d].embed_frame(prepare_image(frame.to(d), self.config.image_size))
+                                    for d in dict.fromkeys(self._shard_devices)}
         return cache[frame_idx]
 
     def _register(self, state, obj_id: int, prompt) -> None:
@@ -332,9 +334,10 @@ class Sam2VideoPredictor:
                                     for i in block])
                     lbl = np.stack([np.full((cap,), -10, np.int32) if i is None else state["prompts"][i][2]
                                     for i in block])
+                    with timing.wait("sam2.prompt"):  # uploads from pageable memory synchronise
+                        pts, lbl = torch.as_tensor(pts, device=d), torch.as_tensor(lbl, device=d).long()
                     st, out = model.track_step(st, pyramid, pyramid[2], pos[2], t, num_frames,
-                                               points=torch.as_tensor(pts, device=d)[:, None],
-                                               labels=torch.as_tensor(lbl, device=d).long()[:, None], is_init=True)
+                                               points=pts[:, None], labels=lbl[:, None], is_init=True)
                 states.append(st)
                 outs.append(out)
             return states, gather_outputs(outs, idxs)
@@ -371,24 +374,32 @@ class Sam2VideoPredictor:
                 if key[0] == t:
                     continue  # just initialised on this frame
                 outs.append((groups[key], step_group(key, pyramids, t)))
-            l0, h0 = outs[0][1]
-            low_raw = torch.full((n,) + l0.shape[1:], -32.0, dtype=l0.dtype, device=dev)
-            high_raw = torch.full((n,) + h0.shape[1:], -32.0, dtype=h0.dtype, device=dev)
-            for idxs, (low, high) in outs:  # objects whose prompt frame has not come keep no-object logits
-                ii = torch.as_tensor(idxs, device=dev)
-                low_raw[ii] = low
-                high_raw[ii] = high
-            return postprocess_video_masks(low_raw, high_raw, state["orig_hw"], non_overlap_masks, binarize)
+            with timing.span("sam2.postprocess"):
+                l0, h0 = outs[0][1]
+                low_raw = torch.full((n,) + l0.shape[1:], -32.0, dtype=l0.dtype, device=dev)
+                high_raw = torch.full((n,) + h0.shape[1:], -32.0, dtype=h0.dtype, device=dev)
+                for idxs, (low, high) in outs:  # objects whose prompt frame has not come keep no-object logits
+                    with timing.wait("sam2.object_index"):  # an upload from pageable memory synchronises
+                        ii = torch.as_tensor(idxs, device=dev)
+                    low_raw[ii] = low
+                    high_raw[ii] = high
+                return postprocess_video_masks(low_raw, high_raw, state["orig_hw"], non_overlap_masks, binarize)
 
         plan = batch_plan(list(order), {k[0] for k in groups}, {k[0] for k in live}, chunk)
         for ts in plan:
-            frames_b = self._frame_batch(state, ts)
-            outs = [run_frame(t, frames_b[z]) for z, t in enumerate(ts)]
-            lows, highs = torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
+            # The batch's span closes before each yield: the consumer's work
+            # between yields is not SAM2's.
+            with timing.span("sam2.batch"):
+                frames_b = self._frame_batch(state, ts)
+                outs = [run_frame(t, frames_b[z]) for z, t in enumerate(ts)]
+                lows, highs = torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
+                if not device_batches:
+                    with timing.wait("sam2.masks"):
+                        lows, highs = lows.cpu().numpy(), highs.cpu().numpy()
+                timing.count("sam2.frames", len(ts))
             if device_batches:
                 yield ts, lows, highs, frames_b
                 continue
-            lows, highs = lows.cpu().numpy(), highs.cpu().numpy()
             for z, t in enumerate(ts):
                 yield t, list(state["obj_ids"]), lows[z], highs[z]
 

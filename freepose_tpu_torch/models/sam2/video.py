@@ -29,6 +29,7 @@ from freepose_tpu_torch.models.sam2.mask_decoder import FeedForwardN
 from freepose_tpu_torch.models.sam2.memory import MemoryAttention, MemoryConfig, MemoryEncoder, sine_1d_pe
 from freepose_tpu_torch.models.sam2.model import Sam2Config, Sam2ImageModel
 from freepose_tpu_torch.ops.sampling import resize_bilinear
+from freepose_tpu_torch.utils import timing
 
 NO_OBJ_SCORE = -1024.0
 
@@ -229,24 +230,30 @@ class Sam2VideoModel(nn.Module):
         no_mem = self.image.no_memory_embedding[0, 0].to(raw.dtype)
 
         if mask_inputs is not None:
-            low_res, high_res, pointer, obj_logits = self._mask_as_output([p0, p1, raw + no_mem], mask_inputs)
+            with timing.span("sam2.decoder"):
+                low_res, high_res, pointer, obj_logits = self._mask_as_output([p0, p1, raw + no_mem], mask_inputs)
             iou = torch.ones((o, 1), device=raw.device)
         else:
             if is_init:
                 pix = raw + no_mem
             else:
-                memory, memory_pos, kv_mask, n_ptr = self._gather_memory(state, frame_idx, num_frames, reverse)
-                curr = raw.reshape(o, g * g, m.hidden_size)
-                curr_pos = pos_s2.reshape(1, g * g, m.hidden_size).expand(o, -1, -1)
-                pix = self.memory_attention(curr, curr_pos, memory, memory_pos, n_ptr, kv_mask)
-                pix = pix.reshape(o, g, g, m.hidden_size)
+                with timing.span("sam2.memory_gather"):
+                    memory, memory_pos, kv_mask, n_ptr = self._gather_memory(state, frame_idx, num_frames, reverse)
+                with timing.span("sam2.memory_attention"):
+                    curr = raw.reshape(o, g * g, m.hidden_size)
+                    curr_pos = pos_s2.reshape(1, g * g, m.hidden_size).expand(o, -1, -1)
+                    pix = self.memory_attention(curr, curr_pos, memory, memory_pos, n_ptr, kv_mask)
+                    pix = pix.reshape(o, g, g, m.hidden_size)
             if multimask is None:
                 n_pts = 0 if points is None else points.shape[2]
                 multimask = (is_init or c.multimask_for_tracking) and n_pts <= 1
-            low_res, high_res, pointer, obj_logits, iou = self._sam_step([p0, p1, pix], points, labels, None,
-                                                                        multimask)
+            with timing.span("sam2.decoder"):
+                low_res, high_res, pointer, obj_logits, iou = self._sam_step([p0, p1, pix], points, labels, None,
+                                                                            multimask)
 
-        mem_tokens = self.encode_memory(raw, high_res, obj_logits, points is not None or mask_inputs is not None)
+        with timing.span("sam2.memory_encoder"):
+            mem_tokens = self.encode_memory(raw, high_res, obj_logits,
+                                            points is not None or mask_inputs is not None)
         r = m.memory_temporal_stride
         if is_init:
             slot, pslot = 0, 0

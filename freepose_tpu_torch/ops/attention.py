@@ -31,8 +31,10 @@ mma.sync tile kernel, the previous design of K2 to K4
 
 Each wrapper launches its kernel for CUDA tensors (or raises on what the
 kernel does not take) and runs the plain version for CPU tensors; nothing
-falls back quietly. `launches` on each wrapper counts kernel launches, and
-`launches_by_kernel` counts `_launch`'s launches by device program.
+falls back quietly. Each launch is counted while tracing is on
+(utils/timing.py): `launch.<kernel>` per wrapper (`launch.k2.d<dim>` by head
+dim too), and `launch.sm90`, `launch.tile` or `launch.f32` by the device
+program `_launch` ran.
 `flash_attention` picks K2 or K3 as the JAX function picks its regime, and
 `flash_attention_auto` routes a masked call to K4 and an unmasked one to
 `flash_attention`, as in the JAX package.
@@ -46,6 +48,7 @@ import heapq
 import torch
 
 from freepose_tpu_torch.ops import cuda_build
+from freepose_tpu_torch.utils import timing
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 72, 256)  # the bf16 head dims the kernels are built for
@@ -60,8 +63,6 @@ MAX_SPLITS, MIN_SPLIT_TILES = 16, 8
 # tokens within 10%. d 72: 0.1809, 0.1053 and 0.1272 ms for 64-, 128- and
 # 192-row blocks at [1, 8, 4096, 72], 2 waves each.
 WAVE_COST = {64: {1: 0.72, 3: 1.0}, 72: {1: 1.42, 2: 0.83, 3: 1.0}, 256: {2: 1.0}}
-
-launches_by_kernel = {"sm90": 0, "tile": 0, "f32": 0}  # `_launch`'s launches by device program
 
 
 def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
@@ -357,11 +358,8 @@ def attention_combine(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
             acc.data_ptr(), m.data_ptr(), l.data_ptr(), out.data_ptr(), acc.shape[0], out.numel() // d, d,
             torch.cuda.current_stream().cuda_stream)
     cuda_build.check(status, name)
-    attention_combine.launches += 1
+    timing.count("launch.attention_combine")
     return out
-
-
-attention_combine.launches = 0
 
 
 def key_tiles(kv_mask: torch.Tensor, key_tile: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -386,11 +384,8 @@ def key_tiles(kv_mask: torch.Tensor, key_tile: int) -> tuple[torch.Tensor, torch
             mask.data_ptr(), b, nk, key_tile, count.data_ptr(), tile_list.data_ptr(), flags.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     cuda_build.check(status, name)
-    key_tiles.launches += 1
+    timing.count("launch.key_tiles")
     return count, tile_list, flags
-
-
-key_tiles.launches = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -426,9 +421,9 @@ def _launch_sm90(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, s
         *lists, b * h, h, n, nk, d, wgs, splits, float(scale), stream)
     cuda_build.check(status, name)
     if mask is not None:
-        key_tiles.launches += 1
+        timing.count("launch.key_tiles")
     if splits > 1:
-        attention_combine.launches += 1
+        timing.count("launch.attention_combine")
     return out
 
 
@@ -438,7 +433,7 @@ def _launch(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale:
     """Launch the device program `attention_kernel` picks for the call (or
     `kernel`): the sm90 kernel (at `config`, see `_launch_sm90`), or
     csrc/flash_attention.cu's tile kernel or scalar fp32 kernel (kv_mask
-    None runs either unmasked). Counts the launch in `launches_by_kernel`."""
+    None runs either unmasked). Counts the launch as `launch.<kernel>`."""
     _check_qkv(name, q, k, v, dtypes)
     b, h, n, d = q.shape
     nk = k.shape[2]
@@ -458,7 +453,7 @@ def _launch(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale:
             out = torch.empty_like(q)
             cuda_build.check(_entry("flash_attention", "flash_f32_launch")(
                 *qkv, out.data_ptr(), b * h, n, nk, d, float(scale), stream), name)
-    launches_by_kernel[kernel] += 1
+    timing.count("launch." + kernel)
     return out
 
 
@@ -469,14 +464,9 @@ def flash_attention_k2(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale:
     if _on_cpu(q, k, v):
         return dense_attention(q, k, v, scale)
     out = _launch("flash_attention_k2", q, k, v, scale, None, _DTYPES)
-    d = q.shape[3]
-    flash_attention_k2.launches += 1
-    flash_attention_k2.launches_by_dim[d] = flash_attention_k2.launches_by_dim.get(d, 0) + 1
+    timing.count("launch.k2")
+    timing.count(f"launch.k2.d{q.shape[3]}")
     return out
-
-
-flash_attention_k2.launches = 0
-flash_attention_k2.launches_by_dim = {}  # the same launches, by head dim
 
 
 def flash_attention_k3(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
@@ -487,11 +477,8 @@ def flash_attention_k3(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale:
     if _on_cpu(q, k, v):
         return dense_attention(q, k, v, scale)
     out = _launch("flash_attention_k3", q, k, v, scale, None, (torch.bfloat16,))
-    flash_attention_k3.launches += 1
+    timing.count("launch.k3")
     return out
-
-
-flash_attention_k3.launches = 0
 
 
 def flash_attention_stream(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
@@ -502,11 +489,8 @@ def flash_attention_stream(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sc
     if _on_cpu(q, k, v):
         return dense_attention_masked(q, k, v, scale, kv_mask)
     out = _launch("flash_attention_stream", q, k, v, scale, kv_mask, (torch.bfloat16,))
-    flash_attention_stream.launches += 1
+    timing.count("launch.k4")
     return out
-
-
-flash_attention_stream.launches = 0
 
 
 def flash_attention_tile(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
@@ -610,13 +594,10 @@ def flash_attention_bias(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scal
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), None if kv_mask is None else kv_mask.data_ptr(),
             out.data_ptr(), *parts, b * h, h, n, nk, d, splits, float(scale), stream)
     cuda_build.check(status, name)
-    flash_attention_bias.launches += 1
+    timing.count("launch.k5")
     if splits > 1:
-        bias_combine.launches += 1
+        timing.count("launch.bias_combine")
     return out
-
-
-flash_attention_bias.launches = 0
 
 
 def bias_combine(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
@@ -642,11 +623,8 @@ def bias_combine(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor) -> torch.T
             acc.data_ptr(), m.data_ptr(), l.data_ptr(), out.data_ptr(), acc.shape[0], out.numel() // 64,
             torch.cuda.current_stream().cuda_stream)
     cuda_build.check(status, name)
-    bias_combine.launches += 1
+    timing.count("launch.bias_combine")
     return out
-
-
-bias_combine.launches = 0
 
 
 def flash_attention_bias_auto(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,

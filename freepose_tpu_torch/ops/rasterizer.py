@@ -20,6 +20,8 @@ import dataclasses
 
 import torch
 
+from freepose_tpu_torch.utils import timing
+
 
 @dataclasses.dataclass(frozen=True)
 class RasterSettings:
@@ -69,7 +71,8 @@ def select_tile_faces(
     tx = (tile_ids % grid) * tile
     ty = torch.div(tile_ids, grid, rounding_mode="floor") * tile
     f_idx = torch.arange(f_total, dtype=torch.float32, device=dev)
-    neg_inf = torch.tensor(-float("inf"), device=dev)
+    with timing.wait("rasterizer.select_tile_faces"):  # an upload from pageable memory synchronises
+        neg_inf = torch.tensor(-float("inf"), device=dev)
 
     def _out(idx, ok):
         return idx.reshape(batch + idx.shape[1:]), ok.reshape(batch + ok.shape[1:])

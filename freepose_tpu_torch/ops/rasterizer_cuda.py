@@ -13,8 +13,8 @@ same binning, same seam epsilon, same z-winner, same rounding (the kernel is
 built without FMA contraction).
 
 `raster_tile` is the kernel's wrapper: a CUDA tensor launches K1 (or
-raises), a CPU tensor runs `raster_tile_plain`, the same arithmetic in
-PyTorch.
+raises; counted as `launch.k1` while tracing is on, utils/timing.py), a CPU
+tensor runs `raster_tile_plain`, the same arithmetic in PyTorch.
 """
 from __future__ import annotations
 
@@ -30,6 +30,7 @@ from freepose_tpu_torch.ops.rasterizer import (
     select_tile_faces,
     tiles_to_images,
 )
+from freepose_tpu_torch.utils import timing
 
 # Face-row columns (N_ATTRS per face); csrc/raster_tile.cu uses the same
 # order. Geometry rows first, colour last so depth_only can skip them.
@@ -213,11 +214,8 @@ def raster_tile(rows: torch.Tensor, slots: torch.Tensor, resolution: int, tile: 
     from freepose_tpu_torch.ops import cuda_build
 
     cuda_build.check(status, name)
-    raster_tile.launches += 1
+    timing.count("launch.k1")
     return out
-
-
-raster_tile.launches = 0
 
 
 def rasterize_cuda(vertices, colors, faces, face_valid, poses, k,

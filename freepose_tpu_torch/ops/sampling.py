@@ -13,6 +13,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from freepose_tpu_torch.utils import timing
+
 
 def hat_taps(pos: torch.Tensor, size: int, border: bool = False):
     """The two source indices along one axis of each position [...] and
@@ -149,6 +151,7 @@ def resize_bicubic_torch(img: torch.Tensor, out_hw: tuple[int, int]) -> torch.Te
     (mode="bicubic", align_corners=False, antialias=False); the Hiera
     windowed position embedding's resample."""
     h, w = img.shape[-2], img.shape[-1]
-    wy = torch.as_tensor(_bicubic_axis_matrix(h, out_hw[0]), device=img.device)
-    wx = torch.as_tensor(_bicubic_axis_matrix(w, out_hw[1]), device=img.device)
+    with timing.wait("sampling.resize_bicubic"):  # uploads from pageable memory synchronise
+        wy = torch.as_tensor(_bicubic_axis_matrix(h, out_hw[0]), device=img.device)
+        wx = torch.as_tensor(_bicubic_axis_matrix(w, out_hw[1]), device=img.device)
     return torch.matmul(torch.matmul(wy, img.to(torch.float32)), wx.T)

@@ -39,6 +39,7 @@ from freepose_tpu_torch.pipeline.online_pose_estimator import (
     shard_views,
 )
 from freepose_tpu_torch.pipeline.template_bank import normalize_feats
+from freepose_tpu_torch.utils import timing
 
 _INT32_MAX = torch.iinfo(torch.int32).max
 
@@ -182,9 +183,10 @@ class HostCopy:
     """A device tensor's value copied to the host behind the work enqueued
     so far: reading it waits for that copy only, not for work enqueued
     after it (the JAX package's copy_to_host_async). On the CPU the tensor
-    itself."""
+    itself. Each read is the span `wait.<name>` (utils/timing.py)."""
 
-    def __init__(self, x: torch.Tensor):
+    def __init__(self, x: torch.Tensor, name: str):
+        self._name = name
         self._event = None
         if x.device.type == "cuda":
             self._host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
@@ -195,9 +197,10 @@ class HostCopy:
             self._host = x
 
     def numpy(self) -> np.ndarray:
-        if self._event is not None:
-            self._event.synchronize()
-        return self._host.numpy()
+        with timing.wait(self._name):
+            if self._event is not None:
+                self._event.synchronize()
+            return self._host.numpy()
 
 
 def _features(extractor, images, layer):
@@ -462,7 +465,8 @@ def _serve_misses(state: DeviceCache, m: int, idx, slots0, miss_mask, fine_poses
     pred_pose = prev_pose.clone()
     pred_pose[:3, :3] = (r_prev @ prev2_pose[:3, :3].T) @ r_prev
     pd = torch.where(state.slot_table[:n_fine] >= 0, torch.inf, geodesic_all(fine_poses, pred_pose))
-    pd[idx] = torch.inf
+    with timing.wait("refine.prefetch"):  # writing a host scalar synchronises
+        pd[idx] = torch.inf
     pf_idx = torch.argsort(pd, stable=True)[:miss_bucket]
     pf_real = torch.isfinite(pd[pf_idx])
 
@@ -480,8 +484,9 @@ def _serve_misses(state: DeviceCache, m: int, idx, slots0, miss_mask, fine_poses
     # Protected: the neighbourhood's residents, the scratch slot, and each
     # slot as it is picked.
     protect = torch.zeros(capacity + 1, dtype=torch.bool, device=dev)
-    protect[torch.where(slots0 >= 0, slots0.long(), capacity)] = True
-    protect[capacity] = True
+    with timing.wait("refine.protect"):  # writing host scalars synchronises
+        protect[torch.where(slots0 >= 0, slots0.long(), capacity)] = True
+        protect[capacity] = True
     victims = lru_victims(state.last_used, protect, real)
 
     props, rmasks, (smin, smax, smean) = render_view_block(
@@ -496,9 +501,10 @@ def _serve_misses(state: DeviceCache, m: int, idx, slots0, miss_mask, fine_poses
     # to the scratch slot map nothing, so no grid index points at scratch.
     wrote = victims < capacity
     gi_write = torch.where(wrote, gi, n_fine)
-    state.slot_table[state.grid_of[victims]] = -1
-    state.slot_table[gi_write] = victims.to(torch.int32)
-    state.slot_table[n_fine] = -1
+    with timing.wait("refine.slot_table"):  # writing host scalars synchronises
+        state.slot_table[state.grid_of[victims]] = -1
+        state.slot_table[gi_write] = victims.to(torch.int32)
+        state.slot_table[n_fine] = -1
     state.grid_of[victims] = gi_write
     state.last_used[victims] = torch.where(wrote, state.frame, state.last_used[victims])
 
@@ -531,25 +537,29 @@ def cached_refine_auto_step(
     slots0 = state.slot_table[idx]
     miss_mask = slots0 < 0
     m_dev = miss_mask.sum()
-    m_host = HostCopy(m_dev)
-    qf = _features(extractor, proposal[None], layer)[0]
+    m_host = HostCopy(m_dev, "refine.miss_count")
+    with timing.span("refine.query_features"):
+        qf = _features(extractor, proposal[None], layer)[0]
     m = int(m_host.numpy())
     if m > 0:
-        _serve_misses(state, m, idx, slots0, miss_mask, fine_poses, prev_pose, prev2_pose, v, c, f, fv,
-                      k_render, extractor=extractor, layer=layer, settings=settings, pose_chunk=pose_chunk,
-                      resolution=resolution, n_neighbors=n_neighbors, miss_bucket=miss_bucket, zoom=zoom)
+        with timing.span("refine.miss"):
+            _serve_misses(state, m, idx, slots0, miss_mask, fine_poses, prev_pose, prev2_pose, v, c, f, fv,
+                          k_render, extractor=extractor, layer=layer, settings=settings, pose_chunk=pose_chunk,
+                          resolution=resolution, n_neighbors=n_neighbors, miss_bucket=miss_bucket, zoom=zoom)
 
-    slots_after = state.slot_table[idx].long()
-    present = slots_after >= 0
-    gather = torch.where(present, slots_after, capacity)
-    tcos, score, local = _gather_rescore_lift(
-        state.feats, state.masks, state.stats, qf, gather, valid & present, sel_poses, proposal_mask, k, bbox,
-        est_scale, resolution=resolution, patch_size=extractor.config.patch_size, mask_scores=mask_scores,
-        rendering_scale=rendering_scale,
-    )
-    # Touch the neighbourhood (LRU recency) and advance the clock.
-    state.last_used[gather] = torch.where(present, state.frame, state.last_used[gather])
-    state.last_used[capacity] = -1
+    with timing.span("refine.rescore"):
+        slots_after = state.slot_table[idx].long()
+        present = slots_after >= 0
+        gather = torch.where(present, slots_after, capacity)
+        tcos, score, local = _gather_rescore_lift(
+            state.feats, state.masks, state.stats, qf, gather, valid & present, sel_poses, proposal_mask, k, bbox,
+            est_scale, resolution=resolution, patch_size=extractor.config.patch_size, mask_scores=mask_scores,
+            rendering_scale=rendering_scale,
+        )
+        # Touch the neighbourhood (LRU recency) and advance the clock.
+        state.last_used[gather] = torch.where(present, state.frame, state.last_used[gather])
+        with timing.wait("refine.lru"):  # writing a host scalar synchronises
+            state.last_used[capacity] = -1
     state.frame += 1
     ok = m_dev <= miss_bucket
     packed = torch.cat([tcos[0].reshape(-1).float(),

@@ -42,6 +42,7 @@ from freepose_tpu_torch.pipeline.renderer import (
     zoom_intrinsics_for_poses,
 )
 from freepose_tpu_torch.pipeline.template_bank import depth_stats, depth_stats_per_k, normalize_feats
+from freepose_tpu_torch.utils import timing
 
 
 def select_neighborhood(
@@ -56,7 +57,8 @@ def select_neighborhood(
     dists = geodesic_distance(fine_poses[:, :3, :3], prev_pose[:3, :3])
     idx = torch.argsort(dists, stable=True)[:n_neighbors]
     mask = dists[idx] < neighborhood_deg
-    mask[0] = True
+    with timing.wait("refine.neighborhood"):  # writing a host scalar synchronises
+        mask[0] = True
     return fine_poses[idx], idx, mask
 
 
@@ -271,7 +273,8 @@ class OnlinePoseEstimator:
         self._padded_meshes: dict = {}
 
     def _f32(self, x) -> torch.Tensor:
-        return torch.as_tensor(x, dtype=torch.float32, device=self.device)
+        with timing.wait("refine.inputs"):  # an upload from pageable memory synchronises
+            return torch.as_tensor(x, dtype=torch.float32, device=self.device)
 
     def _index(self, x) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x), dtype=torch.long, device=self.device)
@@ -670,7 +673,7 @@ class CachedRefineChain:
         from freepose_tpu_torch.pipeline.fine_cache import HostCopy
 
         self._prev_idx_dev = out.view_indices
-        return HostCopy(torch.cat([out.tcos[0].reshape(-1).float(), out.scores.reshape(1).float()]))
+        return HostCopy(torch.cat([out.tcos[0].reshape(-1).float(), out.scores.reshape(1).float()]), "refine.result")
 
     def _submit_spec(self, inputs) -> None:
         from freepose_tpu_torch.pipeline.fine_cache import HostCopy, cached_refine_hit_chain
@@ -683,7 +686,7 @@ class CachedRefineChain:
             n_neighbors=est.n_neighbors,
         )
         self._prev_idx_dev = nxt
-        self.pending.append(("spec", inputs, HostCopy(packed)))
+        self.pending.append(("spec", inputs, HostCopy(packed, "refine.result")))
 
     def _finalize(self, tc: np.ndarray, score: float) -> None:
         self.results.append((tc, float(score)))
@@ -807,25 +810,28 @@ class AutoRefineChain:
         )
         self._prev2_pose_dev = prev_pose
         self._prev_pose_dev = pose
-        return HostCopy(packed)
+        return HostCopy(packed, "refine.result")
 
     def submit(self, proposal, proposal_mask, k, bbox, est_scale, prev_pose=None):
         """Queue one frame. The first frame needs prev_pose (the coarse pose);
         later frames chain from the refine output (closed loop)."""
-        est = self.est
-        inputs = (torch.as_tensor(proposal, device=est.device), torch.as_tensor(proposal_mask, device=est.device),
-                  est._f32(k), est._f32(bbox), est._f32(est_scale))
-        if self._prev_pose_dev is None:
-            if prev_pose is None:
-                raise ValueError("first frame needs prev_pose")
-            # Cold cache: the whole neighbourhood misses, full bucket.
-            packed = self._step(inputs, est._f32(prev_pose), est.n_neighbors)
-        else:
-            if prev_pose is not None:
-                raise ValueError("chain is closed-loop; prev_pose only seeds frame 0")
-            packed = self._step(inputs, self._prev_pose_dev, self.miss_bucket)
-        self.pending.append((inputs, packed))
-        self._drain(self.lag)
+        with timing.span("refine.step"):
+            est = self.est
+            inputs = (torch.as_tensor(proposal, device=est.device),
+                      torch.as_tensor(proposal_mask, device=est.device), est._f32(k), est._f32(bbox),
+                      est._f32(est_scale))
+            if self._prev_pose_dev is None:
+                if prev_pose is None:
+                    raise ValueError("first frame needs prev_pose")
+                # Cold cache: the whole neighbourhood misses, full bucket.
+                packed = self._step(inputs, est._f32(prev_pose), est.n_neighbors)
+            else:
+                if prev_pose is not None:
+                    raise ValueError("chain is closed-loop; prev_pose only seeds frame 0")
+                packed = self._step(inputs, self._prev_pose_dev, self.miss_bucket)
+            timing.count("refine.frames")
+            self.pending.append((inputs, packed))
+            self._drain(self.lag)
 
     def finalize_all(self) -> list[tuple[np.ndarray, float]]:
         """Flush the pipeline -> [(pose 4x4, score)] for every frame."""
@@ -876,24 +882,26 @@ class AutoRefineChain:
                 self._recent_miss.clear()
 
     def _drain(self, allowed: int) -> None:
-        while len(self.pending) > allowed:
-            inputs, handle = self.pending.popleft()
-            p = handle.numpy()
-            if p[17] > 0.5:  # ok
-                self.results.append((p[:16].reshape(4, 4).copy(), float(p[16])))
-                self.miss_counts.append(int(p[18]))
-                self._adapt(int(p[18]), overflowed=False)
-                continue
-            # Trajectory jump: re-dispatch this frame with the full bucket from
-            # the last good pose, then re-enqueue the frames behind it.
-            self.n_full_redispatch += 1
-            self._adapt(int(p[18]), overflowed=True)
-            prev = self.est._f32(self.results[-1][0])
-            packed = self._step(inputs, prev, self.est.n_neighbors)
-            rest = list(self.pending)
-            self.pending.clear()
-            self.pending.append((inputs, packed))
-            for inputs2, _ in rest:
-                self.pending.append((inputs2, self._step(inputs2, self._prev_pose_dev, self.miss_bucket)))
-            if allowed > 0:
-                break
+        with timing.span("refine.drain"):
+            while len(self.pending) > allowed:
+                inputs, handle = self.pending.popleft()
+                p = handle.numpy()
+                if p[17] > 0.5:  # ok
+                    self.results.append((p[:16].reshape(4, 4).copy(), float(p[16])))
+                    self.miss_counts.append(int(p[18]))
+                    self._adapt(int(p[18]), overflowed=False)
+                    continue
+                # Trajectory jump: re-dispatch this frame with the full bucket
+                # from the last good pose, then re-enqueue the frames behind it.
+                with timing.span("refine.redispatch"):
+                    self.n_full_redispatch += 1
+                    self._adapt(int(p[18]), overflowed=True)
+                    prev = self.est._f32(self.results[-1][0])
+                    packed = self._step(inputs, prev, self.est.n_neighbors)
+                    rest = list(self.pending)
+                    self.pending.clear()
+                    self.pending.append((inputs, packed))
+                    for inputs2, _ in rest:
+                        self.pending.append((inputs2, self._step(inputs2, self._prev_pose_dev, self.miss_bucket)))
+                if allowed > 0:
+                    break

@@ -14,6 +14,7 @@ import torch
 from freepose_tpu_torch.geometry.rotation import template_poses as make_template_poses
 from freepose_tpu_torch.pipeline.renderer import RENDERING_SCALE
 from freepose_tpu_torch.pipeline.template_bank import TemplateBank, TemplatePack, normalize_feats
+from freepose_tpu_torch.utils import timing
 
 
 @dataclasses.dataclass
@@ -88,7 +89,8 @@ class CoarsePoseEstimator:
         self.mesh_poses = make_template_poses(n_poses, device=bank.device)
 
     def _f32(self, x) -> torch.Tensor:
-        return torch.as_tensor(x, dtype=torch.float32, device=self.bank.device)
+        with timing.wait("coarse.inputs"):  # an upload from pageable memory synchronises
+            return torch.as_tensor(x, dtype=torch.float32, device=self.bank.device)
 
     def query_features(self, proposal: torch.Tensor) -> torch.Tensor:
         """[3, T, T] proposal crop -> [G², D] normalized patch features."""

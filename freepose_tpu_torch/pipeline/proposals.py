@@ -13,6 +13,7 @@ import torch
 
 from freepose_tpu_torch.geometry.crop import crop_resize_pad
 from freepose_tpu_torch.io.proposals_json import proposal_entry
+from freepose_tpu_torch.utils import timing
 
 
 @dataclasses.dataclass
@@ -95,18 +96,22 @@ def proposals_from_masks_video(
     bboxes [K, 4] f32)."""
     from freepose_tpu_torch.geometry.boxes import mask_to_bbox
 
-    kf, h, w = masks.shape
-    masks = masks.to(device=frames.device, dtype=torch.bool)
-    empty = ~masks.reshape(kf, -1).any(dim=1)
-    fallback = torch.tensor([w * 0.25, h * 0.25, w * 0.75, h * 0.75], dtype=torch.float32, device=frames.device)
-    bboxes = torch.where(empty[:, None], fallback, mask_to_bbox(masks).to(torch.float32))
-    img = frames.to(torch.float32)
-    if frames.dtype == torch.uint8:
-        img = img / 255.0
-    rgb = torch.where(masks[:, None], img.permute(0, 3, 1, 2), torch.zeros((), device=frames.device))
-    crops = crop_resize_pad(rgb, bboxes, target_size, extend=bbox_extend)
-    mask_crops = crop_resize_pad(masks[:, None].to(torch.float32), bboxes, target_size, extend=bbox_extend)[:, 0] > 0.5
-    return crops, mask_crops, bboxes
+    with timing.span("proposals.video"):
+        kf, h, w = masks.shape
+        masks = masks.to(device=frames.device, dtype=torch.bool)
+        empty = ~masks.reshape(kf, -1).any(dim=1)
+        with timing.wait("proposals.fallback"):  # an upload from pageable memory synchronises
+            fallback = torch.tensor([w * 0.25, h * 0.25, w * 0.75, h * 0.75], dtype=torch.float32,
+                                    device=frames.device)
+        bboxes = torch.where(empty[:, None], fallback, mask_to_bbox(masks).to(torch.float32))
+        img = frames.to(torch.float32)
+        if frames.dtype == torch.uint8:
+            img = img / 255.0
+        rgb = torch.where(masks[:, None], img.permute(0, 3, 1, 2), torch.zeros((), device=frames.device))
+        crops = crop_resize_pad(rgb, bboxes, target_size, extend=bbox_extend)
+        mask_crops = crop_resize_pad(masks[:, None].to(torch.float32), bboxes, target_size,
+                                     extend=bbox_extend)[:, 0] > 0.5
+        return crops, mask_crops, bboxes
 
 
 def retrieve_topk(

@@ -19,6 +19,7 @@ from freepose_tpu_torch.geometry.rotation import template_poses
 from freepose_tpu_torch.io.mesh import TriMesh, fit_to_budget, pad_mesh, pad_uv
 from freepose_tpu_torch.ops.rasterizer import RasterSettings, camera_points, render_meshes
 from freepose_tpu_torch.ops.texture import render_textured
+from freepose_tpu_torch.utils import timing
 
 TEMPLATE_FOCAL = 600.0
 TEMPLATE_RES = 420
@@ -61,7 +62,8 @@ class TemplateRenderer:
 
     def _padded(self, mesh: TriMesh, scale: float):
         v, c, f, valid = pad_mesh(mesh, self.max_vertices, self.max_faces)
-        return tuple(torch.as_tensor(a, device=self.device) for a in (v * scale, c, f, valid))
+        with timing.wait("renderer.mesh"):  # uploads from pageable memory synchronise
+            return tuple(torch.as_tensor(a, device=self.device) for a in (v * scale, c, f, valid))
 
     def render(self, mesh: TriMesh, scale: float = RENDERING_SCALE):
         """Render the full template grid -> (rgb [N,R,R,3], depth [N,R,R])."""

@@ -21,6 +21,7 @@ import torch
 from freepose_tpu_torch.geometry.camera import backproject_depth
 from freepose_tpu_torch.geometry.pointcloud import masked_mean
 from freepose_tpu_torch.pipeline.renderer import TemplateRenderer, template_intrinsics
+from freepose_tpu_torch.utils import timing
 
 
 @dataclasses.dataclass
@@ -42,7 +43,8 @@ def depth_stats(depths: torch.Tensor, k: torch.Tensor, chunk: int = 64):
         d = depths[s : s + chunk]
         kk = k if k.ndim == 2 else k[s : s + chunk]
         pts, valid = backproject_depth(d, kk)  # [C, HW, 3], [C, HW]
-        big = torch.tensor(1e30, dtype=pts.dtype, device=pts.device)
+        with timing.wait("template_bank.depth_stats"):  # an upload from pageable memory synchronises
+            big = torch.tensor(1e30, dtype=pts.dtype, device=pts.device)
         vmin = torch.where(valid[..., None], pts, big).amin(dim=1)
         vmax = torch.where(valid[..., None], pts, -big).amax(dim=1)
         mean = masked_mean(pts, valid, axis=1)

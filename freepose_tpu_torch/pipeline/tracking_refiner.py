@@ -35,6 +35,7 @@ from freepose_tpu_torch.ops.sampling import resize_area, roi_align
 from freepose_tpu_torch.parallel.mesh import gather, replicate, split
 from freepose_tpu_torch.pipeline.pnp import epnp
 from freepose_tpu_torch.pipeline.template_bank import normalize_feats
+from freepose_tpu_torch.utils import timing
 
 RES = 518  # DINOv2-B input -> 37 x 37 patches
 PATCH = 14
@@ -178,7 +179,8 @@ class TrackingRefiner:
         self._pad_cache: dict = {}
 
     def _t(self, x, dtype=torch.float32) -> torch.Tensor:
-        return torch.as_tensor(x).to(self.device, dtype)
+        with timing.wait("inliers.inputs"):  # an upload from pageable memory synchronises
+            return torch.as_tensor(x).to(self.device, dtype)
 
     def _crop_and_k(self, image: torch.Tensor, mesh_pts: torch.Tensor, k: torch.Tensor, pose: torch.Tensor):
         """The photo crop around the projected model and its intrinsics."""
@@ -404,7 +406,7 @@ class StreamingInliers:
 
         frames = self.staged.frames[start:start + self.chunk]
         return HostCopy(self.refiner.pose_confidence_batch(self.mesh, frames, self.k, poses, fetch=False,
-                                                           channels_last=True))
+                                                           channels_last=True), "inliers")
 
     def warmup(self) -> None:
         """One chunk on identity poses before any timed region (the result
@@ -424,8 +426,10 @@ class StreamingInliers:
                 return
             # A tail chunk repeats its last pose (those rows are dropped);
             # the staged buffer already repeats the last frame.
-            poses = np.stack([self._poses[min(j, hi - 1)] for j in range(i, i + self.chunk)])
-            self._outs.append(self._dispatch(i, poses))
+            with timing.span("inliers.dispatch"):
+                poses = np.stack([self._poses[min(j, hi - 1)] for j in range(i, i + self.chunk)])
+                self._outs.append(self._dispatch(i, poses))
+            timing.count("inliers.frames", hi - i)
             self._next = hi
 
     def finalize(self):
@@ -433,10 +437,12 @@ class StreamingInliers:
         if self._next < self.n:
             missing = [j for j in range(self._next, self.n) if j not in self._poses]
             raise ValueError(f"StreamingInliers: poses missing for frames {missing[:5]}")
-        confs = np.concatenate([o.numpy()[: self.n - i] for i, o in zip(range(0, self.n, self.chunk), self._outs)])
-        # Padded with -1e9 to the staged bucket, as the JAX function pads;
-        # the threshold reads positive confidences only.
-        padded = np.full((self.staged.frames.shape[0], *confs.shape[1:]), -1e9, np.float32)
-        padded[: self.n] = confs
-        thr = float(quantile_threshold(torch.as_tensor(padded)))
-        return (confs > thr).sum(axis=(1, 2)), thr
+        with timing.span("inliers.finalize"):
+            confs = np.concatenate([o.numpy()[: self.n - i]
+                                    for i, o in zip(range(0, self.n, self.chunk), self._outs)])
+            # Padded with -1e9 to the staged bucket, as the JAX function pads;
+            # the threshold reads positive confidences only.
+            padded = np.full((self.staged.frames.shape[0], *confs.shape[1:]), -1e9, np.float32)
+            padded[: self.n] = confs
+            thr = float(quantile_threshold(torch.as_tensor(padded)))
+            return (confs > thr).sum(axis=(1, 2)), thr

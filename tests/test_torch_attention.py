@@ -27,10 +27,10 @@ from freepose_tpu_torch.ops.attention import (MIN_SPLIT_TILES, WAVE_COST, attent
                                               attention_partials, combine_partials, dense_attention,
                                               dense_attention_bias, dense_attention_masked, flash_attention,
                                               flash_attention_auto, flash_attention_bias, flash_attention_bias_auto,
-                                              flash_attention_k2, flash_attention_k3, flash_attention_stream,
-                                              flash_attention_sm90, flash_attention_tile, key_tile_list, key_tiles,
-                                              launches_by_kernel, sm90_config)
+                                              flash_attention_stream, flash_attention_sm90, flash_attention_tile,
+                                              key_tile_list, key_tiles, sm90_config)
 from freepose_tpu_torch.ops.attention import K5_KEY_TILE, bias_combine, k5_config
+from freepose_tpu_torch.utils import timing
 
 SCALE = 64**-0.5
 # Keys per tile of the sm90 kernel (`Sm90::BK`; on the card `sm90_key_tile` reads
@@ -67,12 +67,13 @@ def test_plain_matches_jax_bf16(n):
 
 def test_cpu_tensor_runs_plain_version_without_launch():
     q, k, v = map(torch.as_tensor, _qkv(20, seed=2))
-    before = (flash_attention_k2.launches, flash_attention_k3.launches, flash_attention_stream.launches)
-    out = flash_attention(q, k, v, SCALE)
-    torch.testing.assert_close(out, dense_attention(q, k, v, SCALE), rtol=0, atol=0)
-    flash_attention(q, k, v, SCALE, single_budget=0)
-    flash_attention_auto(q, k, v, SCALE, kv_mask=torch.ones((2, 20), dtype=torch.bool))
-    assert (flash_attention_k2.launches, flash_attention_k3.launches, flash_attention_stream.launches) == before
+    with timing.tracing():
+        before = tuple(timing.counts.get(f"launch.{kernel}", 0) for kernel in ("k2", "k3", "k4"))
+        out = flash_attention(q, k, v, SCALE)
+        torch.testing.assert_close(out, dense_attention(q, k, v, SCALE), rtol=0, atol=0)
+        flash_attention(q, k, v, SCALE, single_budget=0)
+        flash_attention_auto(q, k, v, SCALE, kv_mask=torch.ones((2, 20), dtype=torch.bool))
+        assert tuple(timing.counts.get(f"launch.{kernel}", 0) for kernel in ("k2", "k3", "k4")) == before
 
 
 def test_wrapper_refuses_tensors_off_cpu_and_cuda():
@@ -99,9 +100,10 @@ def test_split_partials_combine_to_jax_streaming(splits, dtype, tol):
     ours = combine_partials(m, l, acc, tdtype)
     ref = np.asarray(jax_flash(jq, jk, jv, SCALE, block_k=128, single_budget=0, interpret=True).astype(jnp.float32))
     np.testing.assert_allclose(ours.float().numpy(), ref, atol=tol)
-    before = attention_combine.launches
-    torch.testing.assert_close(attention_combine(m, l, acc, tdtype), ours, rtol=0, atol=0)
-    assert attention_combine.launches == before
+    with timing.tracing():
+        before = timing.counts.get("launch.attention_combine", 0)
+        torch.testing.assert_close(attention_combine(m, l, acc, tdtype), ours, rtol=0, atol=0)
+        assert timing.counts.get("launch.attention_combine", 0) == before
 
 
 @pytest.mark.parametrize("dtype,d,masked,kernel", [
@@ -202,10 +204,11 @@ def test_key_tile_list_matches_numpy(name, mask):
         assert set(listed) == ({i for i in range(tiles) if has_valid[i]} if any(has_valid) else set(range(tiles)))
         if not any(has_valid):
             assert (flags[e] == 1).all()
-    before = key_tiles.launches
-    for ours, theirs in zip(key_tiles(torch.as_tensor(mask), key_tile), (count, order, flags)):
-        torch.testing.assert_close(ours, theirs, rtol=0, atol=0)
-    assert key_tiles.launches == before
+    with timing.tracing():
+        before = timing.counts.get("launch.key_tiles", 0)
+        for ours, theirs in zip(key_tiles(torch.as_tensor(mask), key_tile), (count, order, flags)):
+            torch.testing.assert_close(ours, theirs, rtol=0, atol=0)
+        assert timing.counts.get("launch.key_tiles", 0) == before
 
 
 @pytest.mark.parametrize("dtype,tol", [(np.float32, 1e-5), (jnp.bfloat16, 2e-2)])
@@ -265,15 +268,16 @@ def test_tile_wrapper_and_launch_counts_on_cpu():
     q, k, v = map(torch.as_tensor, _qkv(20, b=2, h=2, seed=14, nk=33))
     mask = torch.ones((2, 33), dtype=torch.bool)
     mask[0, 5:9] = False
-    before = dict(launches_by_kernel), key_tiles.launches
-    torch.testing.assert_close(flash_attention_tile(q, k, v, SCALE, kv_mask=mask),
-                               dense_attention_masked(q, k, v, SCALE, mask), rtol=0, atol=0)
-    torch.testing.assert_close(flash_attention_sm90(q, k, v, SCALE, (3, 1)), dense_attention(q, k, v, SCALE),
-                               rtol=0, atol=0)
-    torch.testing.assert_close(flash_attention_sm90(q, k, v, SCALE, (1, 4), kv_mask=mask),
-                               dense_attention_masked(q, k, v, SCALE, mask), rtol=0, atol=0)
-    flash_attention(q, k, v, SCALE, single_budget=0)
-    assert (launches_by_kernel, key_tiles.launches) == before
+    with timing.tracing():
+        before = dict(timing.counts)
+        torch.testing.assert_close(flash_attention_tile(q, k, v, SCALE, kv_mask=mask),
+                                   dense_attention_masked(q, k, v, SCALE, mask), rtol=0, atol=0)
+        torch.testing.assert_close(flash_attention_sm90(q, k, v, SCALE, (3, 1)), dense_attention(q, k, v, SCALE),
+                                   rtol=0, atol=0)
+        torch.testing.assert_close(flash_attention_sm90(q, k, v, SCALE, (1, 4), kv_mask=mask),
+                                   dense_attention_masked(q, k, v, SCALE, mask), rtol=0, atol=0)
+        flash_attention(q, k, v, SCALE, single_budget=0)
+        assert dict(timing.counts) == before
 
 
 def _bf16(*xs):
@@ -385,10 +389,11 @@ def test_k5_plain_matches_jax_with_key_mask_at_ragged_n():
 def test_k5_cpu_tensors_run_the_plain_version_without_launch():
     q, k, v = map(torch.as_tensor, _qkv(20, b=2, h=2, seed=10, nk=30))
     bias = torch.as_tensor(np.random.default_rng(11).normal(size=(2, 20, 30)).astype(np.float32))
-    before = flash_attention_bias.launches
-    out = flash_attention_bias_auto(q, k, v, SCALE, bias)
-    torch.testing.assert_close(out, dense_attention_bias(q, k, v, SCALE, bias), rtol=0, atol=0)
-    assert flash_attention_bias.launches == before
+    with timing.tracing():
+        before = timing.counts.get("launch.k5", 0)
+        out = flash_attention_bias_auto(q, k, v, SCALE, bias)
+        torch.testing.assert_close(out, dense_attention_bias(q, k, v, SCALE, bias), rtol=0, atol=0)
+        assert timing.counts.get("launch.k5", 0) == before
     with pytest.raises(ValueError):  # neither CPU nor CUDA
         flash_attention_bias(*(t.to("meta") for t in (q, k, v)), SCALE, bias.to("meta"))
 
@@ -427,9 +432,10 @@ def test_k5_key_split_partials_combine_to_jax(splits):
                                 tb[:, :, s:s + per]) for s in range(0, 200, per)]
     assert len(parts) == splits
     m, l, acc = (torch.stack(x) for x in zip(*parts))
-    before = bias_combine.launches
-    ours = bias_combine(m, l, acc).numpy()  # CPU tensors: combine_partials in fp32
-    assert bias_combine.launches == before
+    with timing.tracing():
+        before = timing.counts.get("launch.bias_combine", 0)
+        ours = bias_combine(m, l, acc).numpy()  # CPU tensors: combine_partials in fp32
+        assert timing.counts.get("launch.bias_combine", 0) == before
     ref = np.asarray(jax_flash_bias(*map(jnp.asarray, (q, k, v)), SCALE, jnp.asarray(bias),
                                     kv_mask=jnp.asarray(mask), block_q=16, block_k=32, interpret=True))
     np.testing.assert_allclose(ours, ref, atol=2e-5)

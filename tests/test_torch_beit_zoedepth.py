@@ -30,7 +30,7 @@ from freepose_tpu_torch.models.beit import BEIT_TEST, BeitBackbone, BeitBlock
 from freepose_tpu_torch.models.convert import (random_zoedepth_params, state_dict_from_jax, unstack_scanned,
                                                zoedepth_from_jax)
 from freepose_tpu_torch.models.zoedepth import DEPTH_TEST, MetricDepthEstimator, ZoeDepthModel
-from freepose_tpu_torch.ops.attention import flash_attention_bias
+from freepose_tpu_torch.utils import timing
 
 
 @pytest.fixture(scope="module")
@@ -60,10 +60,10 @@ def test_beit_block_matches_jax(use_flash):
         jax_attention.FORCE_INTERPRET = old
     block = BeitBlock(dataclasses.replace(BEIT_TEST, use_flash=use_flash))
     block.load_state_dict(state_dict_from_jax(params))
-    before = flash_attention_bias.launches
-    with torch.no_grad():
+    with timing.tracing(), torch.no_grad():
+        before = timing.counts.get("launch.k5", 0)
         ours = block(torch.as_tensor(x), (4, 4)).numpy()
-    assert flash_attention_bias.launches == before  # CPU tensors: the plain version
+        assert timing.counts.get("launch.k5", 0) == before  # CPU tensors: the plain version
     np.testing.assert_allclose(ours, ref, atol=3e-5)
 
 

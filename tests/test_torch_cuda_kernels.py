@@ -34,12 +34,13 @@ from freepose_tpu_torch.io.mesh import TriMesh, pad_mesh
 from freepose_tpu_torch.ops.attention import (attention_combine, attention_partials, bf16_error_bound,
                                               combine_partials, dense_attention, dense_attention_bias,
                                               dense_attention_masked, flash_attention, flash_attention_bias,
-                                              flash_attention_k2, flash_attention_k3, flash_attention_stream,
-                                              flash_attention_sm90, flash_attention_tile, key_tile_list, key_tiles,
-                                              launches_by_kernel, sm90_config, sm90_key_tile)
+                                              flash_attention_k2, flash_attention_stream, flash_attention_sm90,
+                                              flash_attention_tile, key_tile_list, key_tiles, sm90_config,
+                                              sm90_key_tile)
 from freepose_tpu_torch.ops.attention import bias_combine
 from freepose_tpu_torch.ops.rasterizer import RasterSettings, rasterize
 from freepose_tpu_torch.ops.rasterizer_cuda import prologue, raster_tile, raster_tile_plain
+from freepose_tpu_torch.utils import timing
 
 pytestmark = pytest.mark.cuda
 
@@ -50,11 +51,18 @@ K = np.asarray([[100.0, 0, 32], [0, 100, 32], [0, 0, 1]], np.float32)
 
 @pytest.fixture
 def cuda():
+    """The card, with tracing on for the test (launches are counted)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    return torch.device("cuda")
+    with timing.tracing():
+        yield torch.device("cuda")
+
+
+def _launches(kernel: str) -> int:
+    """The launches of `kernel` counted so far (utils/timing.py)."""
+    return timing.counts.get("launch." + kernel, 0)
 
 
 def _within_bound(x, ref, q, k, v, scale, mask=None) -> bool:
@@ -72,10 +80,10 @@ def _qkv(n, b=2, h=4, d=64, seed=3, nk=None):
 @pytest.mark.parametrize("n", [905, 37, 64])
 def test_k2_matches_plain(cuda, dtype, n):
     q, k, v = (torch.as_tensor(x, device=cuda).to(dtype) for x in _qkv(n))
-    before = flash_attention_k2.launches
+    before = _launches("k2")
     out = flash_attention(q, k, v, SCALE)
     torch.cuda.synchronize()
-    assert flash_attention_k2.launches == before + 1
+    assert _launches("k2") == before + 1
     assert out.dtype == dtype and out.shape == q.shape
     ref = dense_attention(q, k, v, SCALE)
     if dtype == torch.float32:
@@ -92,10 +100,10 @@ def test_k2_head_dims_match_plain(cuda, d, n, nk):
     kernel."""
     b, h = (1, 8) if d == 72 else (2, 1)
     q, k, v = (torch.as_tensor(x, device=cuda).to(torch.bfloat16) for x in _qkv(n, b, h, d, nk=nk))
-    before, by_kernel = flash_attention_k2.launches, launches_by_kernel["sm90"]
+    before, by_kernel = _launches("k2"), _launches("sm90")
     out = flash_attention_k2(q, k, v, d**-0.5)
     torch.cuda.synchronize()
-    assert flash_attention_k2.launches == before + 1 and launches_by_kernel["sm90"] == by_kernel + 1
+    assert _launches("k2") == before + 1 and _launches("sm90") == by_kernel + 1
     ref = dense_attention(q, k, v, d**-0.5)
     assert _within_bound(out, ref, q, k, v, d**-0.5)
 
@@ -104,10 +112,10 @@ def test_k2_head_dims_match_plain(cuda, d, n, nk):
 def test_k3_matches_plain(cuda, d):
     """K3 through flash_attention's streaming regime (single_budget=0)."""
     q, k, v = (torch.as_tensor(x, device=cuda).to(torch.bfloat16) for x in _qkv(300, 1, 2, d, nk=6144 + 7))
-    before = flash_attention_k3.launches
+    before = _launches("k3")
     out = flash_attention(q, k, v, d**-0.5, single_budget=0)
     torch.cuda.synchronize()
-    assert flash_attention_k3.launches == before + 1
+    assert _launches("k3") == before + 1
     assert _within_bound(out, dense_attention(q, k, v, d**-0.5), q, k, v, d**-0.5)
 
 
@@ -126,10 +134,10 @@ def test_k4_matches_plain(cuda, d):
     nk = 3 * 4096 + 64 + 5
     q, k, v = (torch.as_tensor(x, device=cuda).to(torch.bfloat16) for x in _qkv(200, 2, 2, d, nk=nk))
     mask = _slot_mask(2, nk, cuda)
-    before, sm90, lists = flash_attention_stream.launches, launches_by_kernel["sm90"], key_tiles.launches
+    before, sm90, lists = _launches("k4"), _launches("sm90"), _launches("key_tiles")
     out = flash_attention_stream(q, k, v, d**-0.5, kv_mask=mask)
     torch.cuda.synchronize()
-    assert (flash_attention_stream.launches, launches_by_kernel["sm90"], key_tiles.launches) == \
+    assert (_launches("k4"), _launches("sm90"), _launches("key_tiles")) == \
         (before + 1, sm90 + 1, lists + 1)
     ref = dense_attention_masked(q, k, v, d**-0.5, mask)
     assert _within_bound(out, ref, q, k, v, d**-0.5, mask)
@@ -177,10 +185,10 @@ def test_k4_split_with_an_empty_share(cuda):
     mask = torch.zeros((2, nk), dtype=torch.bool, device=cuda)
     mask[1, 64 * 7 + 3:64 * 8 + 60] = True
     assert key_tile_list(mask, 64)[0].tolist() == [41, 2]
-    before = attention_combine.launches
+    before = _launches("attention_combine")
     out = flash_attention_sm90(q, k, v, 1 / 16, (2, 6), kv_mask=mask)
     torch.cuda.synchronize()
-    assert attention_combine.launches == before + 1
+    assert _launches("attention_combine") == before + 1
     ref = dense_attention_masked(q, k, v, 1 / 16, mask)
     assert _within_bound(out, ref, q, k, v, 1 / 16, mask)
     uniform = v[0].float().mean(dim=1, keepdim=True).expand(-1, 130, -1)
@@ -199,10 +207,10 @@ def test_key_tiles_kernel_matches_plain(cuda, name, key_tile):
         mask = _ragged_runs(3, nk - 27, cuda)
     else:
         mask = torch.full((2, 300 * key_tile + 1), name == "all_valid", dtype=torch.bool, device=cuda)
-    before = key_tiles.launches
+    before = _launches("key_tiles")
     ours = key_tiles(mask, key_tile)
     torch.cuda.synchronize()
-    assert key_tiles.launches == before + 1
+    assert _launches("key_tiles") == before + 1
     for x, y in zip(ours, key_tile_list(mask, key_tile)):
         assert x.dtype == y.dtype and torch.equal(x, y)
 
@@ -234,10 +242,10 @@ def test_sm90_matches_plain(cuda, d, n):
     (the tile kernel) on the same inputs; the launch is counted as sm90."""
     b, h = (2, 4) if d != 256 else (2, 1)
     q, k, v = (torch.as_tensor(x, device=cuda).to(torch.bfloat16) for x in _qkv(n, b, h, d))
-    before = dict(launches_by_kernel)
+    before = _launches("sm90"), _launches("tile")
     out = flash_attention_k2(q, k, v, d**-0.5)
     torch.cuda.synchronize()
-    assert launches_by_kernel["sm90"] == before["sm90"] + 1 and launches_by_kernel["tile"] == before["tile"]
+    assert (_launches("sm90"), _launches("tile")) == (before[0] + 1, before[1])
     ref = dense_attention(q, k, v, d**-0.5)
     assert out.shape == q.shape and _within_bound(out, ref, q, k, v, d**-0.5)
     assert _within_bound(flash_attention_tile(q, k, v, d**-0.5), ref, q, k, v, d**-0.5)
@@ -302,10 +310,10 @@ def test_sm90_k3_shape_with_its_key_split(cuda):
     combine kernel."""
     q, k, v = (torch.as_tensor(x, device=cuda).to(torch.bfloat16) for x in _qkv(4096, 1, 1, 256, nk=6144))
     assert sm90_config(1, 4096, 6144, 256, sm90_key_tile(256)) == (2, 4)
-    before = (flash_attention_k3.launches, launches_by_kernel["sm90"], attention_combine.launches)
+    before = (_launches("k3"), _launches("sm90"), _launches("attention_combine"))
     out = flash_attention(q, k, v, 1 / 16, single_budget=0)
     torch.cuda.synchronize()
-    assert (flash_attention_k3.launches, launches_by_kernel["sm90"], attention_combine.launches) == \
+    assert (_launches("k3"), _launches("sm90"), _launches("attention_combine")) == \
         tuple(x + 1 for x in before)
     assert _within_bound(out, dense_attention(q, k, v, 1 / 16), q, k, v, 1 / 16)
 
@@ -316,10 +324,10 @@ def test_combine_kernel_matches_plain(cuda):
     q, k, v = (torch.as_tensor(x, device=cuda).to(torch.bfloat16) for x in _qkv(333, 2, 1, 256, nk=1000))
     parts = [attention_partials(q, k[:, :, a:a + 384], v[:, :, a:a + 384], 1 / 16) for a in (0, 384, 768)]
     m, l, acc = (torch.stack(x) for x in zip(*parts))
-    before = attention_combine.launches
+    before = _launches("attention_combine")
     out = attention_combine(m, l, acc)
     torch.cuda.synchronize()
-    assert attention_combine.launches == before + 1 and out.dtype == torch.bfloat16
+    assert _launches("attention_combine") == before + 1 and out.dtype == torch.bfloat16
     ref = combine_partials(m, l, acc)
     allowed = 2.0**-6 * ref.float().abs() + 1e-6
     assert bool(((out.float() - ref.float()).abs() <= allowed).all())
@@ -374,10 +382,10 @@ def test_k5_matches_plain(cuda, n, b, masked):
     picks; b = 2 shows the bias read at bh % heads. The plain version
     without the bias, or with the next head's, fails the tolerance."""
     q, k, v, bias, mask = _k5_inputs(cuda, b, n, masked)
-    before = flash_attention_bias.launches
+    before = _launches("k5")
     out = flash_attention_bias(q, k, v, SCALE, bias, kv_mask=mask)
     torch.cuda.synchronize()
-    assert flash_attention_bias.launches == before + 1
+    assert _launches("k5") == before + 1
     _k5_check(out, q, k, v, bias, mask)
 
 
@@ -388,10 +396,10 @@ def test_k5_builds_and_splits(cuda, n, splits):
     version; with splits the combine kernel runs in the same call and is
     counted."""
     q, k, v, bias, mask = _k5_inputs(cuda, 2, n, True, seed=11)
-    before = bias_combine.launches
+    before = _launches("bias_combine")
     out = flash_attention_bias(q, k, v, SCALE, bias, kv_mask=mask, splits=splits)
     torch.cuda.synchronize()
-    assert bias_combine.launches == before + (splits > 1)
+    assert _launches("bias_combine") == before + (splits > 1)
     _k5_check(out, q, k, v, bias, mask)
 
 
@@ -403,10 +411,10 @@ def test_k5_combine_kernel_matches_plain(cuda):
     parts = [attention_partials(q, k[:, :, a:a + 256], v[:, :, a:a + 256], SCALE, mask[:, a:a + 256],
                                 bias[..., a:a + 256]) for a in range(0, 577, 256)]
     m, l, acc = (torch.stack(x).contiguous() for x in zip(*parts))
-    before = bias_combine.launches
+    before = _launches("bias_combine")
     out = bias_combine(m, l, acc)
     torch.cuda.synchronize()
-    assert bias_combine.launches == before + 1
+    assert _launches("bias_combine") == before + 1
     ref = combine_partials(m, l, acc, torch.float32)
     torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)
     torch.testing.assert_close(out, dense_attention_bias(q, k, v, SCALE, bias, mask), atol=1e-5, rtol=1e-5)
@@ -441,10 +449,10 @@ def test_k2_at_the_dinov2_b_confidence_chunk(cuda):
     """K2 at the smooth path's shape: DINOv2-B at 518² (1,374 tokens, a
     ragged 21·64 + 30 query tail), 12 heads, 8 crops + 8 renders."""
     q, k, v = (torch.as_tensor(x, device=cuda).to(torch.bfloat16) for x in _qkv(1374, b=16, h=12))
-    before = flash_attention_k2.launches_by_dim.get(64, 0)
+    before = _launches("k2.d64")
     out = flash_attention(q, k, v, SCALE)
     torch.cuda.synchronize()
-    assert flash_attention_k2.launches_by_dim[64] == before + 1
+    assert _launches("k2.d64") == before + 1
     ref = dense_attention(q, k, v, SCALE)
     assert _within_bound(out, ref, q, k, v, SCALE)
     assert not _within_bound(dense_attention(q, k[:, :, :-64], v[:, :, :-64], SCALE), ref, q, k, v, SCALE)
@@ -505,14 +513,14 @@ def test_k1_matches_plain(cuda, name):
     v, c, f, valid, poses, k = _k1_inputs(cuda, case)
     settings = RasterSettings(resolution=64, tile=32, max_faces_per_tile=128, depth_only=case["depth_only"])
     rows, slots = prologue(v, c, f, valid, poses, k.expand(3, 3, 3), settings)
-    before = raster_tile.launches
+    before = _launches("k1")
     out = raster_tile(rows, slots, 64, 32, settings.ambient, settings.depth_only)
     torch.cuda.synchronize()
-    assert raster_tile.launches == before + 1
+    assert _launches("k1") == before + 1
     _k1_check(out, raster_tile_plain(rows, slots, 64, 32, settings.ambient, settings.depth_only))
     # The whole renderer: kernel path ("auto" on a CUDA tensor) vs plain.
     rgb, depth = rasterize(v, c, f, valid, poses, k, settings)
-    assert raster_tile.launches == before + 2
+    assert _launches("k1") == before + 2
     plain = RasterSettings(**{**settings.__dict__, "backend": "xla"})
     rgb_p, depth_p = rasterize(v, c, f, valid, poses, k, plain)
     torch.testing.assert_close(depth > 0, depth_p > 0, rtol=0, atol=0)
@@ -565,10 +573,10 @@ def test_k1_at_the_evaluation_shape(cuda):
     k = np.asarray([[572.4114, 0.0, 325.2611], [0.0, 573.57043, 242.04899], [0.0, 0.0, 1.0]], np.float32)
     r = np.asarray([[0.36, 0.48, -0.8], [-0.8, 0.6, 0.0], [0.48, 0.64, 0.6]], np.float32)
     t = np.asarray([0.03, -0.02, 0.7], np.float32)
-    before = raster_tile.launches
+    before = _launches("k1")
     depth = renderer.render_depth("m", r, t, k)
     torch.cuda.synchronize()
-    assert raster_tile.launches == before + 1 and depth.shape == (480, 640)
+    assert _launches("k1") == before + 1 and depth.shape == (480, 640)
     v, c, f, valid = renderer._meshes["m"]
     pose = torch.eye(4, device=cuda)
     pose[:3, :3], pose[:3, 3] = torch.as_tensor(r, device=cuda), torch.as_tensor(t, device=cuda)
@@ -676,10 +684,10 @@ def test_textured_render_on_the_card_matches_the_cpu(cuda):
     poses = template_poses(6, z=1.5)
     settings = RasterSettings(resolution=64, tile=16, max_faces_per_tile=64)
     args = (verts, uvw, faces, np.ones(len(faces), bool), poses.numpy(), K, tex)
-    before = raster_tile.launches
+    before = _launches("k1")
     rgb, depth = render_textured(*(torch.as_tensor(a, device=cuda) for a in args), settings, pose_chunk=4)
     torch.cuda.synchronize()
-    assert raster_tile.launches == before + 2  # one K1 launch per pose chunk
+    assert _launches("k1") == before + 2  # one K1 launch per pose chunk
     ref_rgb, ref_depth = render_textured(*(torch.as_tensor(a) for a in args), settings, pose_chunk=4)
     assert bool(torch.equal(depth.cpu() > 0, ref_depth > 0)) and int((ref_depth > 0).sum()) > 1000
     assert float((depth.cpu() - ref_depth).abs().max()) <= 1e-5
@@ -763,13 +771,13 @@ def test_auto_chain_on_the_card_matches_the_cpu(cuda):
     for device in ("cpu", cuda):
         est = est_cpu if device == "cpu" else _refine_setup(cuda)
         chain = AutoRefineChain(est, mesh, "ck", neighborhood_deg=40.0, lag=2, miss_bucket=2)
-        launches = raster_tile.launches, flash_attention_k2.launches
+        launches = _launches("k1"), _launches("k2")
         for i, (prop, mask, box) in enumerate(frames):
             chain.submit(prop, mask, est.renderer.k, box, 0.25, prev_pose=prev0 if i == 0 else None)
         runs[str(device)] = chain.finalize_all()
         assert chain.n_full_redispatch > 0
         if device != "cpu":
-            assert raster_tile.launches > launches[0] and flash_attention_k2.launches > launches[1]
+            assert _launches("k1") > launches[0] and _launches("k2") > launches[1]
             st = chain.state
             table, grid_of = st.slot_table.cpu().numpy(), st.grid_of.cpu().numpy()
             assert table[-1] == -1 and (table < 12).all() and grid_of[12] == 200
@@ -821,7 +829,7 @@ def test_sam2_image_masks_with_k2_match_plain(cuda):
     image, boxes = _boxed_image()
     runs, kernel_auto = [], attention.flash_attention_auto
     for plain in (False, True):
-        before = flash_attention_k2.launches
+        before = _launches("k2")
         if plain:
             attention.flash_attention_auto = plain_attention_auto
         try:
@@ -829,7 +837,7 @@ def test_sam2_image_masks_with_k2_match_plain(cuda):
             masks, iou, _ = pred.predict(box=boxes, multimask_output=False, fetch_low_res_logits=False)
         finally:
             attention.flash_attention_auto = kernel_auto
-        assert (flash_attention_k2.launches > before) != plain
+        assert (_launches("k2") > before) != plain
         assert masks.shape == (8, 1, 480, 640) and np.isfinite(iou).all()
         runs.append(masks[:, 0])
     inter = (runs[0] & runs[1]).sum(axis=(1, 2))
@@ -906,13 +914,13 @@ def test_streaming_inliers_on_the_card_equal_n_inliers_per_pose(cuda):
     staged = stage_frames_hbm(frames, bucket=8, device=cuda)
     poses[3, :3, 3] += 0.05  # one pose off
     ref_inl, ref_thr = refiner.n_inliers_per_pose(mesh, staged.frames[:7], k, poses, chunk=4, channels_last=True)
-    launches = raster_tile.launches, flash_attention_k2.launches
+    launches = _launches("k1"), _launches("k2")
     s = StreamingInliers(refiner, mesh, staged, k, chunk=4)
     s.warmup()
     for t in (2, 0, 6, 1, 3, 5, 4):
         s.add(t, poses[t])
     inl, thr = s.finalize()
-    assert raster_tile.launches > launches[0] and flash_attention_k2.launches > launches[1]
+    assert _launches("k1") > launches[0] and _launches("k2") > launches[1]
     np.testing.assert_array_equal(inl, ref_inl)
     assert thr == ref_thr and inl.shape == (7,)
 
@@ -938,7 +946,7 @@ def test_cached_refine_chain_on_the_card_matches_the_cpu(cuda):
     for device in ("cpu", cuda):
         est = est_cpu if device == "cpu" else _refine_setup(cuda)
         chain = CachedRefineChain(est, mesh, "ck", neighborhood_deg=40.0, lag=3)
-        launches = raster_tile.launches, flash_attention_k2.launches
+        launches = _launches("k1"), _launches("k2")
         for i, (prop, mask, box) in enumerate(frames):
             chain.submit(prop, mask, est.renderer.k, box, 0.25, prev_pose=prev0 if i == 0 else None)
         cache = est._fine_caches["ck"]
@@ -949,7 +957,7 @@ def test_cached_refine_chain_on_the_card_matches_the_cpu(cuda):
         assert {gi: s for gi, s in enumerate(table) if s >= 0} == cache.slot_of
         if device != "cpu":
             assert cache.slot_table.device.type == "cuda"
-            assert raster_tile.launches > launches[0] and flash_attention_k2.launches > launches[1]
+            assert _launches("k1") > launches[0] and _launches("k2") > launches[1]
     card, cpu = runs[str(cuda)], runs["cpu"]
     assert card[1:] == cpu[1:]
     for (tc, sc), (tr, sr) in zip(card[0], cpu[0]):
@@ -998,9 +1006,9 @@ def test_refine_sharded_on_a_repeated_device_mesh_matches_refine(cuda):
     dev_mesh = make_mesh(data=2, model=2, devices=[cuda] * 4)
     args = (qf, masks[0], mesh, est.renderer.k, boxes[0].float(), 0.25, est.fine_poses[60])
     for mask_scores in (False, True):
-        launches = raster_tile.launches, flash_attention_k2.launches
+        launches = _launches("k1"), _launches("k2")
         got = est.refine_sharded(*args, device_mesh=dev_mesh, neighborhood_deg=40.0, mask_scores=mask_scores)
-        assert raster_tile.launches >= launches[0] + 2 and flash_attention_k2.launches > launches[1]
+        assert _launches("k1") >= launches[0] + 2 and _launches("k2") > launches[1]
         ref = est.refine(*args, neighborhood_deg=40.0, mask_scores=mask_scores)
         assert int(got.view_indices) == int(ref.view_indices)
         np.testing.assert_allclose(got.tcos.cpu().numpy(), ref.tcos.cpu().numpy(), atol=1e-5)

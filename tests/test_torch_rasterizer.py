@@ -26,6 +26,7 @@ from freepose_tpu_torch.ops.rasterizer_cuda import (
     raster_tile_plain,
     rasterize_cuda,
 )
+from freepose_tpu_torch.utils import timing
 
 K = np.asarray([[100.0, 0, 32], [0, 100, 32], [0, 0, 1]], np.float32)
 
@@ -166,9 +167,10 @@ def test_raster_tile_cpu_runs_plain_version_without_launch():
     settings = RasterSettings(resolution=64, tile=32, max_faces_per_tile=128)
     rows, slots = prologue(v, c, f, valid, poses, k.expand(3, 3, 3), settings)
     assert rows.shape == (3, f.shape[0], N_ATTRS) and slots.shape == (3, 4, 128) and slots.dtype == torch.int32
-    before = raster_tile.launches
-    out = raster_tile(rows, slots, 64, 32, settings.ambient, False)
-    assert raster_tile.launches == before
+    with timing.tracing():
+        before = timing.counts.get("launch.k1", 0)
+        out = raster_tile(rows, slots, 64, 32, settings.ambient, False)
+        assert timing.counts.get("launch.k1", 0) == before
     assert out.shape == (3, 64, 64, 4)
     torch.testing.assert_close(out, raster_tile_plain(rows, slots, 64, 32, settings.ambient, False),
                                rtol=0, atol=0)
