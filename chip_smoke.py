@@ -907,7 +907,10 @@ def phase_stream_kernels(dev) -> dict:
     no_pointers[:, n_slots * hw:] = False
     no_slot[0, hw:2 * hw] = False
     cases = {
-        "K2_d72": dict(q=(1, 8, hw, 72), nk=hw, kernel=flash_attention_k2, mask=None, configs=SM90_D72_CONFIGS,
+        # Hiera's global blocks as the video predictor runs them: one trunk
+        # call over a propagation batch of COUPLED_CHUNK frames.
+        "K2_d72": dict(q=(COUPLED_CHUNK, 8, hw, 72), nk=hw, kernel=flash_attention_k2, mask=None,
+                       configs=SM90_D72_CONFIGS,
                        name="K2 flash_attention_k2 (whole-K/V attention), d 72",
                        replaces="freepose_tpu/ops/attention.py:75"),
         "K2_d256": dict(q=(2, 1, hw, 256), nk=hw, kernel=flash_attention_k2, mask=None, configs=(),
@@ -3538,9 +3541,10 @@ def phase_coupled(dev, mesh) -> tuple[dict, dict]:
                                                       chunk=CONF_CHUNK, channels_last=True)
     inliers_equal = bool(np.array_equal(run["inliers"], batch_inl)) and run["thr"] == batch_thr
 
-    # Kernels vs plain versions on frames 1-2: SAM2's masks (every attention
-    # call on its plain version), and each frame's fine refine step from a
-    # cold cache (every attention call and K1 on their plain versions).
+    # Kernels vs plain versions: SAM2's masks on frames 1 to COUPLED_CHUNK,
+    # one full batch through the trunk (every attention call on its plain
+    # version), and the fine refine step of frames 1-2 from a cold cache
+    # (every attention call and K1 on their plain versions).
     sam = {}
     for plain in (False, True):
         kernel_auto = attention.flash_attention_auto
@@ -3548,7 +3552,8 @@ def phase_coupled(dev, mesh) -> tuple[dict, dict]:
             attention.flash_attention_auto = plain_attention_auto
         try:
             sam[plain] = np.stack([high[0] > 0 for t, _, _, high in
-                                   predictor.propagate_in_video(prompted(staged), max_frames=3, chunk=1)][1:])
+                                   predictor.propagate_in_video(prompted(staged), max_frames=COUPLED_CHUNK + 1,
+                                                                chunk=COUPLED_CHUNK)][1:])
         finally:
             attention.flash_attention_auto = kernel_auto
     sam_ious = mask_ious(sam[False], sam[True])
@@ -3574,7 +3579,8 @@ def phase_coupled(dev, mesh) -> tuple[dict, dict]:
                                  score_max_abs_err=score_err),
                   inliers=run["inliers"].tolist(), threshold=run["thr"], inliers_equal_n_inliers_per_pose=inliers_equal,
                   misses_per_frame=run["chain"].miss_counts, full_redispatches=run["chain"].n_full_redispatch,
-                  kernel_vs_plain_frames_1_2={"sam2_mask_iou": sam_ious.ravel().tolist(), "refine": refine_checks},
+                  kernel_vs_plain={"sam2_mask_iou_frames_1_8": sam_ious.ravel().tolist(),
+                                   "refine_frames_1_2": refine_checks},
                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, profile=profile)
     log("coupled", **result)
     k2 = launches["K2_by_dim"]
@@ -3596,7 +3602,8 @@ def phase_coupled(dev, mesh) -> tuple[dict, dict]:
         raise AssertionError(f"StreamingInliers {run['inliers'].tolist()} (threshold {run['thr']}) against "
                              f"n_inliers_per_pose {batch_inl.tolist()} ({batch_thr})")
     if sam_ious.min() < VIDEO_IOU_MIN:
-        raise AssertionError(f"coupled SAM2 masks, kernels vs plain attention on frames 1-2: IoU {sam_ious}")
+        raise AssertionError(f"coupled SAM2 masks, kernels vs plain attention on frames 1-{COUPLED_CHUNK}: IoU "
+                             f"{sam_ious}")
     for t, c in zip((1, 2), refine_checks):
         if c["render_mask_mismatches"] or not c["score_max_abs_err"] <= REFINE_SCORE_ATOL or \
                 not c["one_slot_off_max_abs_err"] > REFINE_SCORE_ATOL or \

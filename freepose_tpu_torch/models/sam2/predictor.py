@@ -12,8 +12,11 @@ per frame with all its objects batched. Propagation follows the JAX batch
 plan (`batch_plan`): a prompt frame alone, then runs of up to `chunk`
 prompt-free frames. A batch's frames reach the card in one upload, or are
 sliced from a video staged there (datasets/video.py:StagedVideo), and its
-masks come back in one copy; the frames of a batch still run one by one, so
-every frame's numbers equal frame-at-a-time propagation.
+masks come back in one copy. The image trunk (Hiera and its neck) depends
+on the frame alone, so it embeds all of a batch's frames in one call; the
+memory, decoder and postprocess steps still run frame by frame, so a batch
+differs from frame-at-a-time propagation only by the trunk's rounding at
+another batch size.
 `propagate_batched` keeps the batch's binarised masks and frames on the
 device for the coupled video step (pipeline/proposals.py:
 proposals_from_masks_video).
@@ -22,7 +25,7 @@ With a device mesh (parallel/mesh.py) each group's objects split over its
 "data" axis: the group pads to a multiple of the axis with no-prompt dummy
 objects (every point label -10, as the JAX predictor pads), each shard
 steps its block of object states on its device with the model replicated
-there, the frame's pyramid is computed once per distinct device, and the
+there, a batch's pyramids are computed once per distinct device, and the
 masks are gathered on the mesh's first device, the dummies' dropped.
 """
 from __future__ import annotations
@@ -37,11 +40,13 @@ from freepose_tpu_torch.utils import timing
 
 
 def prepare_image(image: torch.Tensor, size: int) -> torch.Tensor:
-    """[H, W, 3] uint8 or float -> [1, 3, size, size] normalised."""
+    """[H, W, 3] or a batch [K, H, W, 3], uint8 or float -> [1 or K, 3, size,
+    size] normalised."""
     img = image.float()
     if image.dtype == torch.uint8:
         img = img / 255.0
-    return sam2_normalize(resize_bilinear(img.permute(2, 0, 1), (size, size))[None])
+    img = img if img.ndim == 4 else img[None]
+    return sam2_normalize(resize_bilinear(img.permute(0, 3, 1, 2), (size, size)))
 
 
 def apply_non_overlapping_constraints(pred_masks: torch.Tensor) -> torch.Tensor:
@@ -206,25 +211,34 @@ class Sam2VideoPredictor:
             batch = torch.as_tensor(np.stack([np.asarray(src[t]) for t in range(lo, hi)])).to(self.device)
         return batch if ts[0] == lo else batch.flip(0)
 
-    def _frame_pyramid(self, state, frame_idx: int, frame: torch.Tensor | None = None):
+    def _frame_pyramid(self, state, frame_idx: int):
         """The frame's (pyramid, pos) on the predictor's device."""
-        return self._frame_pyramids(state, frame_idx, frame)[self._shard_devices[0]]
+        return self._frame_pyramids(state, frame_idx)[self._shard_devices[0]]
+
+    def _frame_pyramids(self, state, frame_idx: int) -> dict:
+        """The frame's (pyramid, pos) on each device of the object shards,
+        from the cache of the current batch's frames, else embedded alone."""
+        if frame_idx not in state["pyramid_cache"]:
+            self._embed_frames(state, [frame_idx])
+        return state["pyramid_cache"][frame_idx]
 
     @torch.inference_mode()
-    def _frame_pyramids(self, state, frame_idx: int, frame: torch.Tensor | None = None) -> dict:
-        """The frame's (pyramid, pos) on each device of the object shards,
-        computed once per distinct device, from a one-frame cache (as the
-        reference keeps); `frame` is the frame on the device, else it is
-        uploaded."""
+    def _embed_frames(self, state, ts: list[int], frames: torch.Tensor | None = None) -> None:
+        """Replace the pyramid cache by the frames `ts` ([K, H, W, 3] on the
+        device, else uploaded): one trunk call over all K frames per distinct
+        device of the object shards; frame t's entry holds its batch-of-one
+        slice of each pyramid level and the shared sine positions."""
         cache = state["pyramid_cache"]
-        if frame_idx not in cache:
-            cache.clear()
-            if frame is None:
-                frame = self._frame_batch(state, [frame_idx])[0]
-            with timing.span("sam2.trunk"):
-                cache[frame_idx] = {d: self._models[d].embed_frame(prepare_image(frame.to(d), self.config.image_size))
-                                    for d in dict.fromkeys(self._shard_devices)}
-        return cache[frame_idx]
+        cache.clear()
+        if frames is None:
+            frames = self._frame_batch(state, ts)
+        embedded = {}
+        with timing.span("sam2.trunk"):
+            for d in dict.fromkeys(self._shard_devices):
+                timing.count("sam2.trunk_calls")
+                embedded[d] = self._models[d].embed_frame(prepare_image(frames.to(d), self.config.image_size))
+        for z, t in enumerate(ts):
+            cache[t] = {d: ([level[z:z + 1] for level in pyramid], pos) for d, (pyramid, pos) in embedded.items()}
 
     def _register(self, state, obj_id: int, prompt) -> None:
         # Re-prompting an existing object replaces its prompt: the next
@@ -363,8 +377,8 @@ class Sam2VideoPredictor:
         else:
             order = range(prompt_frame, end)
 
-        def run_frame(t, frame):
-            pyramids = self._frame_pyramids(state, t, frame)
+        def run_frame(t):
+            pyramids = self._frame_pyramids(state, t)
             outs = []
             for key in sorted(groups):
                 if key[0] == t and key not in live:
@@ -391,7 +405,8 @@ class Sam2VideoPredictor:
             # between yields is not SAM2's.
             with timing.span("sam2.batch"):
                 frames_b = self._frame_batch(state, ts)
-                outs = [run_frame(t, frames_b[z]) for z, t in enumerate(ts)]
+                self._embed_frames(state, ts, frames_b)
+                outs = [run_frame(t) for t in ts]
                 lows, highs = torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
                 if not device_batches:
                     with timing.wait("sam2.masks"):

@@ -99,7 +99,7 @@ class Sam2VideoModel(nn.Module):
         self.mask_downsample = Conv(1, 1, 4, stride=4)
 
     def embed_frame(self, pixels: torch.Tensor):
-        """Normalised [1, 3, S, S] frame -> (pyramid [s0', s1', s2_raw], pos).
+        """Normalised [K, 3, S, S] frames -> (pyramid [s0', s1', s2_raw], pos).
         s0'/s1' carry the SAM-head projections; s2_raw has no no-memory
         embedding (memory conditioning decides)."""
         return self.image.embed_image(pixels, with_memory_placeholder=False)

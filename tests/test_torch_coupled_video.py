@@ -8,7 +8,12 @@
   packages: the same batch plan forward and reverse, the batch's frames as
   staged, low-res logits within 1e-4 (propagate_in_video with
   binarize=False: fp32 sums in another order over 7 frames of memory),
-  bool masks equal except where the logit lies within 1e-4 of 0.
+  bool masks equal except where the logit lies within 1e-4 of 0. Within the
+  port, a batch's frames go through the image trunk in one call: batched
+  propagation against frame-at-a-time within TRUNK_ATOL (the same fp32
+  trunk at batch K and 1, sums blocked differently; 1.7e-6 seen), one
+  trunk call and one `sam2.trunk` span per batch of the plan, at the
+  batch's own size.
 - StreamingInliers on the tiny refiner of test_torch_tracking_refiner, fed
   in order and shuffled: identical to the port's n_inliers_per_pose (same
   arithmetic), and against JAX's StreamingInliers inliers identical and the
@@ -33,10 +38,12 @@ from freepose_tpu_torch.models.sam2.predictor import Sam2VideoPredictor, batch_p
 from freepose_tpu_torch.pipeline import tracking_refiner as tr
 from freepose_tpu_torch.pipeline.proposals import extract_proposals, proposals_from_masks_video
 from freepose_tpu_torch.scripts.common import tiny_sam2_video_config
+from freepose_tpu_torch.utils import timing
 from tests.test_torch_tracking_refiner import K
 
 CPU = torch.device("cpu")
 LOGIT_ATOL = 1e-4
+TRUNK_ATOL = 1e-5
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -142,19 +149,45 @@ def test_propagate_batched_matches_jax(predictors, reverse, start):
 
 
 def test_batched_propagation_equals_frame_at_a_time(predictors):
-    """Batches change when masks come back, not their numbers; a StagedVideo
-    and host frames give the same frames."""
+    """Batches change when masks come back and the trunk's batch size, not
+    the numbers beyond its rounding (batches of 4 and 3, the trunk at K = 4
+    and 3); a StagedVideo and host frames give the same frames."""
     ours, _ = predictors
     frames = _video()
     one = [(t, low, high) for t, _, low, high in ours.propagate_in_video(_prompted(ours, frames, 0), chunk=1)]
-    batched = [(t, low, high) for t, _, low, high in
-               ours.propagate_in_video(_prompted(ours, stage_frames_hbm(frames, 8, "cpu"), 0), chunk=4)]
-    assert [t for t, _, _ in one] == [t for t, _, _ in batched] == list(range(7))
-    for (_, a, b), (_, c, d) in zip(one, batched):
-        np.testing.assert_array_equal(a, c)
-        np.testing.assert_array_equal(b, d)
+    for chunk, src in ((4, stage_frames_hbm(frames, 8, "cpu")), (3, frames)):
+        batched = [(t, low, high) for t, _, low, high in
+                   ours.propagate_in_video(_prompted(ours, src, 0), chunk=chunk)]
+        assert [t for t, _, _ in one] == [t for t, _, _ in batched] == list(range(7))
+        for (_, a, b), (_, c, d) in zip(one, batched):
+            np.testing.assert_allclose(c, a, atol=TRUNK_ATOL, rtol=0)
+            np.testing.assert_allclose(d, b, atol=TRUNK_ATOL, rtol=0)
     with pytest.raises(ValueError, match="binarize"):
         next(ours.propagate_in_video(_prompted(ours, frames, 0), device_batches=True))
+
+
+@pytest.mark.parametrize("reverse,start,chunk", [(False, 0, 3), (True, 4, 3), (False, 0, 1)])
+def test_one_trunk_call_per_batch(predictors, monkeypatch, reverse, start, chunk):
+    """The trunk runs once per batch of the plan, on the batch's frames and
+    no more (a short batch is not padded; a batch of one runs alone)."""
+    ours, _ = predictors
+    sizes = []
+    embed = type(ours.model).embed_frame
+
+    def counting_embed(model, pixels):
+        sizes.append(pixels.shape[0])
+        return embed(model, pixels)
+
+    monkeypatch.setattr(type(ours.model), "embed_frame", counting_embed)
+    with timing.tracing():
+        plan = [list(ts) for ts, *_ in ours.propagate_batched(_prompted(ours, _video(), start), reverse=reverse,
+                                                               chunk=chunk)]
+        trunks = [parent for name, parent, _, _ in timing.records if name == "sam2.trunk"]
+    order = list(range(start, -1, -1)) if reverse else list(range(start, 7))
+    assert plan == batch_plan(order, {start}, set(), chunk)
+    assert sizes == [len(ts) for ts in plan]
+    assert timing.counts["sam2.trunk_calls"] == len(trunks) == len(plan)
+    assert set(trunks) == {"sam2.batch"} and timing.counts["sam2.frames"] == len(order)
 
 
 def test_batch_plan_starts_runs_after_each_prompt_frame():

@@ -108,6 +108,20 @@ def test_k2_head_dims_match_plain(cuda, d, n, nk):
     assert _within_bound(out, ref, q, k, v, d**-0.5)
 
 
+@pytest.mark.parametrize("frames", [8, 7])
+def test_k2_d72_at_the_batched_trunk_shape(cuda, frames):
+    """SAM2's video predictor embeds a propagation batch (8 frames, a tail
+    of 7) in one trunk call: the global blocks at [K, 8, 4096, 72], one K2
+    launch on the sm90 kernel."""
+    q, k, v = (torch.as_tensor(x, device=cuda).to(torch.bfloat16) for x in _qkv(4096, frames, 8, 72))
+    before, by_kernel = _launches("k2.d72"), _launches("sm90")
+    out = flash_attention_k2(q, k, v, 72**-0.5)
+    torch.cuda.synchronize()
+    assert _launches("k2.d72") == before + 1 and _launches("sm90") == by_kernel + 1
+    assert out.shape == q.shape
+    assert _within_bound(out, dense_attention(q, k, v, 72**-0.5), q, k, v, 72**-0.5)
+
+
 @pytest.mark.parametrize("d", [64, 72, 256])
 def test_k3_matches_plain(cuda, d):
     """K3 through flash_attention's streaming regime (single_budget=0)."""

@@ -31,6 +31,7 @@ from freepose_tpu_torch.models.sam2.hiera import HIERA_TEST, Hiera
 from freepose_tpu_torch.models.sam2.mask_decoder import MaskDecoder
 from freepose_tpu_torch.models.sam2.memory import MemoryAttention, MemoryEncoder, rope_2d_cos_sin
 from freepose_tpu_torch.models.sam2.model import Sam2ImageModel
+from freepose_tpu_torch.models.sam2.predictor import prepare_image
 from freepose_tpu_torch.models.sam2.prompt import PromptEncoder
 from freepose_tpu_torch.models.sam2.video import Sam2VideoModel, init_object_state
 from freepose_tpu_torch.scripts.common import tiny_sam2_video_config
@@ -243,3 +244,29 @@ def test_three_track_steps_with_a_box_prompt_match_jax(params):
         np.testing.assert_array_equal(state.maskmem_valid[0].numpy(), np.asarray(jstate.maskmem_valid))
         np.testing.assert_array_equal(state.ptr_frame[0].numpy(), np.asarray(jstate.ptr_frame))
         assert state.ring_pos == int(jstate.ring_pos) and state.ptr_ring_pos == int(jstate.ptr_ring_pos)
+
+
+@pytest.mark.parametrize("use_flash", [False, True])
+def test_embed_frame_on_a_stack_equals_the_frames_one_by_one(params, use_flash):
+    """The video predictor embeds a propagation batch's frames in one trunk
+    call: prepare_image on [K, H, W, 3] equals it frame by frame, and
+    embed_frame on the stack (with a global block, on flash_attention's
+    plain version or the einsum) equals the frames' batch-of-one calls
+    within 1e-5: the same fp32 arithmetic, sums blocked differently at
+    batch K."""
+    hiera = dataclasses.replace(CFG.sam.hiera, global_attention_blocks=(2,), use_flash=use_flash)
+    cfg = dataclasses.replace(CFG, sam=dataclasses.replace(CFG.sam, hiera=hiera))
+    model = _load(Sam2VideoModel(cfg), params)
+    frames = torch.as_tensor(np.random.default_rng(8).integers(0, 256, size=(3, 48, 56, 3), dtype=np.uint8))
+    stack = prepare_image(frames, cfg.image_size)
+    torch.testing.assert_close(stack, torch.cat([prepare_image(f, cfg.image_size) for f in frames]), atol=0, rtol=0)
+    with torch.no_grad():
+        pyramid, pos = model.embed_frame(stack)
+        for z in range(frames.shape[0]):
+            one, one_pos = model.embed_frame(stack[z:z + 1])
+            for level, (got, want) in enumerate(zip(pyramid, one)):
+                assert got.shape[0] == frames.shape[0] and want.shape[0] == 1
+                np.testing.assert_allclose(got[z:z + 1].numpy(), want.numpy(), atol=1e-5, rtol=0,
+                                           err_msg=f"frame {z}, level {level}")
+            for got, want in zip(pos, one_pos):
+                torch.testing.assert_close(got, want, atol=0, rtol=0)

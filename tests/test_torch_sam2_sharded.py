@@ -26,6 +26,7 @@ from freepose_tpu_torch.models.convert import random_sam2_video_params
 from freepose_tpu_torch.models.sam2.predictor import Sam2VideoPredictor
 from freepose_tpu_torch.parallel.mesh import make_mesh
 from freepose_tpu_torch.scripts.common import tiny_sam2_video_config
+from freepose_tpu_torch.utils import timing
 from tests.test_sam2_video import OUR_CFG
 
 MASK_PX = 4
@@ -91,6 +92,22 @@ def test_sharded_propagation_matches_jax_and_unsharded(params, case):
     for (t, _, low, high), (_, _, low1, high1) in zip(binarized, one):
         np.testing.assert_array_equal(low, low1 > 0, err_msg=f"frame {t}")
         np.testing.assert_array_equal(high, high1 > 0, err_msg=f"frame {t}")
+
+
+def test_sharded_trunk_runs_once_per_batch_on_a_repeated_device(params):
+    """On a mesh of one device repeated, the trunk embeds each batch of the
+    plan once, as the unsharded predictor does, not once per shard."""
+    frames = (np.random.default_rng(5).random((7, 48, 80, 3)) * 255).astype(np.uint8)
+    cfg = tiny_sam2_video_config()
+    calls = []
+    for mesh in (make_mesh(data=8, model=1, devices=["cpu"] * 8), None):
+        pred = Sam2VideoPredictor(cfg, params, max_objects=4, device="cpu", device_mesh=mesh)
+        with timing.tracing():
+            plan = [t for t, *_ in _run(pred, frames, PROMPTS3, binarize=True, chunk=3)]
+            calls.append((timing.counts["sam2.trunk_calls"], timing.counts["sam2.frames"],
+                          sum(r[0] == "sam2.trunk" for r in timing.records)))
+    assert plan == list(range(7))
+    assert calls[0] == calls[1] == (3, 7, 3)  # batches [0], [1, 2, 3], [4, 5, 6]
 
 
 def test_sharded_mask_prompts_pad_with_empty_masks(params):
