@@ -29,6 +29,22 @@ Everything runs in float32; the caller keeps TF32 off (scripts/common.py:
 full_fp32) for the products to be the fp32 ones. Bilinear samples read their
 2 x 2 source pixels by index, the same interpolation as the JAX package's
 hat-weight matrix products.
+
+On a card, under inference (no autograd), a window's iteration replays two
+CUDA graphs captured the second time its shape comes (_WindowGraphs): the
+correlation and the update, the eager path's kernels in its order, so the
+host launches two graphs an iteration where it launched some hundreds of
+kernels. `CoTracker2.cuda_graphs = False` keeps every window eager.
+
+Tracing (utils/timing.py): spans `cotracker2.encoder` (fnet over the padded
+video) and `cotracker2.window` (one sliding window) over `cotracker2.corr`
+(the pyramid correlation and its windows) and `cotracker2.update` (the
+update former and the feature update), one of each per iteration; the
+predictor's upload of its queries and fetch of its results are
+`wait.cotracker2.queries` and `wait.cotracker2.result`. Counters:
+`cotracker2.frames` (frames encoded), `cotracker2.windows`,
+`cotracker2.iters` (iterations over all windows) and `cotracker2.points`
+(points tracked, summed over the windows).
 """
 from __future__ import annotations
 
@@ -40,6 +56,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from freepose_tpu_torch.ops.sampling import hat_taps, resize_bilinear_ac
+from freepose_tpu_torch.utils import timing
+
+VISIBILITY_THRESHOLD = 0.9  # the predictor's: a point is visible where sigmoid(logit) exceeds it
 
 
 @dataclasses.dataclass(frozen=True)
@@ -296,6 +315,51 @@ class EfficientUpdateFormer(nn.Module):
 
 
 # ---------------------------------------------------------------------------
+# A window's iteration as CUDA graphs
+# ---------------------------------------------------------------------------
+
+GRAPH_SHAPES = 2  # window shapes whose graphs a model keeps (the newest)
+
+
+class _WindowGraphs:
+    """One window shape's iteration as two CUDA graphs over static buffers:
+    `corr` reads the pyramid, the track features and the coordinates into
+    `out`; `update` reads those and `out` and writes the new coordinates and
+    features back into their buffers. An iteration is one replay of each,
+    where the eager path launches some hundreds of kernels. Made (and first
+    loaded) from a window's tensors; `load` fills the buffers for the next
+    window of the shape."""
+
+    def __init__(self, model, pyr, coords, track_feat, track_mask_vis, sampled_pos, time_emb, track_mask):
+        self.pyr = [p.clone() for p in pyr]
+        self.coords, self.track_feat = coords.clone(), track_feat.clone()
+        self.track_mask_vis, self.sampled_pos = track_mask_vis.clone(), sampled_pos.clone()
+        self.track_mask = track_mask.clone()
+        dev = coords.device
+        with torch.cuda.device(dev):
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):  # library handles and workspaces made outside the capture
+                model._update(self.coords, model._corr(self.pyr, self.track_feat, self.coords), self.track_feat,
+                              self.track_mask_vis, self.sampled_pos, time_emb, self.track_mask)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            self.corr, self.update = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.corr, stream=side):
+                self.out = model._corr(self.pyr, self.track_feat, self.coords)
+            with torch.cuda.graph(self.update, pool=self.corr.pool(), stream=side):
+                coords, feat = model._update(self.coords, self.out, self.track_feat, self.track_mask_vis,
+                                             self.sampled_pos, time_emb, self.track_mask)
+                self.coords.copy_(coords)
+                self.track_feat.copy_(feat)
+
+    def load(self, pyr, coords, track_feat, track_mask_vis, sampled_pos, track_mask) -> None:
+        for dst, src in zip(self.pyr + [self.coords, self.track_feat, self.track_mask_vis, self.sampled_pos,
+                                        self.track_mask],
+                            list(pyr) + [coords, track_feat, track_mask_vis, sampled_pos, track_mask]):
+            dst.copy_(src)
+
+
+# ---------------------------------------------------------------------------
 # Core model
 # ---------------------------------------------------------------------------
 
@@ -311,6 +375,9 @@ class CoTracker2(nn.Module):
         self.track_feat_updater = nn.Sequential(nn.Linear(cfg.latent_dim, cfg.latent_dim))
         self.vis_predictor = nn.Sequential(nn.Linear(cfg.latent_dim, 1))
         self._embeddings: dict = {}
+        self.cuda_graphs = True  # False runs every window eagerly on a card too
+        self._graphs: dict = {}
+        self._shapes_seen: dict = {}
 
     def _embedding(self, name: str, shape: tuple, device) -> torch.Tensor:
         """The sin/cos position (grid `shape`) or time (window `shape`)
@@ -321,13 +388,62 @@ class CoTracker2(nn.Module):
             self._embeddings[key] = torch.as_tensor(fn(self.cfg.input_dim, *shape), device=device)
         return self._embeddings[key]
 
+    def _corr(self, pyr, track_feat, coords):
+        """One iteration's correlation: the track features against each
+        pyramid level, a (2r+1)² window sampled around each track -> [S, N,
+        levels·(2r+1)²]."""
+        c = self.cfg
+        s, n = coords.shape[:2]
+        corr_scale = float(np.sqrt(np.float32(c.latent_dim)))
+        corrs = []
+        for lvl, fm in enumerate(pyr):
+            vol = torch.einsum("snc,schw->snhw", track_feat, fm) / corr_scale
+            win = sample_windows(vol.flatten(0, 1), (coords / 2.0 ** lvl).flatten(0, 1), c.corr_radius)
+            corrs.append(win.reshape(s, n, -1))
+        return torch.cat(corrs, dim=-1)
+
+    def _update(self, coords, corr, track_feat, track_mask_vis, sampled_pos, time_emb, track_mask):
+        """One iteration's update former and feature update -> (coords,
+        track_feat)."""
+        c = self.cfg
+        s, n = coords.shape[:2]
+        tin = torch.cat([flow_embedding(coords - coords[0:1], c.flow_emb_dim), corr, track_feat, track_mask_vis],
+                        dim=-1)
+        x = (tin + sampled_pos[None] + time_emb[:, None]).transpose(0, 1)  # [N, S, E]
+        delta = self.updateformer(x, mask=track_mask).transpose(0, 1)  # [S, N, 2 + C]
+        upd = self.track_feat_updater(self.norm(delta[..., 2:].reshape(s * n, c.latent_dim)))
+        # exact GELU (nn.GELU())
+        return coords + delta[..., :2], track_feat + F.gelu(upd).reshape(s, n, c.latent_dim)
+
+    def _window_graphs(self, pyr, coords, track_feat, track_mask_vis, sampled_pos, time_emb, track_mask):
+        """The CUDA graphs of a window's iteration at this shape, or None
+        (eager): on a card, without autograd, made the second time a shape
+        comes (a shape seen once runs eagerly), GRAPH_SHAPES shapes kept."""
+        if not self.cuda_graphs or coords.device.type != "cuda" or torch.is_grad_enabled():
+            return None
+        key = (tuple(pyr[0].shape), tuple(coords.shape), str(coords.device), torch.is_inference_mode_enabled())
+        graphs = self._graphs.get(key)
+        if graphs is None:
+            self._shapes_seen[key] = self._shapes_seen.get(key, 0) + 1
+            if self._shapes_seen[key] < 2:
+                return None
+            while len(self._graphs) >= GRAPH_SHAPES:
+                self._graphs.pop(next(iter(self._graphs)))
+            graphs = self._graphs[key] = _WindowGraphs(self, pyr, coords, track_feat, track_mask_vis, sampled_pos,
+                                                       time_emb, track_mask)
+        else:
+            graphs.load(pyr, coords, track_feat, track_mask_vis, sampled_pos, track_mask)
+        return graphs
+
     def forward_window(self, fmaps, coords, track_feat, vis, track_mask, iters):
         """fmaps [S, C, Hf, Wf]; coords [S, N, 2] (feature px); track_feat
         [S, N, C]; vis / track_mask [S, N] -> (coords, track_feat,
-        vis_logits [S, N])."""
+        vis_logits [S, N]). On a card each iteration replays the window
+        shape's two CUDA graphs (_WindowGraphs), the same operations as the
+        eager path, launched at once."""
         c = self.cfg
-        s, n = coords.shape[:2]
         hf, wf = fmaps.shape[-2:]
+        s = coords.shape[0]
         dev = fmaps.device
         pyr = [fmaps]
         for _ in range(c.corr_levels - 1):
@@ -335,20 +451,22 @@ class CoTracker2(nn.Module):
         track_mask_vis = torch.stack([track_mask.to(torch.float32), vis], dim=-1)
         sampled_pos = sample_features_nd(self._embedding("pos", ((hf, wf),), dev), coords[0])  # [N, E]
         time_emb = self._embedding("time", (s,), dev)
-        corr_scale = float(np.sqrt(np.float32(c.latent_dim)))
+        graphs = self._window_graphs(pyr, coords, track_feat, track_mask_vis, sampled_pos, time_emb, track_mask)
+        timing.count("cotracker2.iters", iters)
         for _ in range(iters):
-            corrs = []
-            for lvl, fm in enumerate(pyr):
-                vol = torch.einsum("snc,schw->snhw", track_feat, fm) / corr_scale
-                win = sample_windows(vol.flatten(0, 1), (coords / 2.0 ** lvl).flatten(0, 1), c.corr_radius)
-                corrs.append(win.reshape(s, n, -1))
-            tin = torch.cat([flow_embedding(coords - coords[0:1], c.flow_emb_dim), torch.cat(corrs, dim=-1),
-                             track_feat, track_mask_vis], dim=-1)
-            x = (tin + sampled_pos[None] + time_emb[:, None]).transpose(0, 1)  # [N, S, E]
-            delta = self.updateformer(x, mask=track_mask).transpose(0, 1)  # [S, N, 2 + C]
-            coords = coords + delta[..., :2]
-            upd = self.track_feat_updater(self.norm(delta[..., 2:].reshape(s * n, c.latent_dim)))
-            track_feat = track_feat + F.gelu(upd).reshape(s, n, c.latent_dim)  # exact GELU (nn.GELU())
+            with timing.span("cotracker2.corr"):
+                if graphs is None:
+                    corr = self._corr(pyr, track_feat, coords)
+                else:
+                    graphs.corr.replay()
+            with timing.span("cotracker2.update"):
+                if graphs is None:
+                    coords, track_feat = self._update(coords, corr, track_feat, track_mask_vis, sampled_pos,
+                                                      time_emb, track_mask)
+                else:
+                    graphs.update.replay()
+        if graphs is not None:
+            coords, track_feat = graphs.coords.clone(), graphs.track_feat.clone()
         return coords, track_feat, self.vis_predictor(track_feat)[..., 0]
 
     def forward(self, video: torch.Tensor, queries: torch.Tensor, iters: int | None = None):
@@ -362,7 +480,9 @@ class CoTracker2(nn.Module):
         t_pad = (num_windows - 1) * step + s
         if t_pad > t_total:
             video = torch.cat([video, video[-1:].expand(t_pad - t_total, -1, -1, -1)])
-        fmaps = self.fnet((2.0 * (video / 255.0) - 1.0).permute(0, 3, 1, 2))  # [Tp, C, Hf, Wf]
+        with timing.span("cotracker2.encoder"):
+            fmaps = self.fnet((2.0 * (video / 255.0) - 1.0).permute(0, 3, 1, 2))  # [Tp, C, Hf, Wf]
+        timing.count("cotracker2.frames", t_pad)
 
         q_frame = queries[:, 0].to(torch.int64)
         q_coords = queries[:, 1:] / c.stride
@@ -386,12 +506,15 @@ class CoTracker2(nn.Module):
                 coords_init = torch.cat([prev, prev[-1:].expand(s - step, -1, -1)])
                 vis_init = torch.cat([pv, pv[-1:].expand(s - step, -1)])
             track_mask = exists[ind:ind + s]
-            coords_w, _, vis_w = self.forward_window(fmaps[ind:ind + s], coords_init,
-                                                     track_feat_q[None].expand(s, -1, -1), vis_init, track_mask,
-                                                     iters)
-            # Points whose query frame comes later stay at their query.
-            coords_out[ind:ind + s] = torch.where(track_mask[..., None], coords_w, coords_out[ind:ind + s])
-            vis_out[ind:ind + s] = torch.where(track_mask, vis_w, vis_out[ind:ind + s])
+            timing.count("cotracker2.windows")
+            timing.count("cotracker2.points", n)
+            with timing.span("cotracker2.window"):
+                coords_w, _, vis_w = self.forward_window(fmaps[ind:ind + s], coords_init,
+                                                         track_feat_q[None].expand(s, -1, -1), vis_init, track_mask,
+                                                         iters)
+                # Points whose query frame comes later stay at their query.
+                coords_out[ind:ind + s] = torch.where(track_mask[..., None], coords_w, coords_out[ind:ind + s])
+                vis_out[ind:ind + s] = torch.where(track_mask, vis_w, vis_out[ind:ind + s])
         return coords_out[:t_total] * c.stride, vis_out[:t_total]
 
 
@@ -412,29 +535,46 @@ class CoTracker2Predictor:
     """The released CoTrackerPredictor's semantics: resize the video to the
     model resolution (bilinear, align_corners), append a support grid on
     frame 0, run forward (and backward on the reversed video, merged into the
-    frames before each query's frame), threshold visibility at 0.9, pin the
+    frames before each query's frame), threshold visibility at
+    VISIBILITY_THRESHOLD (0.9), pin the
     query frames, rescale the tracks to the input resolution.
 
     params: the JAX package's CoTracker2 parameter tree (a --tracker-weights
-    .npz), carried over by models/convert.py:cotracker2_from_jax. Runs on
+    .npz), carried over by models/convert.py:cotracker2_from_jax;
+    `from_state_dict` takes a state dict in the released key layout. Runs on
     `device` ("cuda" unless the caller asks for the CPU)."""
 
     def __init__(self, params, config: CoTracker2Config = COTRACKER2, support_grid_size: int = 6,
                  device: str | torch.device | None = None):
-        from freepose_tpu_torch.device import resolve_device
         from freepose_tpu_torch.models.convert import cotracker2_from_jax
+
+        self._load(cotracker2_from_jax(params), config, support_grid_size, device)
+
+    @classmethod
+    def from_state_dict(cls, state_dict, config: CoTracker2Config = COTRACKER2, support_grid_size: int = 6,
+                        device: str | torch.device | None = None) -> "CoTracker2Predictor":
+        """A predictor of a state dict in the released key layout
+        (cotracker2.pth's), loaded as it is."""
+        pred = cls.__new__(cls)
+        pred._load(state_dict, config, support_grid_size, device)
+        return pred
+
+    def _load(self, state_dict, config: CoTracker2Config, support_grid_size: int, device) -> None:
+        from freepose_tpu_torch.device import resolve_device
 
         self.cfg = config
         self.device = resolve_device(device)
         model = CoTracker2(config)
-        model.load_state_dict(cotracker2_from_jax(params))
+        model.load_state_dict(state_dict)
         self.model = model.to(self.device).eval()
         self.support_grid_size = support_grid_size
 
     @torch.inference_mode()
     def _run(self, video: torch.Tensor, queries: np.ndarray):
         v = resize_bilinear_ac(video.permute(0, 3, 1, 2), self.cfg.model_resolution).permute(0, 2, 3, 1)
-        tracks, vis_logits = self.model(v.contiguous(), torch.as_tensor(queries, device=self.device), self.cfg.iters)
+        with timing.wait("cotracker2.queries"):  # an upload from pageable memory synchronises
+            q = torch.as_tensor(queries, device=self.device)
+        tracks, vis_logits = self.model(v.contiguous(), q, self.cfg.iters)
         return tracks, torch.sigmoid(vis_logits)
 
     def __call__(self, video, queries: np.ndarray, backward_tracking: bool = True):
@@ -457,12 +597,14 @@ class CoTracker2Predictor:
             inv_q = q_all.copy()
             inv_q[:, 0] = t - 1 - inv_q[:, 0]
             inv_tracks, inv_vis = self._run(v.flip(0), inv_q)
-            before = (torch.arange(t, device=self.device)[:, None]
-                      < torch.as_tensor(q_all[:, 0], device=self.device)[None])
+            with timing.wait("cotracker2.queries"):
+                q_frames = torch.as_tensor(q_all[:, 0], device=self.device)
+            before = torch.arange(t, device=self.device)[:, None] < q_frames[None]
             tracks = torch.where(before[..., None], inv_tracks.flip(0), tracks)
             vis = torch.where(before, inv_vis.flip(0), vis)
-        tracks = tracks[:, :len(q)].cpu().numpy()
-        vis = (vis[:, :len(q)] > 0.9).cpu().numpy()
+        with timing.wait("cotracker2.result"):
+            tracks = tracks[:, :len(q)].cpu().numpy()
+            vis = (vis[:, :len(q)] > VISIBILITY_THRESHOLD).cpu().numpy()
         qt = np.asarray(queries)[:, 0].astype(int)
         ar = np.arange(len(qt))
         tracks[qt, ar] = q[:, 1:]

@@ -301,7 +301,8 @@ class TrackingRefiner:
             else:
                 outs.append(self.pose_confidence_batch(mesh, part, k, poses[idx], fetch=False,
                                                        channels_last=channels_last))
-        confs = torch.cat(outs)[:n].cpu()
+        with timing.wait("inliers.result"):
+            confs = torch.cat(outs)[:n].cpu()
         thr = float(quantile_threshold(confs))
         return (confs > thr).sum(dim=(1, 2)).numpy(), thr
 

@@ -42,6 +42,10 @@ from freepose_tpu_torch.models.cotracker import PointTracker
 from freepose_tpu_torch.parallel.mesh import pad_to_multiple
 from freepose_tpu_torch.pipeline.tracking_refiner import TrackingRefiner
 from freepose_tpu_torch.scripts.common import add_device_arg, full_fp32, load_dino_extractor
+from freepose_tpu_torch.utils import timing
+
+# The keys of each interval's record in smooth_track's `telemetry["intervals"]`.
+INTERVAL_RECORD = ("start", "frames", "queries", "surface", "valid", "tracks", "visibility", "poses")
 
 
 def predict_interval(refiner, mesh, frames, k, start_pose, start_idx, indices):
@@ -138,7 +142,21 @@ def smooth_track(refiner, mesh, frames, k, poses, interval: int = 12, pipelined:
     smallest of `cap_set(cap, cap_buckets)` that holds its valid count: the
     same result as the static cap, since ZNCC tracks each point on its own.
     For CoTracker2 the cap stays static. `telemetry` (a dict) records the
-    caps chosen under "cap_choices"."""
+    caps chosen under "cap_choices", the confidence threshold the pass
+    scored its inliers at under "inliers_threshold", and (pipelined) each
+    interval under "intervals", in the order tracked: a dict of
+    INTERVAL_RECORD's keys holding its start frame, its frames, the query
+    points, surface points and valid flags it tracked (device tensors, as
+    the tracker got them), the tracker's tracks and visibility [step, N]
+    (padded to `step` frames; the ZNCC chain's scores, which EPnP takes
+    above 0.5) and the EPnP poses [step, 4, 4] before
+    smoothing (None where fewer than 4 points are valid). The record holds
+    references only: it adds no copy and no synchronisation.
+
+    Tracing (utils/timing.py): spans `smooth.inliers`, and per interval
+    `smooth.correspondences`, `smooth.track` and `smooth.pnp`, then
+    `smooth.transforms`; counters `smooth.frames` (the video's) and
+    `smooth.intervals`."""
     from freepose_tpu_torch.datasets.video import StagedVideo
 
     if isinstance(frames, StagedVideo):
@@ -156,11 +174,16 @@ def smooth_track(refiner, mesh, frames, k, poses, interval: int = 12, pipelined:
         inliers = np.asarray(inliers)
         if len(inliers) != n:
             raise ValueError(f"inliers length {len(inliers)} != {n} frames")
-    elif staged:
-        inliers, _ = refiner.n_inliers_per_pose(mesh, frames_dev[:n], k, poses, channels_last=True,
-                                                device_mesh=device_mesh, mesh_axis=mesh_axis)
     else:
-        inliers, _ = refiner.n_inliers_per_pose(mesh, frames.transpose(0, 3, 1, 2), k, poses)
+        with timing.span("smooth.inliers"):
+            if staged:
+                inliers, thr = refiner.n_inliers_per_pose(mesh, frames_dev[:n], k, poses, channels_last=True,
+                                                          device_mesh=device_mesh, mesh_axis=mesh_axis)
+            else:
+                inliers, thr = refiner.n_inliers_per_pose(mesh, frames.transpose(0, 3, 1, 2), k, poses)
+        if telemetry is not None:
+            telemetry["inliers_threshold"] = thr
+    timing.count("smooth.frames", n)
     best = int(np.argmax(inliers))
     step = interval
     refined: dict[int, np.ndarray] = {}
@@ -188,10 +211,12 @@ def smooth_track(refiner, mesh, frames, k, poses, interval: int = 12, pipelined:
             if not idxs:
                 continue
             photo = np.zeros((3, 2, 2), np.float32)  # never read
-            query, surface, valid = refiner.compute_2d3d_correspondences(mesh, photo, k, poses[s], fetch=False)
+            with timing.span("smooth.correspondences"):
+                query, surface, valid = refiner.compute_2d3d_correspondences(mesh, photo, k, poses[s], fetch=False)
             pre.append((s, idxs, query, surface, valid, valid.sum() if caps is not None else None))
         jobs = []
         for s, idxs, query, surface, valid, nv in pre:
+            timing.count("smooth.intervals")
             icap = cap
             if nv is not None:
                 icap = next((b for b in caps if b >= int(nv)), caps[-1])
@@ -203,29 +228,43 @@ def smooth_track(refiner, mesh, frames, k, poses, interval: int = 12, pipelined:
             qs, ss, vs = query[order], surface[order], valid[order]
             # Every interval padded to `step` frames (repeats of its last).
             pad_idxs = [min(max(i, 0), n - 1) for i in idxs] + [idxs[-1]] * (step - len(idxs))
-            sub = frames_dev[torch.as_tensor(pad_idxs, device=frames_dev.device)] if staged else frames[pad_idxs]
-            if track_dev is not None:
-                tracks, scores = track_dev(sub, qs, 0)
-                vis = None
-            else:
-                tracks, vis = refiner.track_frames(sub, qs.cpu().numpy(), 0)
-                scores = None
-            jobs.append((s, idxs, ss, vs, tracks, vis, scores))
-        for s, idxs, ss, vs, tracks, vis, scores in jobs:
-            vs_np = vs.cpu().numpy()
-            if vs_np.sum() < 4:
-                for i in idxs:
-                    refined[i] = poses[s]
-                continue
-            if vis is None:
-                vis = (scores > 0.5).cpu().numpy()
-            pv = refiner.compute_pnp_batch(tracks, ss, np.asarray(vis) & vs_np[None], k)
-            for li, fi in enumerate(idxs):
-                refined[fi] = pv[li]
-    out_poses = np.stack([refined.get(i, poses[i]) for i in range(n)]).astype(np.float32)
-    if keep_coarse_translation:
-        out_poses[:, :3, 3] = poses[:, :3, 3]
-    return smooth_transforms(torch.as_tensor(out_poses)).numpy(), inliers
+            with timing.span("smooth.track"):
+                sub = frames_dev[torch.as_tensor(pad_idxs, device=frames_dev.device)] if staged else frames[pad_idxs]
+                if track_dev is not None:
+                    tracks, scores = track_dev(sub, qs, 0)
+                    vis = None
+                else:
+                    with timing.wait("smooth.queries"):
+                        qs_np = qs.cpu().numpy()
+                    tracks, vis = refiner.track_frames(sub, qs_np, 0)
+                    scores = None
+            record = None
+            if telemetry is not None:
+                record = dict(start=s, frames=idxs, queries=qs, surface=ss, valid=vs, tracks=tracks,
+                              visibility=vis if vis is not None else scores, poses=None)
+                telemetry.setdefault("intervals", []).append(record)
+            jobs.append((s, idxs, ss, vs, tracks, vis, scores, record))
+        for s, idxs, ss, vs, tracks, vis, scores, record in jobs:
+            with timing.span("smooth.pnp"):
+                with timing.wait("smooth.correspondences"):
+                    vs_np, ss_np = vs.cpu().numpy(), ss.cpu().numpy()
+                if vs_np.sum() < 4:
+                    for i in idxs:
+                        refined[i] = poses[s]
+                    continue
+                if vis is None:
+                    with timing.wait("smooth.visibility"):
+                        vis = (scores > 0.5).cpu().numpy()
+                pv = refiner.compute_pnp_batch(tracks, ss_np, np.asarray(vis) & vs_np[None], k)
+                if record is not None:
+                    record["poses"] = pv
+                for li, fi in enumerate(idxs):
+                    refined[fi] = pv[li]
+    with timing.span("smooth.transforms"):
+        out_poses = np.stack([refined.get(i, poses[i]) for i in range(n)]).astype(np.float32)
+        if keep_coarse_translation:
+            out_poses[:, :3, 3] = poses[:, :3, 3]
+        return smooth_transforms(torch.as_tensor(out_poses)).numpy(), inliers
 
 
 def tracker_config(path: str | None):
