@@ -57,6 +57,7 @@ from torch import nn
 
 from freepose_tpu_torch.ops.sampling import hat_taps, resize_bilinear_ac
 from freepose_tpu_torch.utils import timing
+from freepose_tpu_torch.utils.cuda_graphs import GraphCache, capture
 
 VISIBILITY_THRESHOLD = 0.9  # the predictor's: a point is visible where sigmoid(logit) exceeds it
 
@@ -318,39 +319,34 @@ class EfficientUpdateFormer(nn.Module):
 # A window's iteration as CUDA graphs
 # ---------------------------------------------------------------------------
 
-GRAPH_SHAPES = 2  # window shapes whose graphs a model keeps (the newest)
-
-
 class _WindowGraphs:
     """One window shape's iteration as two CUDA graphs over static buffers:
     `corr` reads the pyramid, the track features and the coordinates into
     `out`; `update` reads those and `out` and writes the new coordinates and
     features back into their buffers. An iteration is one replay of each,
-    where the eager path launches some hundreds of kernels. Made (and first
-    loaded) from a window's tensors; `load` fills the buffers for the next
-    window of the shape."""
+    where the eager path launches some hundreds of kernels. `load` fills the
+    buffers with a window's tensors."""
 
     def __init__(self, model, pyr, coords, track_feat, track_mask_vis, sampled_pos, time_emb, track_mask):
         self.pyr = [p.clone() for p in pyr]
         self.coords, self.track_feat = coords.clone(), track_feat.clone()
         self.track_mask_vis, self.sampled_pos = track_mask_vis.clone(), sampled_pos.clone()
         self.track_mask = track_mask.clone()
-        dev = coords.device
-        with torch.cuda.device(dev):
-            side = torch.cuda.Stream(dev)
-            side.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(side):  # library handles and workspaces made outside the capture
-                model._update(self.coords, model._corr(self.pyr, self.track_feat, self.coords), self.track_feat,
-                              self.track_mask_vis, self.sampled_pos, time_emb, self.track_mask)
-            torch.cuda.current_stream(dev).wait_stream(side)
-            self.corr, self.update = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self.corr, stream=side):
-                self.out = model._corr(self.pyr, self.track_feat, self.coords)
-            with torch.cuda.graph(self.update, pool=self.corr.pool(), stream=side):
-                coords, feat = model._update(self.coords, self.out, self.track_feat, self.track_mask_vis,
-                                             self.sampled_pos, time_emb, self.track_mask)
-                self.coords.copy_(coords)
-                self.track_feat.copy_(feat)
+
+        def warm_up():  # an iteration that writes no buffer
+            model._update(self.coords, model._corr(self.pyr, self.track_feat, self.coords), self.track_feat,
+                          self.track_mask_vis, self.sampled_pos, time_emb, self.track_mask)
+
+        def corr():
+            self.out = model._corr(self.pyr, self.track_feat, self.coords)
+
+        def update():
+            coords, feat = model._update(self.coords, self.out, self.track_feat, self.track_mask_vis,
+                                         self.sampled_pos, time_emb, self.track_mask)
+            self.coords.copy_(coords)
+            self.track_feat.copy_(feat)
+
+        self.corr, self.update = capture(coords.device, warm_up, corr, update)
 
     def load(self, pyr, coords, track_feat, track_mask_vis, sampled_pos, track_mask) -> None:
         for dst, src in zip(self.pyr + [self.coords, self.track_feat, self.track_mask_vis, self.sampled_pos,
@@ -376,8 +372,7 @@ class CoTracker2(nn.Module):
         self.vis_predictor = nn.Sequential(nn.Linear(cfg.latent_dim, 1))
         self._embeddings: dict = {}
         self.cuda_graphs = True  # False runs every window eagerly on a card too
-        self._graphs: dict = {}
-        self._shapes_seen: dict = {}
+        self._graphs = GraphCache()
 
     def _embedding(self, name: str, shape: tuple, device) -> torch.Tensor:
         """The sin/cos position (grid `shape`) or time (window `shape`)
@@ -418,20 +413,13 @@ class CoTracker2(nn.Module):
     def _window_graphs(self, pyr, coords, track_feat, track_mask_vis, sampled_pos, time_emb, track_mask):
         """The CUDA graphs of a window's iteration at this shape, or None
         (eager): on a card, without autograd, made the second time a shape
-        comes (a shape seen once runs eagerly), GRAPH_SHAPES shapes kept."""
+        comes (a shape seen once runs eagerly; utils/cuda_graphs.py)."""
         if not self.cuda_graphs or coords.device.type != "cuda" or torch.is_grad_enabled():
             return None
         key = (tuple(pyr[0].shape), tuple(coords.shape), str(coords.device), torch.is_inference_mode_enabled())
-        graphs = self._graphs.get(key)
-        if graphs is None:
-            self._shapes_seen[key] = self._shapes_seen.get(key, 0) + 1
-            if self._shapes_seen[key] < 2:
-                return None
-            while len(self._graphs) >= GRAPH_SHAPES:
-                self._graphs.pop(next(iter(self._graphs)))
-            graphs = self._graphs[key] = _WindowGraphs(self, pyr, coords, track_feat, track_mask_vis, sampled_pos,
-                                                       time_emb, track_mask)
-        else:
+        graphs = self._graphs.get(key, lambda: _WindowGraphs(self, pyr, coords, track_feat, track_mask_vis,
+                                                               sampled_pos, time_emb, track_mask))
+        if graphs is not None:
             graphs.load(pyr, coords, track_feat, track_mask_vis, sampled_pos, track_mask)
         return graphs
 

@@ -6,6 +6,13 @@ refiner. Tokens = [cls, reg×4, patches]; position embeddings cover cls and
 patches only, bicubically resampled for non-native grids. The cls, register
 and position tokens stay fp32 and are added before the cast to the compute
 dtype, as in the JAX model; everything else runs in `config.dtype`.
+
+A single image on a card, under inference mode, is launch-bound: some
+hundreds of kernels of microseconds each. From the second call of its key
+(image size, dtype, depth, device, attention functions) on, `DinoV2.forward`
+replays the forward as one CUDA graph (_ForwardGraph, utils/cuda_graphs.py)
+instead, the same kernels in the same order; batches above one and the CPU
+run eagerly.
 """
 from __future__ import annotations
 
@@ -19,6 +26,7 @@ from torch import nn
 
 from freepose_tpu_torch.models.vit import TransformerBlock, interpolate_pos_embed
 from freepose_tpu_torch.utils import timing
+from freepose_tpu_torch.utils.cuda_graphs import GraphCache, capture
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -47,12 +55,35 @@ VIT_S14_REG = DinoV2Config(hidden_size=384, num_layers=12, num_heads=6)
 VIT_TEST = DinoV2Config(hidden_size=64, num_layers=3, num_heads=4, image_size=56)
 
 
+class _ForwardGraph:
+    """One key's forward as a CUDA graph over a static input buffer. A call
+    copies its images into the buffer, replays, counts
+    `dinov2.graph_replays` and returns a copy of the static output, which
+    the next replay overwrites."""
+
+    def __init__(self, model: "DinoV2", images: torch.Tensor, n_layers: int):
+        self.images = images.clone(memory_format=torch.contiguous_format)
+
+        def forward():
+            self.out = model._forward(self.images, n_layers)
+
+        self.graph, = capture(images.device, forward, forward)
+        timing.count("dinov2.graph_captures")
+
+    def __call__(self, images: torch.Tensor) -> torch.Tensor:
+        self.images.copy_(images)
+        self.graph.replay()
+        timing.count("dinov2.graph_replays")
+        return self.out.clone()
+
+
 class DinoV2(nn.Module):
     """Returns all-token features after block `layer` + final norm. Only the
     first `layer` blocks run."""
 
     def __init__(self, config: DinoV2Config):
         super().__init__()
+        self._graphs = GraphCache()
         cfg = self.config = config
         d = cfg.hidden_size
         self.patch_embed = nn.Conv2d(3, d, cfg.patch_size, stride=cfg.patch_size, dtype=cfg.dtype)
@@ -66,9 +97,30 @@ class DinoV2(nn.Module):
         self.norm = nn.LayerNorm(d, eps=1e-6, dtype=cfg.dtype)
 
     def forward(self, images: torch.Tensor, layer: Optional[int] = None) -> torch.Tensor:
-        """images: [B, 3, H, W], ImageNet-normalized. -> [B, 1+R+N, D]."""
+        """images: [B, 3, H, W], ImageNet-normalized. -> [B, 1+R+N, D]. A
+        single image on a card under inference mode replays its key's CUDA
+        graph from the key's second call on (_ForwardGraph)."""
+        n_layers = layer if layer is not None else self.config.num_layers
+        graph = self._graph(images, n_layers)
+        return self._forward(images, n_layers) if graph is None else graph(images)
+
+    def _graph(self, images: torch.Tensor, n_layers: int) -> Optional[_ForwardGraph]:
+        """The CUDA graph of this call's key, or None (eager). The key holds
+        what a replay depends on and a call can see: the image size, dtype,
+        depth and device, and each block's attention function, so a swapped
+        function never replays the former one."""
+        if images.shape[0] != 1 or images.device.type != "cuda" or not torch.is_inference_mode_enabled():
+            return None
+        key = (tuple(images.shape[2:]), images.dtype, n_layers, images.device,
+               tuple(blk.attn.attention_fn for blk in self.blocks))
+        return self._graphs.get(key, lambda: _ForwardGraph(self, images, n_layers))
+
+    def _apply(self, fn, *args, **kwargs):
+        self._graphs.clear()  # a graph replays the parameter tensors of its capture
+        return super()._apply(fn, *args, **kwargs)
+
+    def _forward(self, images: torch.Tensor, n_layers: int) -> torch.Tensor:
         cfg = self.config
-        n_layers = layer if layer is not None else cfg.num_layers
         b, _, h, w = images.shape
         gh, gw = h // cfg.patch_size, w // cfg.patch_size
 
@@ -84,11 +136,18 @@ class DinoV2(nn.Module):
         return self.norm(x)
 
 
-def normalize_images(images: torch.Tensor) -> torch.Tensor:
-    """[B, 3, H, W] in [0, 1] -> ImageNet-normalized."""
-    with timing.wait("dinov2.normalize"):  # uploads from pageable memory synchronise
-        mean = torch.tensor(IMAGENET_MEAN, dtype=images.dtype, device=images.device).reshape(1, 3, 1, 1)
-        std = torch.tensor(IMAGENET_STD, dtype=images.dtype, device=images.device).reshape(1, 3, 1, 1)
+def imagenet_stats(dtype: torch.dtype, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The ImageNet mean and std as [1, 3, 1, 1] tensors of `dtype` on
+    `device` (an upload from pageable memory, which synchronises: made once)."""
+    mean = torch.tensor(IMAGENET_MEAN, dtype=dtype, device=device).reshape(1, 3, 1, 1)
+    std = torch.tensor(IMAGENET_STD, dtype=dtype, device=device).reshape(1, 3, 1, 1)
+    return mean, std
+
+
+def normalize_images(images: torch.Tensor, stats: tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+    """[B, 3, H, W] in [0, 1] -> ImageNet-normalized by `stats`
+    (imagenet_stats of the images' dtype and device)."""
+    mean, std = stats
     return (images - mean) / std
 
 
@@ -145,23 +204,25 @@ class DinoFeatureExtractor:
 
             model.load_state_dict(dinov2_from_jax(params))
         self.model = model.to(self.device).eval()
+        self.stats = imagenet_stats(config.dtype, self.device)  # resident: no upload in front of a forward
 
     @torch.inference_mode()
     def __call__(self, images: torch.Tensor, layer: int = 22, feature_type: str = "patch") -> torch.Tensor:
         images = images.to(self.device)
-        tokens = self.model(normalize_images(images.to(self.config.dtype)), layer=layer)
+        tokens = self.model(normalize_images(images.to(self.config.dtype), self.stats), layer=layer)
         return split_tokens(tokens, self.config.num_registers)[feature_type]
 
     def replica(self, device) -> "DinoFeatureExtractor":
         """This extractor on `device`: itself where it already runs there,
-        else a copy with the model's weights copied over
-        (parallel/mesh.py:replicate)."""
+        else a copy with the model's weights and normalization constants
+        copied over, and no CUDA graph (parallel/mesh.py:replicate)."""
         device = torch.device(device)
         if next(self.model.parameters()).device == device:
             return self
         out = copy.copy(self)
         out.device = device
         out.model = copy.deepcopy(self.model).to(device)
+        out.stats = tuple(s.to(device) for s in self.stats)
         return out
 
     def extract_sharded(self, images: torch.Tensor, layer: int = 22, feature_type: str = "patch",

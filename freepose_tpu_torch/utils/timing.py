@@ -22,7 +22,9 @@ nothing and synchronizes nothing. When on, a span:
 A `wait.<name>` span marks the host blocked on the card (a host copy, an
 event), so a layer's host time is its spans' time less that of the wait
 spans nested in them. `counts` holds the counters (frames, kernel
-launches: `launch.<kernel>`).
+launches: `launch.<kernel>`). Inside a `tally()` block every count goes to
+the block's own dict instead, tracing on or off: a CUDA graph's capture
+counts there the kernels each replay runs (utils/cuda_graphs.py).
 
 `records` and `counts` hold the newest session only: a span or count made
 with tracing on after a span ran with tracing off starts a new session, as
@@ -43,6 +45,7 @@ counts: dict[str, int] = {}
 _forced = 0  # depth of open tracing() blocks
 _stale = False  # a span ran with tracing off since the session began
 _open: list[str] = []  # names of the spans open now, outermost first
+_tally: dict[str, int] | None = None  # the counts of the open tally() block
 
 
 class _Off:
@@ -112,7 +115,11 @@ def wait(name: str):
 
 
 def count(name: str, n: int = 1) -> None:
-    """Add `n` to the counter `name` while tracing is on."""
+    """Add `n` to the counter `name` while tracing is on (to the open
+    tally() block's, if any)."""
+    if _tally is not None:
+        _tally[name] = _tally.get(name, 0) + n
+        return
     if not (_forced or _profiler._is_profiler_enabled):
         return
     if _stale:
@@ -132,6 +139,18 @@ def tracing():
         yield
     finally:
         _forced -= 1
+
+
+@contextlib.contextmanager
+def tally():
+    """The counts made inside, tracing on or off, gathered in the dict it
+    yields and kept out of `counts`."""
+    global _tally
+    outer, _tally = _tally, {}
+    try:
+        yield _tally
+    finally:
+        _tally = outer
 
 
 def _sync() -> None:

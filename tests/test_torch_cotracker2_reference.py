@@ -121,7 +121,7 @@ def test_windows_run_eagerly_on_the_cpu():
     with torch.inference_mode():
         for _ in range(2):
             port(video, QUERIES)
-    assert port._graphs == {} and port._shapes_seen == {}
+    assert len(port._graphs) == 0 and port._graphs.seen == {}
 
 
 @pytest.mark.cuda

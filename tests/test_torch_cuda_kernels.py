@@ -22,6 +22,8 @@ same fp32 partials: 2^-6·|ref| + 1e-6, two bf16 steps (the same sums in
 another order, each rounded to bf16 once, so at most one step apart). The
 list kernel of a masked call against its plain version: identical.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -809,6 +811,161 @@ def test_auto_chain_on_the_card_matches_the_cpu(cuda):
             np.testing.assert_allclose(tc[:3, :3], tr[:3, :3], rtol=0, atol=1e-6)
             np.testing.assert_allclose(tc, tr, atol=1e-4)
             assert abs(sc - sr) < 1e-4
+
+
+# DINOv2's single-image forward as a CUDA graph (models/dinov2.py:
+# _ForwardGraph): K2 d 64 inside the capture, replays bit for bit the eager
+# forward, a replay's result the caller's own.
+
+
+def _dinov2(device, config, seed: int = 0):
+    """A bf16 DINOv2 of `config` with seeded weights, LayerScale 0.1 so that
+    every block moves the tokens, on `device` in eval mode."""
+    from freepose_tpu_torch.models.dinov2 import DinoV2, init_random_
+
+    model = init_random_(DinoV2(dataclasses.replace(config, dtype=torch.bfloat16)),
+                         torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        for blk in model.blocks:
+            blk.ls1.gamma.fill_(0.1)
+            blk.ls2.gamma.fill_(0.1)
+    return model.to(device).eval()
+
+
+def _crops(device, size: int, seed: int, n: int = 1) -> torch.Tensor:
+    """n seeded N(0, 1) bf16 images [n, 3, size, size], as normalized crops are."""
+    return torch.randn(n, 3, size, size, generator=torch.Generator().manual_seed(seed)).to(device, torch.bfloat16)
+
+
+def _graph_counts() -> tuple[int, int]:
+    return timing.counts.get("dinov2.graph_captures", 0), timing.counts.get("dinov2.graph_replays", 0)
+
+
+@pytest.mark.parametrize("name,size,layer", [("L", 420, 22), ("B", 518, None)])
+def test_dinov2_graphed_forward_equals_eager(cuda, name, size, layer):
+    """DINOv2-L to block 22 on a 420² crop (the refine's query) and
+    DINOv2-B at full depth on 518²: the first call of a key runs eagerly,
+    the second captures and replays, the third replays; each equals the
+    eager forward bit for bit. K2 counts a launch for each block of the
+    eager call, of the side stream's warm-up and of each replay (the capture
+    records its kernels and runs none)."""
+    from freepose_tpu_torch.models.dinov2 import VIT_B14_REG, VIT_L14_REG
+
+    model = _dinov2(cuda, VIT_L14_REG if name == "L" else VIT_B14_REG)
+    n_layers = layer or model.config.num_layers
+    x = _crops(cuda, size, 0)
+    with torch.no_grad():  # no inference mode: eager
+        eager = model(x, layer=layer)
+    before = _launches("k2.d64")
+    with torch.inference_mode():
+        runs = [model(x, layer=layer) for _ in range(3)]
+    assert _launches("k2.d64") - before == 4 * n_layers
+    assert len(model._graphs) == 1 and _graph_counts() == (1, 2)
+    for out in runs:
+        assert torch.equal(out, eager)
+
+
+def test_dinov2_replays_leave_earlier_results_intact(cuda):
+    """Two replays in a row: the first's result is a copy, which the second
+    does not overwrite; each equals its own eager forward."""
+    from freepose_tpu_torch.models.dinov2 import VIT_B14_REG
+
+    model = _dinov2(cuda, VIT_B14_REG)
+    xs = [_crops(cuda, 224, seed) for seed in range(3)]
+    with torch.no_grad():
+        eager = [model(x) for x in xs]
+    with torch.inference_mode():
+        model(xs[0])
+        model(xs[0])  # captured
+        a, b = model(xs[1]), model(xs[2])
+    assert _graph_counts() == (1, 3)
+    assert torch.equal(a, eager[1]) and torch.equal(b, eager[2]) and not torch.equal(a, b)
+
+
+def test_dinov2_forward_wrapper_sees_every_replay(cuda):
+    """A wrapper put on the extractor's `model.forward`, as the benchmark
+    counts the images each model featurizes, sees every call, the replayed
+    ones too."""
+    from freepose_tpu_torch.models.dinov2 import VIT_B14_REG, DinoFeatureExtractor
+
+    ext = DinoFeatureExtractor(dataclasses.replace(VIT_B14_REG, dtype=torch.bfloat16), device=cuda)
+    seen, forward = [], ext.model.forward
+
+    def counted(images, *args, **kwargs):
+        seen.append(images.shape[0])
+        return forward(images, *args, **kwargs)
+
+    ext.model.forward = counted
+    img = torch.rand(1, 3, 224, 224, generator=torch.Generator().manual_seed(0)).to(cuda)
+    feats = [ext(img, layer=None) for _ in range(5)]
+    assert seen == [1] * 5 and _graph_counts() == (1, 4)
+    for f in feats[1:]:
+        assert torch.equal(f, feats[0])
+
+
+def test_dinov2_batches_above_one_never_capture(cuda):
+    """A batch of 16 runs eagerly on every call and keeps no graph state."""
+    from freepose_tpu_torch.models.dinov2 import VIT_B14_REG
+
+    model = _dinov2(cuda, VIT_B14_REG)
+    x = _crops(cuda, 224, 0, n=16)
+    with torch.inference_mode():
+        for _ in range(3):
+            model(x)
+    assert len(model._graphs) == 0 and model._graphs.seen == {} and _graph_counts() == (0, 0)
+
+
+def test_dinov2_keeps_the_newest_two_keys(cuda):
+    """Three image sizes, each called twice: each is captured on its second
+    call, the oldest graph dropped for the third; a dropped key captures
+    again on its next call, and a kept one replays."""
+    from freepose_tpu_torch.models.dinov2 import VIT_B14_REG
+
+    model = _dinov2(cuda, VIT_B14_REG)
+    xs = {size: _crops(cuda, size, size) for size in (112, 140, 168)}
+    with torch.inference_mode():
+        for size in (112, 140, 168):
+            model(xs[size])
+            model(xs[size])
+        assert [key[0] for key in model._graphs.graphs] == [(140, 140), (168, 168)] and _graph_counts() == (3, 3)
+        model(xs[168])
+        assert _graph_counts() == (3, 4)
+        out = model(xs[112])
+        assert [key[0] for key in model._graphs.graphs] == [(168, 168), (112, 112)] and _graph_counts() == (4, 5)
+    with torch.no_grad():
+        assert torch.equal(out, model(xs[112]))
+
+
+def test_dinov2_swapped_attention_is_a_key_of_its_own(cuda):
+    """Blocks put on the plain attention after a capture run it, not the
+    captured K2 (no launch, the plain forward's bits); put back on K2, they
+    replay the former graph."""
+    from freepose_tpu_torch.models.dinov2 import VIT_B14_REG
+    from freepose_tpu_torch.ops.attention import dense_attention, flash_attention_fn
+
+    model = _dinov2(cuda, VIT_B14_REG)
+    x = _crops(cuda, 224, 0)
+
+    def attend_with(fn):
+        for blk in model.blocks:
+            blk.attn.attention_fn = fn
+
+    with torch.inference_mode():
+        graphed = [model(x) for _ in range(2)]
+    attend_with(dense_attention)
+    with torch.no_grad():  # no inference mode: eager
+        plain = model(x)
+    before = _launches("k2")
+    with torch.inference_mode():
+        swapped = [model(x) for _ in range(2)]
+    assert _launches("k2") == before and len(model._graphs) == 2 and _graph_counts() == (2, 2)
+    attend_with(flash_attention_fn)
+    with torch.inference_mode():
+        again = model(x)
+    assert _graph_counts() == (2, 3) and _launches("k2") - before == model.config.num_layers
+    assert torch.equal(again, graphed[0]) and not torch.equal(plain, graphed[0])
+    for out in swapped:
+        assert torch.equal(out, plain)
 
 
 # The static proposal path on the card: SAM2 image masks through K2 at d 72

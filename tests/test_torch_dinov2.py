@@ -2,8 +2,13 @@
 parameters, converted with dinov2_from_jax, give the same tokens (fp32,
 atol 1e-4) at the native grid, one grid below and one above, full depth and
 truncated at layer 2, and in bf16. Also the numerical places where a port
-can drift: tanh-GELU and antialiased bicubic position-embedding resampling."""
+can drift: tanh-GELU and antialiased bicubic position-embedding resampling.
+And what the CPU sees of the single-image CUDA graphs: none is kept here,
+the extractor's resident normalization constants, copies without graphs
+(the card-only checks are in test_torch_cuda_kernels.py)."""
+import copy
 import dataclasses
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -17,7 +22,8 @@ from freepose_tpu.models.dinov2 import DinoFeatureExtractor as JaxExtractor
 from freepose_tpu.models.dinov2 import DinoV2 as JaxDinoV2
 from freepose_tpu.models.vit import interpolate_pos_embed as jax_interp
 from freepose_tpu_torch.models.convert import dinov2_from_jax
-from freepose_tpu_torch.models.dinov2 import VIT_TEST, DinoFeatureExtractor, DinoV2
+from freepose_tpu_torch.models.dinov2 import (IMAGENET_MEAN, IMAGENET_STD, VIT_TEST, DinoFeatureExtractor, DinoV2,
+                                              normalize_images)
 from freepose_tpu_torch.models.vit import interpolate_pos_embed
 
 
@@ -103,3 +109,51 @@ def test_pos_embed_resampling_matches_jax(src, dst):
     ours = interpolate_pos_embed(torch.as_tensor(pe), (dst, dst), src).numpy()
     ref = np.asarray(jax_interp(jnp.asarray(pe), (dst, dst), src))
     np.testing.assert_allclose(ours, ref, atol=1e-5)
+
+
+def test_forward_keeps_no_graph_on_the_cpu():
+    """Single images under inference mode, the calls a card graphs, run
+    eagerly on the CPU and leave no graph and no key seen."""
+    ext = DinoFeatureExtractor(VIT_TEST, device="cpu")
+    img = torch.rand(1, 3, 56, 56, generator=torch.Generator().manual_seed(0))
+    outs = [ext(img, layer=2) for _ in range(3)]
+    with torch.inference_mode():
+        outs += [ext.model(normalize_images(img, ext.stats), layer=None) for _ in range(3)]
+    assert len(ext.model._graphs) == 0 and ext.model._graphs.seen == {}
+    for out in outs[1:3]:
+        assert torch.equal(out, outs[0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_resident_stats_normalize_as_normalize_images(dtype):
+    """The extractor's mean and std, made once, give the bits of the mean
+    and std made for each call in the images' dtype, and so the same
+    features."""
+    ext = DinoFeatureExtractor(dataclasses.replace(VIT_TEST, dtype=dtype), device="cpu")
+    assert all(s.dtype == dtype and s.shape == (1, 3, 1, 1) for s in ext.stats)
+    img = torch.rand(2, 3, 56, 56, generator=torch.Generator().manual_seed(1)).to(dtype)
+    mean = torch.tensor(IMAGENET_MEAN, dtype=dtype).reshape(1, 3, 1, 1)
+    std = torch.tensor(IMAGENET_STD, dtype=dtype).reshape(1, 3, 1, 1)
+    assert torch.equal(normalize_images(img, ext.stats), (img - mean) / std)
+    with torch.inference_mode():
+        ref = ext.model((img - mean) / std, layer=2)[:, 5:]
+    assert torch.equal(ext(img, layer=2), ref)
+
+
+def test_copies_carry_no_graph_over():
+    """A replica (DinoFeatureExtractor.replica, parallel/mesh.py:replicate)
+    starts with no graph and no key seen, though a graph cannot be copied
+    (a lock stands in for one here); moving or casting a model drops its
+    graphs and keeps the keys seen."""
+    from freepose_tpu_torch.parallel.mesh import _replica
+
+    ext = DinoFeatureExtractor(VIT_TEST, device="cpu")
+    key = ((56, 56), torch.float32, 2, torch.device("cuda", 0))
+    ext.model._graphs.graphs[key], ext.model._graphs.seen[key] = threading.Lock(), 2
+    meta = torch.device("meta")
+    for copied in (ext.replica(meta).model, _replica(ext.model, meta), copy.deepcopy(ext.model)):
+        assert copied is not ext.model and len(copied._graphs) == 0 and copied._graphs.seen == {}
+    assert all(s.device == meta for s in ext.replica(meta).stats)
+    assert key in ext.model._graphs.graphs and ext.model._graphs.seen == {key: 2}
+    ext.model.to(torch.float32)
+    assert len(ext.model._graphs) == 0 and ext.model._graphs.seen == {key: 2}
