@@ -13,9 +13,7 @@ Phases, one line each on stdout:
              n 905, d 64, bf16), a ragged length and fp32, with the
              configuration the split rule picks at each; at each crop batch
              also both d 64 builds (64- and 192-row blocks), checked and
-             timed; the previous design (the mma.sync tile kernel) checked
-             and timed on the same inputs in turns with it (prev_ms); kernel,
-             plain and scaled_dot_product_attention times;
+             timed; kernel, plain and scaled_dot_product_attention times;
   3. k2_d72, k2_d256, k3, k4
              the attention kernels at the video path's shapes against their
              plain versions: K2 at the Hiera-L global blocks [1, 8, 4096, 72]
@@ -26,9 +24,7 @@ Phases, one line each on stdout:
              kernel (K2 d 256, K3 and K4 with their key splits and the
              combine kernel, which is held against its plain version on the
              same partials); kernel, plain and SDPA times (SDPA with
-             attn_mask for K4), the previous design (the tile kernel) checked
-             and timed on the same inputs in turns with it (prev_ms), and at
-             d 72 its three block sizes and for K4 1-8 key splits checked
+             attn_mask for K4), and at d 72 its three block sizes and for K4 1-8 key splits checked
              and timed (configs). Every attention check also shows that its
              tolerance fails the plain version of a kernel that drops keys
              (the last 64; for K4 the object pointers, or one memory slot);
@@ -268,7 +264,7 @@ Phases, one line each on stdout:
  18. leftovers the leftovers of slices B and D and the viz CLIs, each
              through the entry points a user calls, with the launch counts
              zeroed before the first and read after the last (K1 and K2 at
-             d 64 > 0): CachedRefineChain (lag 3) on a 10-frame walk of
+             d 64 > 0): the serial refine_cached loop on a 10-frame walk of
              torus renders on the 20,000-pose grid (DINOv2-L layer 22 bf16,
              420² renders, 8 neighbours, 12 slots: hits, misses, evictions);
              smooth_track(batched_intervals=True) on the smooth phase's
@@ -280,11 +276,8 @@ Phases, one line each on stdout:
              the refine phase's CSV (one K1 call at 480², tile 32, P =
              rows) and the vis_features CLI on 3 of those frames
              (DINOv2-L at 518², layer 22: K2 d 64 at [1, 16, 1374, 64]).
-             Gates: the chain's rows and scores within LEFT_CHAIN_ATOL of
-             the serial refine_cached loop, speculative hits and replays
-             both > 0, its device table equal to its slot map, slot map and
-             LRU order the serial run's; one refine step kernels vs plain
-             as in the refine phase; batched intervals within
+             Gates: one refine step kernels vs plain as in the refine
+             phase, from the walk's frame 1 pose; batched intervals within
              BATCHED_POSE_ATOL of the pipelined path, and StreamingInliers'
              counts through inliers= giving the computed path's rows
              exactly; the learned tracks finite, the query frame pinned,
@@ -296,8 +289,8 @@ Phases, one line each on stdout:
              call's masks identical to the plain rasterizer's; 3 panels,
              and the features with K2 of min cosine >= FEATURE_COS_MIN
              against plain attention, K2 at [1, 16, 1374, 64] against its
-             plain version. Prints ms per hit frame of the chain,
-             AutoRefineChain and the serial loop with launches per frame,
+             plain version. Prints ms per hit frame of AutoRefineChain and
+             the serial loop with launches per frame,
              both smooth paths' ms per video and K1's P, the learned
              tracker's ms per interval and device busy share, ms per
              overlay row, and K2's times with SDPA's and the bound;
@@ -501,9 +494,8 @@ def reset_launches() -> None:
 def read_launches() -> dict:
     """Every kernel wrapper's launch count (the `launch.<kernel>` counters),
     K2 also by head dim, and the attention launches by device program
-    (`launches_by_kernel`: "sm90" the wgmma + TMA kernel, "tile" the
-    mma.sync tile kernel, "f32" the fp32 one); "key_tiles" counts K4's list
-    kernel."""
+    (`launches_by_kernel`: "sm90" the wgmma + TMA kernel, "f32" the fp32
+    one); "key_tiles" counts K4's list kernel."""
     from freepose_tpu_torch.utils import timing
 
     def n(kernel: str) -> int:
@@ -513,7 +505,7 @@ def read_launches() -> dict:
     return {"K1": n("k1"), "K2": n("k2"), "K3": n("k3"), "K4": n("k4"), "K5": n("k5"),
             "K5_combine": n("bias_combine"), "combine": n("attention_combine"), "key_tiles": n("key_tiles"),
             "K2_by_dim": {d: by_dim[d] for d in sorted(by_dim, key=int)},
-            "launches_by_kernel": {kernel: n(kernel) for kernel in ("sm90", "tile", "f32")}}
+            "launches_by_kernel": {kernel: n(kernel) for kernel in ("sm90", "f32")}}
 
 
 def check_attention(out: torch.Tensor, ref: torch.Tensor, allowed: torch.Tensor, wrong: dict) -> dict:
@@ -682,7 +674,7 @@ def phase_k2(dev) -> dict:
     import torch.nn.functional as F
 
     from freepose_tpu_torch.ops.attention import (bf16_error_bound, dense_attention, flash_attention_sm90,
-                                                  flash_attention_tile, sm90_config, sm90_key_tile)
+                                                  sm90_config, sm90_key_tile)
     from freepose_tpu_torch.ops.attention import flash_attention_k2 as flash_attention
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -720,11 +712,10 @@ def phase_k2(dev) -> dict:
         allowed = bf16_error_bound(q, k, v, scale, ref)
         c = checks[label] = check_attention(out, ref, allowed, wrong)
         c["warpgroups_splits"] = picked = sm90_config(b * heads, length, length, d, key_tile)
-        c["prev"] = check_attention(flash_attention_tile(q, k, v, scale), ref, allowed, {})
         del wrong, out
         if label != "ragged":
             # Each d 64 build of the kernel at this shape: held to the same
-            # bound, and its device time beside the tile kernel's and SDPA's.
+            # bound, and its device time beside SDPA's.
             c["configs"] = {}
             for config in SM90_D64_CONFIGS:
                 def run(config=config):
@@ -733,20 +724,17 @@ def phase_k2(dev) -> dict:
                 c["configs"][f"{config[0]}wg"] = {"tol_ratio": check_attention(run(), ref, allowed, {})["tol_ratio"],
                                                   "device_ms": device_ms(run)}
             c["device"] = {"ms": c["configs"][f"{picked[0]}wg"]["device_ms"],
-                           "prev_ms": device_ms(lambda: flash_attention_tile(q, k, v, scale)),
                            "sdpa_ms": device_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))}
             if label != "bank":  # the bank shape is timed below, for the kernels line
-                c["ms"], c["prev_ms"] = in_turns(lambda: flash_attention(q, k, v, scale),
-                                                 lambda: flash_attention_tile(q, k, v, scale), 10)
+                c["ms"] = cuda_ms(lambda: flash_attention(q, k, v, scale), reps=20)
                 # Where CUDA events exceed the device times, the host's.
                 c["host_ms"] = {"ms": host_ms(lambda: flash_attention(q, k, v, scale)),
-                                "prev_ms": host_ms(lambda: flash_attention_tile(q, k, v, scale)),
                                 "sdpa_ms": host_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))}
         if label == "bank":
             main = (q, k, v)
         del ref, allowed
     q, k, v = main
-    ms, prev_ms = in_turns(lambda: flash_attention(q, k, v, scale), lambda: flash_attention_tile(q, k, v, scale), 10)
+    ms = cuda_ms(lambda: flash_attention(q, k, v, scale), reps=20)
     plain_ms = cuda_ms(lambda: dense_attention(q, k, v, scale), reps=3)
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), reps=10)
     bh = BANK_BATCH * heads
@@ -756,7 +744,7 @@ def phase_k2(dev) -> dict:
                replaces="freepose_tpu/ops/attention.py:75", max_abs_err=checks["bank"]["max_abs_err"],
                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
     log("k2", shape=[BANK_BATCH, heads, n, d], dtype="bf16", checks=checks, tol=ATTN_TOL, tol_fp32=K2_TOL_FP32,
-        ms=ms, prev_ms=prev_ms, plain_ms=plain_ms, sdpa_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+        ms=ms, plain_ms=plain_ms, sdpa_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
         tflops=flops / ms / 1e9, device=checks["bank"]["device"])
     del q, k, v, main
     torch.cuda.empty_cache()
@@ -876,8 +864,7 @@ def check_k4_extra(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: flo
 
 def phase_stream_kernels(dev) -> dict:
     """K2 at the video path's head dims, K3 and K4, each against its plain
-    version and timed beside it, beside the previous design (the tile
-    kernel, on the same inputs) and beside SDPA, with the warpgroup and
+    version and timed beside it and beside SDPA, with the warpgroup and
     split configurations the rules choose from; each on a ragged key count
     against a kernel that reads the next head's rows; K3's combine and K4's
     list kernel against their plain versions. Returns {kernel: record}."""
@@ -885,8 +872,7 @@ def phase_stream_kernels(dev) -> dict:
 
     from freepose_tpu_torch.ops.attention import (bf16_error_bound, dense_attention, dense_attention_masked,
                                                   flash_attention_k2, flash_attention_k3, flash_attention_sm90,
-                                                  flash_attention_stream, flash_attention_tile, sm90_config,
-                                                  sm90_key_tile)
+                                                  flash_attention_stream, sm90_config, sm90_key_tile)
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
 
@@ -934,9 +920,6 @@ def phase_stream_kernels(dev) -> dict:
             def run():
                 return c["kernel"](q, k, v, scale)
 
-            def prev():
-                return flash_attention_tile(q, k, v, scale)
-
             def plain():
                 return dense_attention(q, k, v, scale)
 
@@ -945,9 +928,6 @@ def phase_stream_kernels(dev) -> dict:
         else:
             def run():
                 return c["kernel"](q, k, v, scale, kv_mask=m)
-
-            def prev():
-                return flash_attention_tile(q, k, v, scale, kv_mask=m)
 
             def plain():
                 return dense_attention_masked(q, k, v, scale, m)
@@ -966,7 +946,6 @@ def phase_stream_kernels(dev) -> dict:
         allowed = bf16_error_bound(q, k, v, scale, ref, m)
         check = check_attention(out, ref, allowed, wrong)
         err = check["max_abs_err"]
-        check["prev"] = check_attention(prev(), ref, allowed, {})  # the previous design, on the same inputs
         extra = {}
         extra["warpgroups"], extra["splits"] = sm90_config(b * h, n, c["nk"], d, key_tile, masked=m is not None)
         if c["configs"]:
@@ -981,8 +960,8 @@ def phase_stream_kernels(dev) -> dict:
                     "tol_ratio": check_attention(forced(), ref, allowed, {})["tol_ratio"],
                     "device_ms": device_ms(forced)}
         del out, ref, wrong, allowed
-        ms, extra["prev_ms"] = in_turns(run, prev, 10)
-        extra["device"] = {"ms": device_ms(run), "prev_ms": device_ms(prev), "sdpa_ms": device_ms(library)}
+        ms = cuda_ms(run, reps=20)
+        extra["device"] = {"ms": device_ms(run), "sdpa_ms": device_ms(library)}
         if m is None:
             # A ragged key count over two heads: the tolerance fails a kernel
             # that fills the ragged tile with the next head's rows.
@@ -1580,8 +1559,6 @@ def phase_video(dev) -> tuple[dict, dict]:
     if min(launches["K2"], launches["K4"], launches["combine"], launches["key_tiles"],
            launches["launches_by_kernel"]["sm90"]) <= 0:
         raise AssertionError(f"video path did not launch every kernel: {launches}")
-    if launches["launches_by_kernel"]["tile"] != 0:
-        raise AssertionError(f"video path ran the previous design's tile kernel: {launches}")
     if not props or n_scored == 0:
         raise AssertionError(f"video path retrieved no proposal: {len(props)} proposals, {n_scored} scored")
     if np.mean(ious) < VIDEO_IOU_MIN or logit_diff > VIDEO_LOGIT_ATOL:
@@ -3856,7 +3833,6 @@ def phase_amg(dev) -> tuple[dict, dict]:
 # carried through 4 iterations of bilinear sampling; a run with one
 # iteration fewer moves tracks by pixels and must fail it.
 LEFT_NEIGHBORS, LEFT_CAPACITY, LEFT_LAG, LEFT_SCALE = 8, 12, 3, 0.25
-LEFT_CHAIN_ATOL = 1e-5
 LEFT_HIT_FRAMES = 16
 BATCHED_POSE_ATOL = 1e-4
 LEARNED_FRAMES, LEARNED_QUERIES, LEARNED_CUT = 12, 512, (2, 64)
@@ -3885,8 +3861,8 @@ def leftover_trajectory(est) -> list[int]:
 
 def phase_leftovers(dev, mesh) -> tuple[dict, dict]:
     """The leftovers of slices B and D, each through the entry points a user
-    calls: CachedRefineChain (the device slot table and the speculative hit
-    step) on a 10-frame walk of torus renders, smooth_track with
+    calls: the serial refine_cached loop on a 10-frame walk of torus
+    renders, smooth_track with
     batched_intervals=True on the smooth phase's frames, coarse rows and
     DINOv2-B, the learned CoTracker at its full widths on 12 frames of the
     video at 1280x720, and the vis_poses_video and vis_features CLIs on the
@@ -3911,8 +3887,7 @@ def phase_leftovers(dev, mesh) -> tuple[dict, dict]:
     from freepose_tpu_torch.ops.rasterizer import RasterSettings, rasterize, rasterize_plain
     from freepose_tpu_torch.ops.rasterizer_cuda import prologue, raster_tile_plain
     from freepose_tpu_torch.ops.sampling import resize_bilinear
-    from freepose_tpu_torch.pipeline.online_pose_estimator import (AutoRefineChain, CachedRefineChain,
-                                                                   OnlinePoseEstimator)
+    from freepose_tpu_torch.pipeline.online_pose_estimator import AutoRefineChain, OnlinePoseEstimator
     from freepose_tpu_torch.pipeline.renderer import TemplateRenderer
     from freepose_tpu_torch.pipeline.template_bank import TemplateBank, normalize_feats
     from freepose_tpu_torch.pipeline.tracking_refiner import StreamingInliers, TrackingRefiner
@@ -3925,7 +3900,7 @@ def phase_leftovers(dev, mesh) -> tuple[dict, dict]:
         if not (WORK_DIR / name).exists():
             save_params(random_dinov2_params(cfg, seed=seed), WORK_DIR / name)
 
-    # The chain: an estimator at the refine cell's widths, the walk's crops.
+    # The walk: an estimator at the refine cell's widths, its crops.
     extractor = load_dino_extractor(str(WORK_DIR / "dinov2.npz"), device=dev)
 
     def feature_fn(imgs):
@@ -3979,13 +3954,6 @@ def phase_leftovers(dev, mesh) -> tuple[dict, dict]:
                          "--weights", str(WORK_DIR / "dinov2.npz"), "--layer", str(DINO_LAYER), "--device", str(dev)]
     cli_out = io.StringIO()
 
-    def run_chain(key):
-        chain = CachedRefineChain(est, mesh, key, neighborhood_deg=NEIGHBORHOOD, lag=LEFT_LAG)
-        for t, (crop, cmask, bbox) in enumerate(crops):
-            chain.submit(crop, cmask, k_r, bbox, LEFT_SCALE, prev_pose=prev0 if t == 0 else None)
-        chain.finalize_all()
-        return chain
-
     def run_smooth(**kw):
         return smooth_track(refiner, mesh_s, staged, k_s, poses_s, interval=12, cap=512, **kw)
 
@@ -3993,9 +3961,12 @@ def phase_leftovers(dev, mesh) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.perf_counter()
-    chain = run_chain("chain")
-    torch.cuda.synchronize()
-    chain_s = time.perf_counter() - t0
+    serial, prev = [], prev0
+    for crop, cmask, bbox in crops:
+        o = est.refine_cached(crop, cmask, mesh, k_r, bbox, LEFT_SCALE, prev, NEIGHBORHOOD, cache_key="serial")
+        serial.append((o.tcos[0].cpu().numpy(), float(o.scores[0])))
+        prev = o.tcos[0]
+    walk_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     batched, batched_inliers = run_smooth(batched_intervals=True)
     batched_s = time.perf_counter() - t0
@@ -4016,26 +3987,12 @@ def phase_leftovers(dev, mesh) -> tuple[dict, dict]:
     vis_features_s = time.perf_counter() - t0
     launches = read_launches()
 
-    # Chain against the serial closed loop on the same frames.
-    serial, prev = [], prev0
-    for crop, cmask, bbox in crops:
-        o = est.refine_cached(crop, cmask, mesh, k_r, bbox, LEFT_SCALE, prev, NEIGHBORHOOD, cache_key="serial")
-        serial.append((o.tcos[0].cpu().numpy(), float(o.scores[0])))
-        prev = o.tcos[0]
-    cache, cache_serial = est._fine_caches["chain"], est._fine_caches["serial"]
-    table = cache.slot_table.cpu().numpy()[:-1]
-    chain_check = dict(
-        walk=walk, pose_max_abs_err=max(float(np.abs(a[0] - b[0]).max()) for a, b in zip(chain.results, serial)),
-        score_max_abs_err=max(abs(a[1] - b[1]) for a, b in zip(chain.results, serial)), atol=LEFT_CHAIN_ATOL,
-        n_spec_hits=chain.n_spec_hits, n_replayed=chain.n_replayed, rows=len(chain.results),
-        slot_table_mirrors_slot_of={gi: s for gi, s in enumerate(table) if s >= 0} == cache.slot_of,
-        slot_of_equal_serial=cache.slot_of == cache_serial.slot_of, lru_equal_serial=list(cache.lru) ==
-        list(cache_serial.lru), cached_views=len(cache.slot_of))
-    refine_check = refine_kernels_vs_plain(est, extractor, "chain", mesh, *crops[2][:2], k_r, crops[2][2],
+    # One refine step from the walk's frame 1 pose, kernels against plain.
+    refine_check = refine_kernels_vs_plain(est, extractor, "serial", mesh, *crops[2][:2], k_r, crops[2][2],
                                            LEFT_SCALE, torch.as_tensor(serial[1][0], device=dev))
 
-    # ms per hit frame, each timed to the card's finish: the chain, the
-    # device-cache chain and the serial loop, after one seeding frame.
+    # ms per hit frame, each timed to the card's finish: the device-cache
+    # chain and the serial loop, after one seeding frame.
     def hit_run(kind):
         crop, cmask, bbox = crops[0]
         key = f"timing_{kind}"
@@ -4045,9 +4002,8 @@ def phase_leftovers(dev, mesh) -> tuple[dict, dict]:
                 return o.tcos[0].cpu().numpy()
             prev = step(prev0)
         else:
-            runner = (CachedRefineChain(est, mesh, key, neighborhood_deg=NEIGHBORHOOD, lag=LEFT_LAG) if kind == "chain"
-                      else AutoRefineChain(est, mesh, key, neighborhood_deg=NEIGHBORHOOD, lag=LEFT_LAG,
-                                           miss_bucket=LEFT_NEIGHBORS))
+            runner = AutoRefineChain(est, mesh, key, neighborhood_deg=NEIGHBORHOOD, lag=LEFT_LAG,
+                                     miss_bucket=LEFT_NEIGHBORS)
             runner.submit(crop, cmask, k_r, bbox, LEFT_SCALE, prev_pose=prev0)
             runner.finalize_all()
         torch.cuda.synchronize()
@@ -4065,13 +4021,11 @@ def phase_leftovers(dev, mesh) -> tuple[dict, dict]:
         after = read_launches()
         out = {"ms_per_frame": ms,
                "launches_per_frame": {key_: (after[key_] - before[key_]) / LEFT_HIT_FRAMES for key_ in ("K1", "K2")}}
-        if kind == "chain":
-            out["spec_hits"] = runner.n_spec_hits
         if kind == "auto":
             out["misses"] = sum(runner.miss_counts[1:])
         return out
 
-    hit_frames = {kind: hit_run(kind) for kind in ("chain", "auto", "serial")}
+    hit_frames = {kind: hit_run(kind) for kind in ("auto", "serial")}
 
     # Batched intervals against the pipelined path; StreamingInliers' counts
     # through inliers= against the path that computes them.
@@ -4171,7 +4125,7 @@ def phase_leftovers(dev, mesh) -> tuple[dict, dict]:
                            k1_call_ms=cuda_ms(lambda: rasterize(*vargs, vposes, vk, vsettings), reps=5), k1_480=k1_480)
     del vdepth, vdepth_plain
 
-    # vis_features: the panels, and the CLI's features (the chain's
+    # vis_features: the panels, and the CLI's features (the walk's
     # extractor: the same weights and config) with K2 against every
     # attention call on its plain version on the same resized frames.
     from PIL import Image
@@ -4218,7 +4172,7 @@ def phase_leftovers(dev, mesh) -> tuple[dict, dict]:
                                        "bound_ms": k2_bound, "bound_by": k2_bound_by})
     del q, kk, v, ref, feats
 
-    result = dict(launches=launches, chain_s=chain_s, chain=chain_check, refine_kernels_vs_plain=refine_check,
+    result = dict(launches=launches, walk=walk, walk_s=walk_s, refine_kernels_vs_plain=refine_check,
                   hit_frames=hit_frames, batched_intervals=batched_check, learned_cotracker=learned_check,
                   learned_profile=learned_profile, vis_poses_video=vis_poses_check,
                   vis_features=vis_features_check, cli_last_lines=cli_out.getvalue().strip().splitlines()[-2:],
@@ -4226,18 +4180,11 @@ def phase_leftovers(dev, mesh) -> tuple[dict, dict]:
     log("leftovers", **result)
     if min(launches["K1"], launches["K2_by_dim"].get("64", 0)) <= 0:
         raise AssertionError(f"leftovers path did not launch K1 and K2 at d 64: {launches}")
-    c = chain_check
-    if not (c["pose_max_abs_err"] <= LEFT_CHAIN_ATOL and c["score_max_abs_err"] <= LEFT_CHAIN_ATOL
-            and c["rows"] == len(walk) and c["n_spec_hits"] > 0 and c["n_replayed"] > 0
-            and c["slot_table_mirrors_slot_of"] and c["slot_of_equal_serial"] and c["lru_equal_serial"]):
-        raise AssertionError(f"CachedRefineChain against the serial loop: {c}")
     if refine_check["render_mask_mismatches"] or not refine_check["score_max_abs_err"] <= REFINE_SCORE_ATOL or \
             not refine_check["one_slot_off_max_abs_err"] > REFINE_SCORE_ATOL or \
             min(refine_check["launches"]["kernels"].values()) <= 0 or \
             max(refine_check["launches"]["plain"].values()) != 0:
         raise AssertionError(f"leftovers refine step, kernels vs plain versions: {refine_check}")
-    if hit_frames["chain"]["spec_hits"] < LEFT_HIT_FRAMES:
-        raise AssertionError(f"chain timing frames were not all speculative hits: {hit_frames}")
     b = batched_check
     if not (b["pose_max_abs_err"] <= BATCHED_POSE_ATOL and b["inliers_equal"] and b["streaming_equal_computed"]
             and b["inliers_rows_identical"]):

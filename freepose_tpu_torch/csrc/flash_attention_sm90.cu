@@ -14,8 +14,7 @@
 //     x 4,096 tokens + 16 pointers x 4 tokens = 28,736 keys, empty slots
 //     masked.
 // The dispatch in freepose_tpu_torch/ops/attention.py:_launch sends every
-// bf16 call here; fp32 and K5 keep csrc/flash_attention.cu, whose mma.sync
-// tile kernel stays as the previous design (flash_attention_tile).
+// bf16 call here; fp32 calls and K5 run csrc/flash_attention.cu.
 //
 // Function (the TPU kernels' semantics): softmax(q·kᵀ·scale)·v on bf16
 // operands; logits, running max, running sum and accumulator in fp32; p
@@ -44,7 +43,7 @@
 //      contiguous), hence the transpose bit.
 //   2. One read of each K/V tile per warpgroup product: wgmma reads its B
 //      operand from shared memory once per 64-row product, where each
-//      mma.sync warp re-read the tile for its own 16 rows.
+//      mma.sync warp would re-read the tile for its own 16 rows.
 //   3. Asynchronous copies. A producer warpgroup, of which one thread issues
 //      every load as TMA (cp.async.bulk.tensor.3d) into swizzled shared
 //      memory, signals completion through mbarriers; K and V have a barrier
@@ -126,7 +125,7 @@ namespace flash {
 
 using bf16 = __nv_bfloat16;
 
-constexpr float MASKED = -1e30f;  // running-max start and a masked key's logit, as in the tile kernel
+constexpr float MASKED = -1e30f;  // running-max start and a masked key's logit
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 

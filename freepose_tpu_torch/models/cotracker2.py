@@ -34,7 +34,7 @@ On a card, under inference (no autograd), a window's iteration replays two
 CUDA graphs captured the second time its shape comes (_WindowGraphs): the
 correlation and the update, the eager path's kernels in its order, so the
 host launches two graphs an iteration where it launched some hundreds of
-kernels. `CoTracker2.cuda_graphs = False` keeps every window eager.
+kernels. A window shape's first window runs eagerly.
 
 Tracing (utils/timing.py): spans `cotracker2.encoder` (fnet over the padded
 video) and `cotracker2.window` (one sliding window) over `cotracker2.corr`
@@ -371,7 +371,6 @@ class CoTracker2(nn.Module):
         self.track_feat_updater = nn.Sequential(nn.Linear(cfg.latent_dim, cfg.latent_dim))
         self.vis_predictor = nn.Sequential(nn.Linear(cfg.latent_dim, 1))
         self._embeddings: dict = {}
-        self.cuda_graphs = True  # False runs every window eagerly on a card too
         self._graphs = GraphCache()
 
     def _embedding(self, name: str, shape: tuple, device) -> torch.Tensor:
@@ -414,7 +413,7 @@ class CoTracker2(nn.Module):
         """The CUDA graphs of a window's iteration at this shape, or None
         (eager): on a card, without autograd, made the second time a shape
         comes (a shape seen once runs eagerly; utils/cuda_graphs.py)."""
-        if not self.cuda_graphs or coords.device.type != "cuda" or torch.is_grad_enabled():
+        if coords.device.type != "cuda" or torch.is_grad_enabled():
             return None
         key = (tuple(pyr[0].shape), tuple(coords.shape), str(coords.device), torch.is_inference_mode_enabled())
         graphs = self._graphs.get(key, lambda: _WindowGraphs(self, pyr, coords, track_feat, track_mask_vis,

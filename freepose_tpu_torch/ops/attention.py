@@ -25,16 +25,14 @@ splits the keys, `sm90_config`; a masked call first lists the key tiles
 that hold a valid key, `key_tiles`, and skips the others); fp32 K2 runs the
 scalar kernel of csrc/flash_attention.cu. K5 is a register-tiled fp32
 kernel of the same library (32-row blocks, key splits merged by the combine
-kernel: `k5_config`), which also keeps the
-mma.sync tile kernel, the previous design of K2 to K4
-(`flash_attention_tile`).
+kernel: `k5_config`).
 
 Each wrapper launches its kernel for CUDA tensors (or raises on what the
 kernel does not take) and runs the plain version for CPU tensors; nothing
 falls back quietly. Each launch is counted while tracing is on
 (utils/timing.py): `launch.<kernel>` per wrapper (`launch.k2.d<dim>` by head
-dim too), and `launch.sm90`, `launch.tile` or `launch.f32` by the device
-program `_launch` ran.
+dim too), and `launch.sm90` or `launch.f32` by the device program `_launch`
+ran.
 `flash_attention` picks K2 or K3 as the JAX function picks its regime, and
 `flash_attention_auto` routes a masked call to K4 and an unmasked one to
 `flash_attention`, as in the JAX package.
@@ -153,8 +151,7 @@ def attention_kernel(dtype: torch.dtype, d: int, masked: bool) -> str:
     """The dispatch rule of `_launch`: the device program that serves a
     call. "sm90" (csrc/flash_attention_sm90.cu, wgmma + TMA) for every bf16
     call, at d 64, 72 and 256, with or without a key mask; "f32" (the scalar
-    kernel of csrc/flash_attention.cu) for fp32. The mma.sync tile kernel
-    ("tile") is reached only through `flash_attention_tile`."""
+    kernel of csrc/flash_attention.cu) for fp32."""
     return "f32" if dtype == torch.float32 else "sm90"
 
 
@@ -306,7 +303,6 @@ _ARGTYPES = {  # the C entry points of the attention libraries
     ("flash_attention_sm90", "flash_sm90_key_tiles_launch"): [_P, _I, _I, _I, _P, _P, _P, _P],
     ("flash_attention_sm90", "flash_sm90_combine_launch"): [_P] * 4 + [_I] * 3 + [_P],
     ("flash_attention_sm90", "flash_sm90_key_tile"): [_I],
-    ("flash_attention", "flash_tile_launch"): [_P] * 5 + [_I] * 5 + [_F, _P],
     ("flash_attention", "flash_f32_launch"): [_P] * 4 + [_I] * 4 + [_F, _P],
     ("flash_attention", "flash_attention_bias_launch"): [_P] * 9 + [_I] * 6 + [_F, _P],
     ("flash_attention", "flash_bias_combine_launch"): [_P] * 4 + [_I, ctypes.c_long, _P],
@@ -432,27 +428,22 @@ def _launch(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale:
             config: tuple[int, int] | None = None) -> torch.Tensor:
     """Launch the device program `attention_kernel` picks for the call (or
     `kernel`): the sm90 kernel (at `config`, see `_launch_sm90`), or
-    csrc/flash_attention.cu's tile kernel or scalar fp32 kernel (kv_mask
-    None runs either unmasked). Counts the launch as `launch.<kernel>`."""
+    csrc/flash_attention.cu's scalar fp32 kernel (unmasked). Counts the
+    launch as `launch.<kernel>`."""
     _check_qkv(name, q, k, v, dtypes)
     b, h, n, d = q.shape
     nk = k.shape[2]
     kernel = kernel or attention_kernel(q.dtype, d, kv_mask is not None)
     kv_mask = _mask_bytes(name, kv_mask, b, nk, q.device)
-    qkv = (q.data_ptr(), k.data_ptr(), v.data_ptr())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         if kernel == "sm90":
             out = _launch_sm90(name, q, k, v, scale, kv_mask, stream, config)
-        elif kernel == "tile":
-            out = torch.empty_like(q)
-            cuda_build.check(_entry("flash_attention", "flash_tile_launch")(
-                *qkv, None if kv_mask is None else kv_mask.data_ptr(), out.data_ptr(), b * h, h, n, nk, d,
-                float(scale), stream), name)
         else:
             out = torch.empty_like(q)
             cuda_build.check(_entry("flash_attention", "flash_f32_launch")(
-                *qkv, out.data_ptr(), b * h, n, nk, d, float(scale), stream), name)
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, n, nk, d, float(scale), stream),
+                name)
     timing.count("launch." + kernel)
     return out
 
@@ -491,18 +482,6 @@ def flash_attention_stream(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sc
     out = _launch("flash_attention_stream", q, k, v, scale, kv_mask, (torch.bfloat16,))
     timing.count("launch.k4")
     return out
-
-
-def flash_attention_tile(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
-                         kv_mask: torch.Tensor | None = None) -> torch.Tensor:
-    """The mma.sync tile kernel whatever the dispatch picks, bf16 at d 64,
-    72 or 256, kv_mask as for K4: the previous design of K2, K3 and K4,
-    which chip_smoke.py and the card-only tests time and check beside the
-    sm90 kernel on the same inputs. CPU tensors run
-    `dense_attention_masked`."""
-    if _on_cpu(q, k, v):
-        return dense_attention_masked(q, k, v, scale, kv_mask)
-    return _launch("flash_attention_tile", q, k, v, scale, kv_mask, (torch.bfloat16,), kernel="tile")
 
 
 def flash_attention_sm90(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,

@@ -10,9 +10,7 @@ entering the neighbourhood: an exact reuse, not an approximation.
 Two forms, as in the JAX package:
   * `FineViewCache`: device buffers with the LRU slot bookkeeping on the host
     (the serial `OnlinePoseEstimator.refine_cached`), neighbourhoods chosen
-    on the host (`select_neighborhood_host`); in chain mode a device mirror
-    of its slot map (`slot_table`) lets `cached_refine_hit_chain` select
-    the next neighbourhood on the device (`CachedRefineChain`);
+    on the host (`select_neighborhood_host`);
   * `DeviceCache` + `cached_refine_auto_step`: slot table, LRU ages and
     evictions on the device, each step serving its own misses
     (`AutoRefineChain`).
@@ -103,10 +101,6 @@ class FineViewCache:
         self.feats = None  # [C+1, G², D]
         self.masks = None  # [C+1, R, R] bool
         self.stats = None  # [C+1, 3, 3] (min, max, mean rows)
-        # Device mirror of slot_of for the chain mode: [NF+1] int32 (-1 =
-        # uncached; row NF is scratch). Created by enable_slot_table.
-        self.slot_table = None
-        self.last_evicted: list[int] = []
 
     def ensure_buffers(self, g2: int, d: int, res: int, dtype, device=None) -> None:
         if self.feats is None:
@@ -133,24 +127,14 @@ class FineViewCache:
                 self.free.append(self.slot_of.pop(gi))
                 del self.lru[gi]
 
-    def enable_slot_table(self, n_fine: int, device=None) -> None:
-        """Create the device slot table (chain mode) mirroring slot_of."""
-        if self.slot_table is None:
-            table = np.full(n_fine + 1, -1, np.int32)
-            for gi, slot in self.slot_of.items():
-                table[gi] = slot
-            self.slot_table = torch.as_tensor(table, device=device)
-
     def assign_slots(self, missing: list[int], protect: np.ndarray) -> np.ndarray:
         """A slot per missing grid index, evicting the least recently used
         entries not in `protect` (the current neighbourhood) when full.
         Entries assigned within this call are protected from its later
         evictions; with capacity ≥ n_neighbors every real miss finds a
-        victim (the caller caps prefetch). Victims are recorded in
-        `last_evicted` (chain mode mirrors them into the slot table)."""
+        victim (the caller caps prefetch)."""
         protected = set(int(i) for i in protect)
         slots = []
-        self.last_evicted = []
         for gi in missing:
             if self.free:
                 slot = self.free.pop()
@@ -158,7 +142,6 @@ class FineViewCache:
                 victim = next(i for i in self.lru if i not in protected)
                 slot = self.slot_of.pop(victim)
                 del self.lru[victim]
-                self.last_evicted.append(victim)
             self.slot_of[gi] = slot
             self.lru[gi] = None
             protected.add(gi)
@@ -348,50 +331,6 @@ def cached_refine_hit_multi(
         scores.append(s)
         locals_.append(loc)
     return torch.stack(tcos), torch.stack(scores), torch.stack(locals_), qf
-
-
-def update_slot_table(table, evicted_idx, new_idx, new_slots):
-    """Mirror a miss step's slot assignment into the device table, in place:
-    unmap the evicted grid indices, then map the new ones (victims were
-    cached, new entries were not: disjoint). Padded entries point at the
-    scratch row NF and carry slot `capacity`; no step reads that row."""
-    table[evicted_idx] = -1
-    table[new_idx] = new_slots.to(table.dtype)
-    return table
-
-
-def cached_refine_hit_chain(
-    cache: FineViewCache,
-    fine_poses,  # [NF, 4, 4]
-    prev_idx,  # [] fine-grid index of the previous frame's pose (on the device)
-    proposal, proposal_mask, k, bbox, est_scale,
-    *, extractor, layer, resolution, mask_scores, rendering_scale, neighborhood_deg, n_neighbors,
-):
-    """Speculative hit step of the chain: the neighbourhood is selected on
-    the device from the previous frame's grid index (exact: a refine output's
-    rotation is a grid rotation, and equal distances go to the lowest index
-    on host and device alike), so consecutive frames chain with no host
-    read. Returns a packed [16 + 3 + N] float32 vector (tcos, score, next
-    grid index, all-hit flag, neighbourhood indices) for the host to read
-    later, and the next grid index as a device scalar for the next step.
-    Where a neighbourhood view is uncached the flag is 0 and the host
-    replays the frame through the miss path; this step writes nothing, so a
-    wrong speculation costs only its own work."""
-    sel_poses, idx, valid = select_neighborhood(fine_poses, fine_poses[prev_idx], neighborhood_deg, n_neighbors)
-    slots = cache.slot_table[idx]
-    present = slots >= 0
-    capacity = cache.feats.shape[0] - 1
-    qf = _features(extractor, proposal[None], layer)[0]
-    tcos, score, local = _gather_rescore_lift(
-        cache.feats, cache.masks, cache.stats, qf, torch.where(present, slots, capacity).long(), valid & present,
-        sel_poses, proposal_mask, k, bbox, est_scale, resolution=resolution, patch_size=extractor.config.patch_size,
-        mask_scores=mask_scores, rendering_scale=rendering_scale,
-    )
-    next_idx = idx[local]
-    packed = torch.cat([tcos[0].reshape(-1).float(),
-                        torch.stack([score[0].float(), next_idx.float(), present.all().float()]),
-                        idx.float()])
-    return packed, next_idx
 
 
 # --------------------------------------------------------------------------- #

@@ -9,9 +9,8 @@ the card), rescore them against the query crop and z-lift the winner.
 
 With a fine-view cache (pipeline/fine_cache.py) each grid pose's render,
 features and pointcloud stats are computed once per track and reused while
-the pose stays in the neighbourhood; `CachedRefineChain` pipelines the
-frames of a track on that cache through a device mirror of its slot map,
-and `AutoRefineChain` keeps all of the cache's bookkeeping on the device.
+the pose stays in the neighbourhood; `AutoRefineChain` pipelines the frames
+of a track with all of the cache's bookkeeping on the device.
 With a device mesh (parallel/mesh.py) the neighbourhood's renders and
 feature batch split over its "model" axis (`refine_sharded`), or, with the
 cache, each miss batch's do.
@@ -552,15 +551,6 @@ class OnlinePoseEstimator:
             # re-renders the first miss into the scratch slot.
             new_idx = np.concatenate([new_idx, np.full(pad, new_idx[0], np.int32)])
             write_slots = np.concatenate([write_slots, np.full(pad, cache.capacity, np.int32)])
-        if cache.slot_table is not None:
-            # Chain mode: mirror the assignment into the device slot table
-            # (padded entries target the scratch row NF with slot `capacity`).
-            from freepose_tpu_torch.pipeline.fine_cache import update_slot_table
-
-            nf = cache.slot_table.shape[0] - 1
-            evicted = (cache.last_evicted + [nf] * m_b)[:m_b]
-            mapped = np.where(write_slots < cache.capacity, new_idx, nf)
-            update_slot_table(cache.slot_table, self._index(evicted), self._index(mapped), self._index(write_slots))
         return new_idx, write_slots
 
     def refine_cached(self, proposal, proposal_mask, mesh, k, bbox, est_scale: float, prev_pose,
@@ -607,138 +597,13 @@ class OnlinePoseEstimator:
         return PoseEstimate(tcos, score, args[3][local], qf)
 
 
-class CachedRefineChain:
-    """Pipelined refine of one track on the host-managed fine-view cache.
-
-    The serial loop waits for each frame's pose before it selects the next
-    frame's neighbourhood on the host. Here the selection runs on the device
-    (fine_cache.cached_refine_hit_chain) from the previous step's grid
-    index, so consecutive frames are enqueued back to back and the host
-    reads results `lag` frames behind, each copied to pinned host memory
-    behind its own step (fine_cache.HostCopy). Closed loop only: each
-    frame's prev pose is the refine output of the one before.
-
-    A speculative step is used only where every neighbourhood view was
-    cached (all-hit); otherwise the host replays the frame through the miss
-    path of the serial loop, with the same LRU touches, eviction protection
-    and prefetch prediction, and enqueues the later frames again. Results
-    equal the serial closed-loop refine_cached sequence, and so do the
-    cache's slot map and LRU order."""
-
-    def __init__(self, est: OnlinePoseEstimator, mesh, cache_key, *, neighborhood_deg: float = 15.0,
-                 mask_scores: bool = False, lag: int = 3):
-        self.est = est
-        self.mesh = mesh
-        self.key = cache_key
-        self.deg = float(neighborhood_deg)
-        self.mask_scores = mask_scores
-        self.lag = max(1, lag)
-        self.pending: deque = deque()
-        self.results: list[tuple[np.ndarray, float]] = []
-        self.n_spec_hits = 0  # speculative frames used as they are
-        self.n_replayed = 0  # speculative frames replayed through the miss path
-        self._prev_idx_dev = None
-        self._prev_rots: deque = deque(maxlen=2)  # the rotations the last 2 frames used as prev
-        self._cache = est._ensure_cache(cache_key)
-        self._cache.enable_slot_table(est.fine_poses.shape[0], est.device)
-
-    def submit(self, proposal, proposal_mask, k, bbox, est_scale, prev_pose=None):
-        """Queue one frame. The first frame needs prev_pose (the coarse
-        pose); later frames chain from the refine output (closed loop)."""
-        est = self.est
-        inputs = (torch.as_tensor(proposal, device=est.device), torch.as_tensor(proposal_mask, device=est.device),
-                  est._f32(k), est._f32(bbox), est._f32(est_scale))
-        if self._prev_idx_dev is None:
-            if prev_pose is None:
-                raise ValueError("first frame needs prev_pose")
-            prev_np = est._host_pose(prev_pose)
-            self._prev_rots.append(prev_np[:3, :3].copy())
-            out = est.refine_cached(*inputs[:2], self.mesh, *inputs[2:], prev_np, self.deg,
-                                    mask_scores=self.mask_scores, cache_key=self.key)
-            self.pending.append(("classic", inputs, self._note_classic(out)))
-        else:
-            if prev_pose is not None:
-                raise ValueError("chain is closed-loop; prev_pose only seeds frame 0")
-            self._submit_spec(inputs)
-        self._drain(self.lag)
-
-    def finalize_all(self) -> list[tuple[np.ndarray, float]]:
-        """Flush the pipeline -> [(pose 4x4, score)] for every frame."""
-        self._drain(0)
-        return self.results
-
-    def _note_classic(self, out: PoseEstimate):
-        """Chain the next step from a miss-path result; its pose and score
-        are copied to the host behind it."""
-        from freepose_tpu_torch.pipeline.fine_cache import HostCopy
-
-        self._prev_idx_dev = out.view_indices
-        return HostCopy(torch.cat([out.tcos[0].reshape(-1).float(), out.scores.reshape(1).float()]), "refine.result")
-
-    def _submit_spec(self, inputs) -> None:
-        from freepose_tpu_torch.pipeline.fine_cache import HostCopy, cached_refine_hit_chain
-
-        est = self.est
-        packed, nxt = cached_refine_hit_chain(
-            self._cache, est.fine_poses, self._prev_idx_dev, *inputs,
-            extractor=est.extractor, layer=est.feature_layer, resolution=est.renderer.resolution,
-            mask_scores=self.mask_scores, rendering_scale=est.rendering_scale, neighborhood_deg=self.deg,
-            n_neighbors=est.n_neighbors,
-        )
-        self._prev_idx_dev = nxt
-        self.pending.append(("spec", inputs, HostCopy(packed, "refine.result")))
-
-    def _finalize(self, tc: np.ndarray, score: float) -> None:
-        self.results.append((tc, float(score)))
-        self._prev_rots.append(tc[:3, :3].copy())
-
-    def _drain(self, allowed: int) -> None:
-        while len(self.pending) > allowed:
-            kind, inputs, handle = self.pending.popleft()
-            p = handle.numpy()
-            if kind == "classic":
-                self._finalize(p[:16].reshape(4, 4).copy(), p[16])
-                continue
-            if p[18] > 0.5:  # all-hit: the speculation holds
-                self.n_spec_hits += 1
-                self._cache.touch(p[19:].astype(np.int64))
-                self._finalize(p[:16].reshape(4, 4).copy(), p[16])
-                continue
-            self.n_replayed += 1
-            self._replay(inputs)
-            if allowed > 0:
-                # The replay refilled the queue with work just enqueued: stop
-                # draining, so those results age `lag` frames before their
-                # read (finalize_all passes 0 and drains through).
-                break
-
-    def _replay(self, inputs) -> None:
-        """A speculative frame missed: run it through the miss path (the
-        serial loop's host state), then enqueue the later frames again from
-        its result."""
-        est = self.est
-        # The prefetch prediction's state as the serial loop holds it: the
-        # rotation the previous frame used as prev.
-        if len(self._prev_rots) == 2:
-            est._last_prev_rot[self.key] = self._prev_rots[0]
-        else:
-            est._last_prev_rot.pop(self.key, None)
-        prev = np.eye(4, dtype=np.float64)
-        prev[:3, :3] = self.results[-1][0][:3, :3]
-        out = est.refine_cached(*inputs[:2], self.mesh, *inputs[2:], prev, self.deg, mask_scores=self.mask_scores,
-                                cache_key=self.key)
-        rest = list(self.pending)
-        self.pending.clear()
-        self.pending.append(("classic", inputs, self._note_classic(out)))
-        for _kind, later, _handle in rest:
-            self._submit_spec(later)
-
-
 class AutoRefineChain:
     """Pipelined refine of one track on the device-resident cache
-    (fine_cache.DeviceCache): the slot table, LRU ages and evictions live on
-    the device, and every frame is one step that serves its own cache
-    misses (fine_cache.cached_refine_auto_step). The host keeps no slot
+    (fine_cache.DeviceCache). The serial refine_cached loop waits for each
+    frame's pose before it selects the next frame's neighbourhood on the
+    host; here the slot table, LRU ages and evictions live on the device,
+    and every frame is one step that serves its own cache misses
+    (fine_cache.cached_refine_auto_step). The host keeps no slot
     bookkeeping: it feeds query crops, chains each step's pose into the next
     step on the device, and reads each step's packed result `lag` frames
     behind.

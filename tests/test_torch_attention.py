@@ -27,8 +27,8 @@ from freepose_tpu_torch.ops.attention import (MIN_SPLIT_TILES, WAVE_COST, attent
                                               attention_partials, combine_partials, dense_attention,
                                               dense_attention_bias, dense_attention_masked, flash_attention,
                                               flash_attention_auto, flash_attention_bias, flash_attention_bias_auto,
-                                              flash_attention_stream, flash_attention_sm90, flash_attention_tile,
-                                              key_tile_list, key_tiles, sm90_config)
+                                              flash_attention_stream, flash_attention_sm90, key_tile_list,
+                                              key_tiles, sm90_config)
 from freepose_tpu_torch.ops.attention import K5_KEY_TILE, bias_combine, k5_config
 from freepose_tpu_torch.utils import timing
 
@@ -261,17 +261,15 @@ def test_masked_split_partials_combine_to_jax_stream(d, dtype, tol):
     np.testing.assert_allclose(ours[2].float().numpy(), uniform, atol=tol)
 
 
-def test_tile_wrapper_and_launch_counts_on_cpu():
-    """The previous design's wrapper and the sm90 kernel's at a forced
-    configuration, with and without a key mask, run the plain versions on
-    CPU tensors, and nothing counts a launch."""
+def test_sm90_wrapper_and_launch_counts_on_cpu():
+    """The sm90 kernel's wrapper at a forced configuration, with and without
+    a key mask, runs the plain versions on CPU tensors, and nothing counts a
+    launch."""
     q, k, v = map(torch.as_tensor, _qkv(20, b=2, h=2, seed=14, nk=33))
     mask = torch.ones((2, 33), dtype=torch.bool)
     mask[0, 5:9] = False
     with timing.tracing():
         before = dict(timing.counts)
-        torch.testing.assert_close(flash_attention_tile(q, k, v, SCALE, kv_mask=mask),
-                                   dense_attention_masked(q, k, v, SCALE, mask), rtol=0, atol=0)
         torch.testing.assert_close(flash_attention_sm90(q, k, v, SCALE, (3, 1)), dense_attention(q, k, v, SCALE),
                                    rtol=0, atol=0)
         torch.testing.assert_close(flash_attention_sm90(q, k, v, SCALE, (1, 4), kv_mask=mask),

@@ -37,8 +37,7 @@ from freepose_tpu_torch.ops.attention import (attention_combine, attention_parti
                                               combine_partials, dense_attention, dense_attention_bias,
                                               dense_attention_masked, flash_attention, flash_attention_bias,
                                               flash_attention_k2, flash_attention_stream, flash_attention_sm90,
-                                              flash_attention_tile, key_tile_list, key_tiles, sm90_config,
-                                              sm90_key_tile)
+                                              key_tile_list, key_tiles, sm90_config, sm90_key_tile)
 from freepose_tpu_torch.ops.attention import bias_combine
 from freepose_tpu_torch.ops.rasterizer import RasterSettings, rasterize
 from freepose_tpu_torch.ops.rasterizer_cuda import prologue, raster_tile, raster_tile_plain
@@ -176,18 +175,16 @@ def _ragged_runs(b, nk, cuda):
                                       (256, (2, 1)), (256, (2, 4))])
 def test_k4_builds_on_ragged_runs(cuda, d, config):
     """Each build of the masked kernel, with and without key splits, on
-    ragged mask runs and a ragged nk, two heads: within the bound, and the
-    tile kernel on the same inputs too; the plain stand-in of a kernel that
-    treats partially masked tiles as empty breaks it."""
+    ragged mask runs and a ragged nk, two heads: within the bound; the plain
+    stand-in of a kernel that treats partially masked tiles as empty breaks
+    it."""
     nk = 3000 + 13
     q, k, v = (torch.as_tensor(x, device=cuda).to(torch.bfloat16) for x in _qkv(333, 2, 2, d, nk=nk, seed=11))
     mask = _ragged_runs(2, nk, cuda)
     out = flash_attention_sm90(q, k, v, d**-0.5, config, kv_mask=mask)
-    tile = flash_attention_tile(q, k, v, d**-0.5, kv_mask=mask)
     torch.cuda.synchronize()
     ref = dense_attention_masked(q, k, v, d**-0.5, mask)
     assert _within_bound(out, ref, q, k, v, d**-0.5, mask)
-    assert _within_bound(tile, ref, q, k, v, d**-0.5, mask)
     wrong = dense_attention_masked(q, k, v, d**-0.5, drops_partial_tiles(mask, sm90_key_tile(d)))
     assert not _within_bound(wrong, ref, q, k, v, d**-0.5, mask)
 
@@ -254,17 +251,16 @@ def test_k4_at_the_memory_cross_attention_shape(cuda):
 @pytest.mark.parametrize("d", [64, 72, 256])
 @pytest.mark.parametrize("n", [905, 37, 64, 4096])
 def test_sm90_matches_plain(cuda, d, n):
-    """The wgmma + TMA kernel through K2 (n = nk), and the previous design
-    (the tile kernel) on the same inputs; the launch is counted as sm90."""
+    """The wgmma + TMA kernel through K2 (n = nk); the launch is counted as
+    sm90."""
     b, h = (2, 4) if d != 256 else (2, 1)
     q, k, v = (torch.as_tensor(x, device=cuda).to(torch.bfloat16) for x in _qkv(n, b, h, d))
-    before = _launches("sm90"), _launches("tile")
+    before = _launches("sm90")
     out = flash_attention_k2(q, k, v, d**-0.5)
     torch.cuda.synchronize()
-    assert (_launches("sm90"), _launches("tile")) == (before[0] + 1, before[1])
+    assert _launches("sm90") == before + 1
     ref = dense_attention(q, k, v, d**-0.5)
     assert out.shape == q.shape and _within_bound(out, ref, q, k, v, d**-0.5)
-    assert _within_bound(flash_attention_tile(q, k, v, d**-0.5), ref, q, k, v, d**-0.5)
 
 
 @pytest.mark.parametrize("config", [(1, 1), (3, 1)])
@@ -1094,47 +1090,6 @@ def test_streaming_inliers_on_the_card_equal_n_inliers_per_pose(cuda):
     assert _launches("k1") > launches[0] and _launches("k2") > launches[1]
     np.testing.assert_array_equal(inl, ref_inl)
     assert thr == ref_thr and inl.shape == (7,)
-
-
-def test_cached_refine_chain_on_the_card_matches_the_cpu(cuda):
-    """CachedRefineChain with K1 and K2 on the card (the device slot table
-    updated in place, the speculative hit steps enqueued back to back, pinned
-    host copies read `lag` frames behind) against the same chain on the CPU:
-    grid poses identical, scores within 1e-4 (fp32 K2 against the plain
-    attention), the same speculative hits and replays, slot map and LRU
-    order; the table on the card mirrors the slot map."""
-    from freepose_tpu_torch.pipeline.online_pose_estimator import CachedRefineChain
-
-    mesh = _bumpy_sphere()
-    est_cpu = _refine_setup("cpu")
-    frames = []
-    for gi in (5, 6, 7, 60, 61, 5, 120, 121, 6, 7):
-        rgb, depth = est_cpu.renderer.render_from_poses(mesh, est_cpu.fine_poses[gi][None])
-        props, masks, boxes = est_cpu.renderer.generate_proposals(rgb, depth)
-        frames.append((props[0], masks[0], boxes[0].float()))
-    prev0 = est_cpu.fine_poses[5]
-    runs = {}
-    for device in ("cpu", cuda):
-        est = est_cpu if device == "cpu" else _refine_setup(cuda)
-        chain = CachedRefineChain(est, mesh, "ck", neighborhood_deg=40.0, lag=3)
-        launches = _launches("k1"), _launches("k2")
-        for i, (prop, mask, box) in enumerate(frames):
-            chain.submit(prop, mask, est.renderer.k, box, 0.25, prev_pose=prev0 if i == 0 else None)
-        cache = est._fine_caches["ck"]
-        runs[str(device)] = (chain.finalize_all(), chain.n_spec_hits, chain.n_replayed, dict(cache.slot_of),
-                             list(cache.lru))
-        assert chain.n_spec_hits > 0 and chain.n_replayed > 0
-        table = cache.slot_table.cpu().numpy()[:-1]
-        assert {gi: s for gi, s in enumerate(table) if s >= 0} == cache.slot_of
-        if device != "cpu":
-            assert cache.slot_table.device.type == "cuda"
-            assert _launches("k1") > launches[0] and _launches("k2") > launches[1]
-    card, cpu = runs[str(cuda)], runs["cpu"]
-    assert card[1:] == cpu[1:]
-    for (tc, sc), (tr, sr) in zip(card[0], cpu[0]):
-        np.testing.assert_allclose(tc[:3, :3], tr[:3, :3], rtol=0, atol=1e-6)
-        np.testing.assert_allclose(tc, tr, atol=1e-4)
-        assert abs(sc - sr) < 1e-4
 
 
 def test_learned_cotracker_on_the_card_matches_the_cpu(cuda):

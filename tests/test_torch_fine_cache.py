@@ -4,17 +4,14 @@ The port's host bookkeeping (bucket_size, FineViewCache) against the JAX
 package's; the port's cached refine against its uncached refine and against
 the JAX cached refine (same track, same weights, the JAX pose grid);
 AutoRefineChain against the serial closed loop of refine_cached, through
-overflow re-dispatches and an adaptive bucket; the vectorised LRU victim
-pick against the JAX step's loop of argmins; the device cache's invariants;
-estimate_frame(fuse=True) against the serial path. The chain mode of the
-host cache: update_slot_table against JAX's (identical tables), the
-speculative hit step cached_refine_hit_chain against JAX's, and
-CachedRefineChain against the port's serial loop and JAX's chain (the same
-speculative hits, replays, slot map and LRU order).
+overflow re-dispatches and an adaptive bucket, and against the JAX
+package's AutoRefineChain at each lag (the same full re-dispatches and miss
+counts); the vectorised LRU victim pick against the JAX step's loop of
+argmins; the device cache's invariants; estimate_frame(fuse=True) against
+the serial path.
 
 Tolerances: view indices identical, poses and scores within 1e-5 (fp32 ViT
-sums in another order, or over other batches); the hit step's packed
-vector within 1e-5, its indices and flag identical.
+sums in another order, or over other batches).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -24,7 +21,7 @@ import torch
 from freepose_tpu.pipeline import fine_cache as jfc
 from freepose_tpu.pipeline import online_pose_estimator as jope
 from freepose_tpu_torch.pipeline import fine_cache
-from freepose_tpu_torch.pipeline.online_pose_estimator import AutoRefineChain, CachedRefineChain
+from freepose_tpu_torch.pipeline.online_pose_estimator import AutoRefineChain
 from tests.test_torch_online_estimator import Pair, blob, vit_test_params
 
 # Wandering across three grid regions: hits, misses and evictions (capacity
@@ -266,108 +263,28 @@ def test_estimate_frame_fused_matches_serial(pair):
         assert ests[True]._fine_caches[key].slot_of == ests[False]._fine_caches[key].slot_of
 
 
-def test_update_slot_table_matches_jax():
-    """Miss batches through both packages' host caches, each mirrored into
-    its device table as _plan_miss does (evictions padded to the batch
-    with the scratch row NF, padded entries mapped there with slot
-    `capacity`): identical tables, and the table mirrors slot_of."""
-    nf, cap, m_b = 40, 6, 4
-    ours, theirs = fine_cache.FineViewCache(cap), jfc.FineViewCache(cap)
-    ours.enable_slot_table(nf, "cpu")
-    theirs.enable_slot_table(nf)
-    rng = np.random.default_rng(0)
-    for _ in range(12):
-        sel = rng.choice(nf, size=3, replace=False).astype(np.int32)
-        miss = theirs.missing(sel)[:m_b]
-        for c in (ours, theirs):
-            c.touch(sel)
-        slots = ours.assign_slots(miss, protect=sel)
-        np.testing.assert_array_equal(slots, theirs.assign_slots(miss, protect=sel))
-        assert ours.last_evicted == theirs.last_evicted
-        pad = m_b - len(miss)
-        new_idx = np.array(miss + [nf] * pad, np.int32)
-        write = np.concatenate([slots, np.full(pad, cap, np.int32)]).astype(np.int32)
-        ev = np.array((ours.last_evicted + [nf] * m_b)[:m_b], np.int32)
-        out = fine_cache.update_slot_table(ours.slot_table, torch.as_tensor(ev).long(), torch.as_tensor(new_idx).long(),
-                                           torch.as_tensor(write))
-        assert out is ours.slot_table  # in place
-        theirs.slot_table = jfc.update_slot_table(theirs.slot_table, jnp.asarray(ev), jnp.asarray(new_idx),
-                                                  jnp.asarray(write))
-        np.testing.assert_array_equal(ours.slot_table.numpy(), np.asarray(theirs.slot_table))
-        assert {gi: s for gi, s in enumerate(ours.slot_table.numpy()[:-1]) if s >= 0} == ours.slot_of
-
-
 @pytest.mark.parametrize("mask_scores", [False, True])
-def test_cached_refine_hit_chain_matches_jax(pair, mask_scores):
-    """The speculative hit step on caches filled by the same serial frames:
-    from a cached neighbourhood (all-hit) and from one that is not (flag 0,
-    uncached views masked)."""
-    jest, test = pair.estimators(cap=12)
-    for gi, (prop, mask, box) in zip((5, 6), _frames(pair, [6, 7])):
-        kw = dict(neighborhood_deg=40.0, cache_key="ck")
-        jest.refine_cached(jnp.asarray(prop), jnp.asarray(mask), pair.mesh, pair.jr.k, jnp.asarray(box), 0.25,
-                           jnp.asarray(pair.grid[gi]), **kw)
-        test.refine_cached(torch.as_tensor(prop), torch.as_tensor(mask), pair.mesh, pair.tr.k, box, 0.25,
-                           pair.grid[gi], **kw)
-    jc, tc = jest._fine_caches["ck"], test._fine_caches["ck"]
-    jc.enable_slot_table(len(pair.grid))
-    tc.enable_slot_table(len(pair.grid), "cpu")
-    prop, mask, box = pair.query(7)
-    flags = []
-    for prev in (6, 120):
-        j_packed, j_next = jfc.cached_refine_hit_chain(
-            jc.feats, jc.masks, jc.stats, jest.fine_poses, jc.slot_table, jnp.int32(prev),
-            jest.extractor.params_for(jest.feature_layer), jnp.asarray(prop), jnp.asarray(mask), pair.jr.k,
-            jnp.asarray(box), jnp.float32(0.25), extractor=jest.extractor, layer=jest.feature_layer,
-            resolution=jest.renderer.resolution, mask_scores=mask_scores, rendering_scale=jest.rendering_scale,
-            neighborhood_deg=40.0, n_neighbors=8)
-        packed, nxt = fine_cache.cached_refine_hit_chain(
-            tc, test.fine_poses, torch.tensor(prev), torch.as_tensor(prop), torch.as_tensor(mask), pair.tr.k,
-            torch.as_tensor(box), torch.tensor(0.25), extractor=test.extractor, layer=test.feature_layer,
-            resolution=test.renderer.resolution, mask_scores=mask_scores, rendering_scale=test.rendering_scale,
-            neighborhood_deg=40.0, n_neighbors=8)
-        j_packed = np.asarray(j_packed)
-        assert packed.shape == (16 + 3 + 8,) and int(nxt) == int(j_next)
-        np.testing.assert_array_equal(packed.numpy()[17:], j_packed[17:])  # next index, flag, neighbourhood
-        np.testing.assert_allclose(packed.numpy(), j_packed, atol=1e-5)
-        flags.append(float(packed[18]))
-    assert flags == [1.0, 0.0]
-
-
-@pytest.fixture(scope="module")
-def chain_serial(pair):
-    return _serial(pair.port_estimator(cap=12), pair, _frames(pair, CHAIN), pair.grid[5])
-
-
 @pytest.mark.parametrize("lag", [1, 2, 3])
-def test_cached_refine_chain_matches_serial_and_jax(pair, chain_serial, lag):
-    """CachedRefineChain on the JAX test's trajectory (hits, misses and
-    evictions mid-chain) gives the serial closed loop's poses and scores,
-    JAX's chain's, with JAX's counts of speculative hits and replays; its
-    device table mirrors its slot map, and the slot map and LRU order are
-    the serial run's and JAX's."""
+def test_auto_chain_matches_jax(pair, lag, mask_scores):
+    """AutoRefineChain against the JAX package's on the JAX test's
+    trajectory (hits, misses, evictions, and jumps that overflow the 2-view
+    stream bucket): the same poses and scores, the same full re-dispatches
+    and the same misses on every frame."""
     frames = _frames(pair, CHAIN)
     jest, test = pair.estimators(cap=12)
     prev0 = pair.grid[5]
-    jchain = jope.CachedRefineChain(jest, pair.mesh, "ck", neighborhood_deg=40.0, lag=lag)
-    chain = CachedRefineChain(test, pair.mesh, "ck", neighborhood_deg=40.0, lag=lag)
+    kw = dict(neighborhood_deg=40.0, mask_scores=mask_scores, lag=lag, miss_bucket=2)
+    jchain = jope.AutoRefineChain(jest, pair.mesh, "ck", **kw)
+    chain = AutoRefineChain(test, pair.mesh, "ck", **kw)
     for i, (prop, mask, box) in enumerate(frames):
         jchain.submit(jnp.asarray(prop), jnp.asarray(mask), pair.jr.k, jnp.asarray(box), 0.25,
                       prev_pose=jnp.asarray(prev0) if i == 0 else None)
         chain.submit(torch.as_tensor(prop), torch.as_tensor(mask), pair.tr.k, box, 0.25,
                      prev_pose=prev0 if i == 0 else None)
     got, ref = chain.finalize_all(), jchain.finalize_all()
-    assert len(got) == len(ref) == len(chain_serial) == len(CHAIN)
-    for t, ((tg, sg), (tj, sj), (ts, ss)) in enumerate(zip(got, ref, chain_serial)):
-        np.testing.assert_allclose(tg, ts, atol=1e-5, err_msg=f"frame {t}")
+    assert len(got) == len(ref) == len(CHAIN)
+    for t, ((tg, sg), (tj, sj)) in enumerate(zip(got, ref)):
         np.testing.assert_allclose(tg, tj, atol=1e-5, err_msg=f"frame {t}")
-        assert abs(sg - ss) < 1e-5 and abs(sg - sj) < 1e-5
-    assert (chain.n_spec_hits, chain.n_replayed) == (jchain.n_spec_hits, jchain.n_replayed)
-    assert chain.n_spec_hits > 0 and chain.n_replayed > 0
-    cache, jcache = test._fine_caches["ck"], jest._fine_caches["ck"]
-    assert {gi: s for gi, s in enumerate(cache.slot_table.numpy()[:-1]) if s >= 0} == cache.slot_of
-    assert cache.slot_of == jcache.slot_of and list(cache.lru) == list(jcache.lru)
-    serial_est = pair.port_estimator(cap=12)
-    _serial(serial_est, pair, frames, prev0)
-    assert cache.slot_of == serial_est._fine_caches["ck"].slot_of
-    assert list(cache.lru) == list(serial_est._fine_caches["ck"].lru)
+        assert abs(sg - sj) < 1e-5, f"frame {t}"
+    assert chain.n_full_redispatch == jchain.n_full_redispatch > 0
+    assert chain.miss_counts == jchain.miss_counts
