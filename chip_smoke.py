@@ -508,6 +508,21 @@ def read_launches() -> dict:
             "launches_by_kernel": {kernel: n(kernel) for kernel in ("sm90", "f32")}}
 
 
+def sam2_graph_counts(path: str, tracking_steps: int) -> dict:
+    """SAM2's graph counters since reset_launches (models/sam2/video.py:
+    _TrackGraph), checked: a graph key's first tracking step runs eagerly,
+    its second captures and replays, every later one replays, so the
+    replays are the `tracking_steps` less the capturing calls' eager ones
+    (one a capture)."""
+    from freepose_tpu_torch.utils import timing
+
+    got = dict(captures=timing.counts.get("sam2.graph_captures", 0),
+               replays=timing.counts.get("sam2.graph_replays", 0), tracking_steps=tracking_steps)
+    if got["captures"] < 1 or got["replays"] != tracking_steps - got["captures"]:
+        raise AssertionError(f"{path} path: SAM2's tracking steps did not replay as graphs: {got}")
+    return got
+
+
 def check_attention(out: torch.Tensor, ref: torch.Tensor, allowed: torch.Tensor, wrong: dict) -> dict:
     """Hold a kernel's bf16 output against its plain version `ref`,
     elementwise within `allowed` (bf16_error_bound), and show that the
@@ -1496,10 +1511,14 @@ def phase_video(dev) -> tuple[dict, dict]:
         masks_k.append(item[3])
     # Every frame: K2 in each global block of the trunk; every frame that
     # reads memory (all but the prompted one, with one object group): K2 and
-    # K4 in each memory-attention layer. Hiera-L: 3; 4 layers.
+    # K4 in each memory-attention layer. Hiera-L: 3; 4 layers. The second
+    # tracking frame captures the step's graphs: a warm-up step, then the
+    # replay, so its memory attention launches twice.
     hiera, layers = predictor.config.sam.hiera, predictor.config.mem.num_layers
     n_global = sum(1 for i in hiera.global_attention_blocks if i < sum(hiera.blocks_per_stage))
-    expected = [{"K2": n_global, "K4": 0}] + [{"K2": n_global + layers, "K4": layers}] * (VIDEO_FRAMES - 1)
+    step = {"K2": n_global + layers, "K4": layers}
+    expected = [{"K2": n_global, "K4": 0}, step, {"K2": n_global + 2 * layers, "K4": 2 * layers}] + \
+        [step] * (VIDEO_FRAMES - 3)
     if per_frame != expected:
         raise AssertionError(f"kernel launches per frame {per_frame}, expected {expected}")
     ret_ms, n_scored = [], 0
@@ -2925,6 +2944,7 @@ def phase_vos(dev) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     cli_s = time.perf_counter() - t0
     launches = read_launches()
+    sam2_graphs = sam2_graph_counts("vos", VIDEO_FRAMES - 1)  # one mask-prompted group on frame 0
     anns = [vos_inference.load_ann_png(p)[0] for p in sorted((out_dir / "smoke").glob("*.png"))]
     ids = [sorted(int(i) for i in np.unique(a) if i) for a in anns]
     cli_px = [[int((a == i).sum()) for i in (1, 2)] for a in anns]
@@ -2989,7 +3009,7 @@ def phase_vos(dev) -> tuple[dict, dict]:
                   own_mask_iou_mean=float(np.mean(ious)), own_mask_iou_min=float(np.min(ious)),
                   own_mask_j_and_f_kernels_vs_plain=jf, low_res_logit_max_abs_diff=logit_diff,
                   low_res_logit_max_abs=logit_scale, mask_logits_near_zero_share=near_zero_share,
-                  k2_launches_by_dim=k2, k4_launches=launches["K4"], launches=launches,
+                  k2_launches_by_dim=k2, k4_launches=launches["K4"], launches=launches, sam2_graphs=sam2_graphs,
                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     log("vos", **result)
     if min(k2["72"], k2["256"], launches["K4"]) <= 0:
@@ -3475,6 +3495,7 @@ def phase_coupled(dev, mesh) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches = read_launches()
+    sam2_graphs = sam2_graph_counts("coupled", n - 1)  # one object group, prompted on frame 0
     plan = [b[0] for b in run["batches"]]
     poses = [run["first"].cpu().numpy()] + [p for p, _ in run["chain"].results]
 
@@ -3539,7 +3560,7 @@ def phase_coupled(dev, mesh) -> tuple[dict, dict]:
                      for t in (1, 2)]
 
     result = dict(frames=n, frame_hw=[h, w], chunk=COUPLED_CHUNK, batch_plan=plan, staged_frames=int(staged.frames.shape[0]),
-                  stage_ms=stage_ms, run_s=run_s, launches=launches,
+                  stage_ms=stage_ms, run_s=run_s, launches=launches, sam2_graphs=sam2_graphs,
                   ms_per_frame=float(np.median(frame_ms[len(plan[0]):])),
                   sam2_ms_per_frame=float(np.median(sam_ms[len(plan[0]):])),
                   refine_ms_per_frame=float(np.median(refine_ms[1:])), refine_cold_frame_ms=refine_ms[1],

@@ -16,7 +16,10 @@ masks come back in one copy. The image trunk (Hiera and its neck) depends
 on the frame alone, so it embeds all of a batch's frames in one call; the
 memory, decoder and postprocess steps still run frame by frame, so a batch
 differs from frame-at-a-time propagation only by the trunk's rounding at
-another batch size.
+another batch size. On a card a prompt-free tracking step replays CUDA
+graphs (models/sam2/video.py:_TrackGraph), and each group's object indices
+reach the device once per propagation, so a tracking frame makes no host
+round trip.
 `propagate_batched` keeps the batch's binarised masks and frames on the
 device for the coupled video step (pipeline/proposals.py:
 proposals_from_masks_video).
@@ -312,6 +315,10 @@ class Sam2VideoPredictor:
             kind = "mask" if len(p) > 3 and p[3] is not None else "pts"
             groups.setdefault((p[0], kind), []).append(i)
         prompt_frame = min(k[0] for k in groups)
+        # Each group's object indices on the device, made once: an upload
+        # from pageable memory synchronises, so not on every frame.
+        with timing.wait("sam2.group_index"):
+            group_index = {key: torch.as_tensor(idxs, device=dev) for key, idxs in groups.items()}
 
         # Each group pads to a multiple of the shard count with dummy objects
         # (index None: no points, every label -10, or an empty mask), and
@@ -383,18 +390,16 @@ class Sam2VideoPredictor:
             for key in sorted(groups):
                 if key[0] == t and key not in live:
                     live[key], out = init_group(key, groups[key], pyramids, t)
-                    outs.append((groups[key], out))
+                    outs.append((group_index[key], out))
             for key in sorted(live):
                 if key[0] == t:
                     continue  # just initialised on this frame
-                outs.append((groups[key], step_group(key, pyramids, t)))
+                outs.append((group_index[key], step_group(key, pyramids, t)))
             with timing.span("sam2.postprocess"):
                 l0, h0 = outs[0][1]
                 low_raw = torch.full((n,) + l0.shape[1:], -32.0, dtype=l0.dtype, device=dev)
                 high_raw = torch.full((n,) + h0.shape[1:], -32.0, dtype=h0.dtype, device=dev)
-                for idxs, (low, high) in outs:  # objects whose prompt frame has not come keep no-object logits
-                    with timing.wait("sam2.object_index"):  # an upload from pageable memory synchronises
-                        ii = torch.as_tensor(idxs, device=dev)
+                for ii, (low, high) in outs:  # objects whose prompt frame has not come keep no-object logits
                     low_raw[ii] = low
                     high_raw[ii] = high
                 return postprocess_video_masks(low_raw, high_raw, state["orig_hw"], non_overlap_masks, binarize)

@@ -4,10 +4,13 @@ graphs: a key runs eagerly on its first call, is made on its second and
 kept after; the newest GRAPH_KEYS keys are kept; a copy starts empty; a
 replay counts what its capture counted, and a capture's counts stay out of
 the program's counters. The captures themselves are tested on a card
-(test_torch_cuda_kernels.py, test_torch_cotracker2_reference.py)."""
+(test_torch_cuda_kernels.py, test_torch_cotracker2_reference.py, and here
+SAM2's tracking step, marked `cuda`: skipped without a GPU)."""
 import copy
 
+import numpy as np
 import pytest
+import torch
 
 from freepose_tpu_torch.utils import timing
 from freepose_tpu_torch.utils.cuda_graphs import GRAPH_KEYS, Graph, GraphCache
@@ -85,3 +88,91 @@ def test_a_replay_counts_what_its_capture_counted():
         graph.replay()
         assert timing.counts == {"launch.k2": 44, "launch.k2.d64": 44}
     assert stand_in.replays == 3
+
+
+# SAM2's prompt-free tracking step on the card (models/sam2/video.py:
+# _TrackGraph): Hiera-L at 1024², bf16, K2 d 256 and K4 inside the capture.
+
+SAM2_FRAMES = 40
+SAM2_BOXES = ([80.0, 60.0, 300.0, 260.0], [320.0, 120.0, 560.0, 330.0])
+
+
+@pytest.fixture
+def cuda():
+    """The card, with tracing on for the test (launches and graphs are counted)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    with timing.tracing():
+        yield torch.device("cuda")
+
+
+def _sam2_video(device) -> torch.Tensor:
+    """A seeded 40-frame 360x640 uint8 video on the card: two boxes drift
+    over noise."""
+    rng = np.random.default_rng(5)
+    frames = (rng.random((SAM2_FRAMES, 360, 640, 3)) * 80).astype(np.uint8)
+    for t in range(SAM2_FRAMES):
+        for (x0, y0, x1, y1), colour in zip(SAM2_BOXES, ((200, 60, 60), (60, 200, 90))):
+            frames[t, int(y0) + t:int(y1) + t, int(x0) + 2 * t:int(x1) + 2 * t] = colour
+    return torch.as_tensor(frames, device=device)
+
+
+def _propagate(predictor, frames) -> tuple[torch.Tensor, torch.Tensor, object]:
+    """propagate_batched of the two box-prompted objects -> (low-res masks
+    [T, 2, g, g], high-res masks [T, 2, H, W], the final ObjectState)."""
+    from freepose_tpu_torch.models.sam2.video import Sam2VideoModel
+
+    state = predictor.init_state(frames)
+    for i, box in enumerate(SAM2_BOXES):
+        predictor.add_new_points_or_box(state, 0, obj_id=i, box=box)
+    step, last = Sam2VideoModel.track_step, {}
+
+    def recorded(self, *args, **kwargs):
+        last["state"], out = step(self, *args, **kwargs)
+        return last["state"], out
+
+    Sam2VideoModel.track_step = recorded
+    try:
+        batches = list(predictor.propagate_batched(state))
+    finally:
+        Sam2VideoModel.track_step = step
+    return torch.cat([b[1] for b in batches]), torch.cat([b[2] for b in batches]), last["state"]
+
+
+def _sam2_graph_counts() -> tuple[int, int]:
+    return timing.counts.get("sam2.graph_captures", 0), timing.counts.get("sam2.graph_replays", 0)
+
+
+@pytest.mark.cuda
+def test_sam2_graphed_tracking_equals_eager(cuda, monkeypatch):
+    """Two objects over 40 frames at the production config: the eager
+    propagation, then a first video on graphs (its first tracking step
+    eager, the second captures, the rest replay) and a second video that
+    replays on every tracking frame with no new capture. Masks and the
+    final state equal the eager run's bit for bit; K2 d 256 and K4 count a
+    launch per layer of each step, the capture's warm-up included."""
+    from freepose_tpu_torch.models.sam2 import video
+    from freepose_tpu_torch.models.sam2.video import STATE_TENSORS
+    from freepose_tpu_torch.scripts.extract_proposals_ground_video import load_video_predictor
+
+    predictor = load_video_predictor(None, device=cuda)
+    frames = _sam2_video(cuda)
+    layers, tracking = predictor.config.mem.num_layers, SAM2_FRAMES - 1
+    with monkeypatch.context() as m:
+        m.setattr(video, "track_graph_key", lambda *args: None)
+        eager = _propagate(predictor, frames)
+    assert _sam2_graph_counts() == (0, 0)
+    k4 = timing.counts.get("launch.k4", 0)
+    first = _propagate(predictor, frames)
+    assert _sam2_graph_counts() == (1, tracking - 1) and len(predictor.model._graphs) == 1
+    assert timing.counts["launch.k4"] - k4 == layers * (tracking + 1)
+    second = _propagate(predictor, frames)
+    assert _sam2_graph_counts() == (1, 2 * tracking - 1)
+    assert timing.counts["launch.k4"] - k4 == layers * (2 * tracking + 1)
+    (graph,) = predictor.model._graphs.graphs.values()
+    assert all(getattr(second[2], f) is getattr(graph.state, f) for f in STATE_TENSORS)
+    for run in (first, second):
+        assert torch.equal(run[0], eager[0]) and torch.equal(run[1], eager[1])
+        for f in STATE_TENSORS:
+            assert torch.equal(getattr(run[2], f), getattr(eager[2], f)), f
+        assert (run[2].ring_pos, run[2].ptr_ring_pos) == (eager[2].ring_pos, eager[2].ptr_ring_pos)
