@@ -15,10 +15,27 @@ into the bilinear contraction, levels accumulated), attention is plain
 matrix products with fp32 logits. Like the JAX model it assumes an
 un-padded pixel mask (valid_ratios == 1). Both top-k selections break ties
 by the lowest index, as jax.lax.top_k does (ops/knn.py:topk_lowest_index).
+
+Tracing (utils/timing.py) sees the forward as `gdino.text` (BERT and its
+projection), `gdino.backbone` (Swin, the input projections and GroupNorms),
+`gdino.encoder` (one `gdino.deform` per layer inside), `gdino.select` (the
+two-stage top-k, `QuerySelect`) and `gdino.decoder` (one `gdino.deform` per
+layer), and counts `gdino.images`, `gdino.tokens` (encoder positions), `gdino.queries`
+and `gdino.deform_samples.encoder` / `.decoder` (batch x heads x queries x
+levels x points); the detector's host selection waits in
+`wait.gdino.scores`.
+
+On a card, under inference mode, the detector replays a forward whose
+images, prompt and dtype it has seen before as CUDA graphs
+(`_DetectorGraph`, utils/cuda_graphs.py:capture_segmented): the same
+kernels in the same order as the eager forward, cut at its spans, which the
+replay reopens around the graphs; `gdino.graph_captures` and
+`gdino.graph_replays` count them.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import numpy as np
@@ -30,6 +47,8 @@ from freepose_tpu_torch.models.bert import Bert, BertConfig
 from freepose_tpu_torch.models.layers import Conv, Dense, GroupNorm, LayerNorm
 from freepose_tpu_torch.models.swin import SWIN_B, SwinBackbone, SwinConfig
 from freepose_tpu_torch.ops.knn import topk_lowest_index
+from freepose_tpu_torch.utils import timing
+from freepose_tpu_torch.utils.cuda_graphs import GraphCache, capture_segmented
 
 # BERT ids of [CLS], [SEP], '.', '?': sub-sentence delimiters.
 SPECIAL_TOKENS = (101, 102, 1012, 1029)
@@ -176,12 +195,21 @@ def grid_sample_zeros_quad(value: torch.Tensor, locs: torch.Tensor, weight: torc
     return torch.sum(rows * w4[..., None], dim=-2)
 
 
+@functools.lru_cache(maxsize=16)
+def _level_norms(shapes: tuple, device) -> torch.Tensor:
+    """[L, 2] (w, h) of each level, on `device`: made once per grid, so a
+    graph's capture uploads nothing."""
+    return torch.tensor([[wd, ht] for ht, wd in shapes], dtype=torch.float32, device=device)
+
+
 class MultiScaleDeformableAttention(nn.Module):
     """Deformable attention over flattened multi-level feature maps."""
 
-    def __init__(self, d_model: int, num_heads: int, num_points: int, num_levels: int, dtype: torch.dtype):
+    def __init__(self, d_model: int, num_heads: int, num_points: int, num_levels: int, dtype: torch.dtype,
+                 role: str = "encoder"):
         super().__init__()
         self.d_model, self.num_heads, self.num_points, self.num_levels = d_model, num_heads, num_points, num_levels
+        self.role = role  # names its sample counter: gdino.deform_samples.<role>
         self.value_proj = Dense(d_model, d_model, dtype)
         self.sampling_offsets = Dense(d_model, num_heads * num_levels * num_points * 2, dtype)
         self.attention_weights = Dense(d_model, num_heads * num_levels * num_points, dtype)
@@ -191,6 +219,12 @@ class MultiScaleDeformableAttention(nn.Module):
         """queries [B, Q, D] (positions added); value_states [B, S, D];
         reference_points [B, Q, L, 2 or 4] normalised; spatial_shapes: list
         of (h, w)."""
+        b, q, _ = queries.shape
+        timing.count(f"gdino.deform_samples.{self.role}", b * self.num_heads * q * self.num_levels * self.num_points)
+        with timing.span("gdino.deform"):
+            return self._sample(queries, value_states, reference_points, spatial_shapes)
+
+    def _sample(self, queries, value_states, reference_points, spatial_shapes):
         c, nh, npts, nl = self.d_model, self.num_heads, self.num_points, self.num_levels
         b, q, _ = queries.shape
         head_dim = c // nh
@@ -201,7 +235,7 @@ class MultiScaleDeformableAttention(nn.Module):
         weights = weights.reshape(b, q, nh, nl, npts)
 
         if reference_points.shape[-1] == 2:
-            norm = torch.tensor([[wd, ht] for ht, wd in spatial_shapes], dtype=torch.float32, device=queries.device)
+            norm = _level_norms(tuple(spatial_shapes), queries.device)
             locs = reference_points[:, :, None, :, None, :] + offsets / norm[None, None, None, :, None, :]
         else:
             locs = (reference_points[:, :, None, :, None, :2]
@@ -220,6 +254,19 @@ class MultiScaleDeformableAttention(nn.Module):
             out = s if out is None else out + s
             start += ht * wd
         return self.output_proj(out.permute(0, 2, 1, 3).reshape(b, q, c))
+
+
+class QuerySelect(nn.Module):
+    """The two-stage selection's top-k: (scores, positions) of the `k` best
+    encoder positions [B, k], ties to the lowest index. A module of its own,
+    so that a forward hook sees the positions it selects."""
+
+    def __init__(self, k: int):
+        super().__init__()
+        self.k = k
+
+    def forward(self, scores: torch.Tensor):
+        return topk_lowest_index(scores, self.k)
 
 
 class MHA(nn.Module):
@@ -340,7 +387,8 @@ class DecoderLayer(nn.Module):
         self.ln1 = LayerNorm(d, dtype=dt)
         self.text_cross = MHA(d, c.decoder_heads, dt)
         self.ln2 = LayerNorm(d, dtype=dt)
-        self.deform_cross = MultiScaleDeformableAttention(d, c.decoder_heads, c.decoder_points, num_levels, dt)
+        self.deform_cross = MultiScaleDeformableAttention(d, c.decoder_heads, c.decoder_points, num_levels, dt,
+                                                          role="decoder")
         self.ln3 = LayerNorm(d, dtype=dt)
         self.fc1 = Dense(d, c.decoder_ffn, dt)
         self.fc2 = Dense(c.decoder_ffn, d, dt)
@@ -400,6 +448,7 @@ class GroundingDino(nn.Module):
         self.enc_output = Dense(d, d, dt)
         self.enc_output_norm = LayerNorm(d, dtype=dt)
         self.enc_bbox_head = MLPHead(d, d, 4, 3, dt)
+        self.query_select = QuerySelect(c.num_queries)
         self.query_embeds = nn.Parameter(torch.zeros(c.num_queries, d))
         for i in range(c.decoder_layers):
             self.add_module(f"dec{i}", DecoderLayer(c, nl))
@@ -411,72 +460,77 @@ class GroundingDino(nn.Module):
                 text_pos_ids: torch.Tensor, text_pad_mask: torch.Tensor):
         c = self.config
         b, dev = pixels.shape[0], pixels.device
+        timing.count("gdino.images", b)
 
-        # Text tower.
-        text_raw = self.text_backbone(input_ids, attention_mask=text_sa_mask.int(), position_ids=text_pos_ids)
-        text = self.text_projection(text_raw)
+        with timing.span("gdino.text"):
+            text_raw = self.text_backbone(input_ids, attention_mask=text_sa_mask.int(), position_ids=text_pos_ids)
+            text = self.text_projection(text_raw)
 
-        # Vision tower and input projections.
-        stage_feats = self.backbone(pixels)
-        feats = []
-        for i in range(c.num_feature_levels):
-            src = stage_feats[i] if i < len(stage_feats) else (stage_feats[-1] if i == len(stage_feats) else feats[-1])
-            feats.append(getattr(self, f"input_gn{i}")(getattr(self, f"input_proj{i}")(src)))
+        with timing.span("gdino.backbone"):
+            stage_feats = self.backbone(pixels)
+            feats = []
+            for i in range(c.num_feature_levels):
+                src = (stage_feats[i] if i < len(stage_feats)
+                       else (stage_feats[-1] if i == len(stage_feats) else feats[-1]))
+                feats.append(getattr(self, f"input_gn{i}")(getattr(self, f"input_proj{i}")(src)))
 
-        spatial_shapes = [(f.shape[1], f.shape[2]) for f in feats]
-        flat = torch.cat([f.reshape(b, -1, c.d_model) for f in feats], dim=1)
-        pos = torch.cat([
-            (sine_pos_2d(h_, w_, c.d_model, c.pos_temperature, device=dev).reshape(1, -1, c.d_model)
-             + self.level_embed[i][None, None]).to(c.dtype).expand(b, -1, -1)
-            for i, (h_, w_) in enumerate(spatial_shapes)
-        ], dim=1)
+        with timing.span("gdino.encoder"):
+            spatial_shapes = [(f.shape[1], f.shape[2]) for f in feats]
+            flat = torch.cat([f.reshape(b, -1, c.d_model) for f in feats], dim=1)
+            timing.count("gdino.tokens", b * flat.shape[1])
+            pos = torch.cat([
+                (sine_pos_2d(h_, w_, c.d_model, c.pos_temperature, device=dev).reshape(1, -1, c.d_model)
+                 + self.level_embed[i][None, None]).to(c.dtype).expand(b, -1, -1)
+                for i, (h_, w_) in enumerate(spatial_shapes)
+            ], dim=1)
 
-        # Encoder reference points: pixel centres per level, the same on
-        # every level (valid_ratios == 1).
-        refs, proposals = [], []
-        for lvl, (h_, w_) in enumerate(spatial_shapes):
-            yy, xx = torch.meshgrid(torch.arange(h_, dtype=torch.float32, device=dev),
-                                    torch.arange(w_, dtype=torch.float32, device=dev), indexing="ij")
-            grid = torch.stack([(xx.reshape(-1) + 0.5) / w_, (yy.reshape(-1) + 0.5) / h_], -1)
-            refs.append(grid)
-            proposals.append(torch.cat([grid, torch.full_like(grid, 0.05 * (2.0**lvl))], -1))
-        ref_points = torch.cat(refs, 0)[None, :, None, :].expand(b, -1, c.num_feature_levels, -1)
+            # Encoder reference points: pixel centres per level, the same on
+            # every level (valid_ratios == 1).
+            refs, proposals = [], []
+            for lvl, (h_, w_) in enumerate(spatial_shapes):
+                yy, xx = torch.meshgrid(torch.arange(h_, dtype=torch.float32, device=dev),
+                                        torch.arange(w_, dtype=torch.float32, device=dev), indexing="ij")
+                grid = torch.stack([(xx.reshape(-1) + 0.5) / w_, (yy.reshape(-1) + 0.5) / h_], -1)
+                refs.append(grid)
+                proposals.append(torch.cat([grid, torch.full_like(grid, 0.05 * (2.0**lvl))], -1))
+            ref_points = torch.cat(refs, 0)[None, :, None, :].expand(b, -1, c.num_feature_levels, -1)
 
-        # Encoder.
-        vision = flat
-        for i in range(c.encoder_layers):
-            vision, text = getattr(self, f"enc{i}")(vision, text, pos, text_pos_ids, text_sa_mask, text_pad_mask,
-                                                    ref_points, spatial_shapes)
-
-        # Two-stage query selection. An invalid proposal is +inf and its
-        # encoder output is zeroed before the matmul, in the JAX order.
-        output_proposals = torch.cat(proposals, 0)[None].expand(b, -1, -1)
-        valid = ((output_proposals > 0.01) & (output_proposals < 0.99)).all(-1, keepdim=True)
-        output_proposals = torch.where(valid, _inv_sigmoid(output_proposals), math.inf)
-        oq = torch.where(valid, vision, torch.zeros((), dtype=vision.dtype, device=dev))
-        oq = self.enc_output_norm(self.enc_output(oq))
+            vision = flat
+            for i in range(c.encoder_layers):
+                vision, text = getattr(self, f"enc{i}")(vision, text, pos, text_pos_ids, text_sa_mask,
+                                                        text_pad_mask, ref_points, spatial_shapes)
 
         def contrastive(x):
             logits = torch.matmul(x, text.to(x.dtype).transpose(-1, -2)).float()
             logits = logits.masked_fill(text_pad_mask[:, None, :], -math.inf)
             return F.pad(logits, (0, c.max_text_len - logits.shape[-1]), value=-math.inf)
 
-        enc_logits = contrastive(oq)
-        enc_boxes_logits = self.enc_bbox_head(oq) + output_proposals
-        topk_scores = torch.where(torch.isfinite(enc_logits), enc_logits, -math.inf).amax(dim=-1)
-        _, topk_idx = topk_lowest_index(topk_scores, c.num_queries)
-        topk_boxes = torch.gather(enc_boxes_logits, 1, topk_idx[..., None].expand(-1, -1, 4))
-        reference = torch.sigmoid(topk_boxes)  # [B, Q, 4]
+        with timing.span("gdino.select"):
+            # Two-stage query selection. An invalid proposal is +inf and its
+            # encoder output is zeroed before the matmul, in the JAX order.
+            output_proposals = torch.cat(proposals, 0)[None].expand(b, -1, -1)
+            valid = ((output_proposals > 0.01) & (output_proposals < 0.99)).all(-1, keepdim=True)
+            output_proposals = torch.where(valid, _inv_sigmoid(output_proposals), math.inf)
+            oq = torch.where(valid, vision, torch.zeros((), dtype=vision.dtype, device=dev))
+            oq = self.enc_output_norm(self.enc_output(oq))
+            enc_logits = contrastive(oq)
+            enc_boxes_logits = self.enc_bbox_head(oq) + output_proposals
+            topk_scores = torch.where(torch.isfinite(enc_logits), enc_logits, -math.inf).amax(dim=-1)
+            _, topk_idx = self.query_select(topk_scores)
+            topk_boxes = torch.gather(enc_boxes_logits, 1, topk_idx[..., None].expand(-1, -1, 4))
+            reference = torch.sigmoid(topk_boxes)  # [B, Q, 4]
 
-        # Decoder with box refinement.
-        hidden = self.query_embeds[None].to(c.dtype).expand(b, -1, -1)
-        for i in range(c.decoder_layers):
-            ref_in = reference[:, :, None, :].expand(-1, -1, c.num_feature_levels, -1)
-            query_pos = self.ref_point_head(box_sine_embed(reference, c.d_model))
-            hidden = getattr(self, f"dec{i}")(hidden, query_pos, ref_in, vision, text, text_pad_mask, spatial_shapes)
-            delta = getattr(self, f"dec_bbox{i}")(self.decoder_ln(hidden))
-            reference = torch.sigmoid(delta + _inv_sigmoid(reference))
-        return contrastive(self.decoder_ln(hidden)), reference
+        with timing.span("gdino.decoder"):
+            timing.count("gdino.queries", b * c.num_queries)
+            hidden = self.query_embeds[None].to(c.dtype).expand(b, -1, -1)
+            for i in range(c.decoder_layers):
+                ref_in = reference[:, :, None, :].expand(-1, -1, c.num_feature_levels, -1)
+                query_pos = self.ref_point_head(box_sine_embed(reference, c.d_model))
+                hidden = getattr(self, f"dec{i}")(hidden, query_pos, ref_in, vision, text, text_pad_mask,
+                                                  spatial_shapes)
+                delta = getattr(self, f"dec_bbox{i}")(self.decoder_ln(hidden))
+                reference = torch.sigmoid(delta + _inv_sigmoid(reference))
+            return contrastive(self.decoder_ln(hidden)), reference
 
 
 def prepare_detection_image(image: torch.Tensor, size: int) -> torch.Tensor:
@@ -495,6 +549,30 @@ def prepare_detection_image(image: torch.Tensor, size: int) -> torch.Tensor:
 def _xyxy_pixels(cxcywh: torch.Tensor, w: float, h: float) -> torch.Tensor:
     return torch.stack([(cxcywh[:, 0] - cxcywh[:, 2] / 2) * w, (cxcywh[:, 1] - cxcywh[:, 3] / 2) * h,
                         (cxcywh[:, 0] + cxcywh[:, 2] / 2) * w, (cxcywh[:, 1] + cxcywh[:, 3] / 2) * h], dim=1)
+
+
+class _DetectorGraph:
+    """One key's forward as CUDA graphs over static inputs (the module's
+    docstring). A call copies its inputs in, replays, counts
+    `gdino.graph_replays` and returns copies of the static outputs."""
+
+    def __init__(self, model: GroundingDino, batch: torch.Tensor, inputs: list[torch.Tensor]):
+        self.batch = batch.clone()
+        self.inputs = [t.clone() for t in inputs]
+
+        def step():
+            self.out = model(self.batch, *self.inputs)
+
+        self.graph = capture_segmented(batch.device, step, step, cut_exits=("gdino.deform",))
+        timing.count("gdino.graph_captures")
+
+    def __call__(self, batch: torch.Tensor, inputs: list[torch.Tensor]):
+        self.batch.copy_(batch)
+        for static, t in zip(self.inputs, inputs):
+            static.copy_(t)
+        self.graph.replay()
+        timing.count("gdino.graph_replays")
+        return tuple(o.clone() for o in self.out)
 
 
 class GroundingDinoDetector:
@@ -526,6 +604,7 @@ class GroundingDinoDetector:
         model = GroundingDino(config)
         model.load_state_dict(grounding_dino_from_jax(params))
         self.model = model.to(self.device).eval()
+        self._graphs = GraphCache()
 
     @classmethod
     def from_weights(cls, weights_path: str | None, config: GroundingDinoConfig | None = None, device=None):
@@ -556,11 +635,18 @@ class GroundingDinoDetector:
     @torch.inference_mode()
     def forward_images(self, images, input_ids: np.ndarray | None = None, text: str = "objects."):
         """Images [H, W, 3] (numpy or tensors) sharing one prompt ->
-        (logits [N, Q, max_text_len], boxes [N, Q, 4] cxcywh), on the device."""
+        (logits [N, Q, max_text_len], boxes [N, Q, 4] cxcywh), on the device.
+        On a card a key (batch, prompt ids, dtype, device) seen before
+        replays its graphs (`_DetectorGraph`)."""
         batch = torch.stack([prepare_detection_image(torch.as_tensor(np.array(img), device=self.device),
                                                       self.image_size) for img in images])
-        ids, sa, pos, pad = self._text_inputs(self._prompt_ids(input_ids, text), len(images))
-        return self.model(batch, ids, sa, pos, pad)
+        ids = self._prompt_ids(input_ids, text)
+        inputs = self._text_inputs(ids, len(images))
+        graph = None
+        if batch.device.type == "cuda":
+            key = (tuple(batch.shape), ids.shape, ids.tobytes(), self.config.dtype, batch.device)
+            graph = self._graphs.get(key, lambda: _DetectorGraph(self.model, batch, inputs))
+        return self.model(batch, *inputs) if graph is None else graph(batch, inputs)
 
     @staticmethod
     def query_scores(logits: torch.Tensor) -> torch.Tensor:
@@ -578,12 +664,21 @@ class GroundingDinoDetector:
         (boxes xyxy pixels [N_i, 4], scores [N_i]); only the variable-count
         thresholding runs on the host."""
         logits, boxes = self.forward_images(images, input_ids, text)
-        all_scores = self.query_scores(logits).cpu().numpy()
-        boxes = boxes.cpu()
+        return self.select_boxes(logits, boxes, [img.shape[:2] for img in images], box_threshold)
+
+    def select_boxes(self, logits: torch.Tensor, boxes: torch.Tensor, image_hw, box_threshold):
+        """The host selection of `forward_images`' outputs: per image (H, W)
+        of `image_hw`, the queries whose score exceeds `box_threshold` ->
+        list of (boxes xyxy pixels [N_i, 4], scores [N_i]), numpy. The
+        threshold is a number, or a function of an image's query scores
+        [Q] (numpy) that returns one."""
+        with timing.wait("gdino.scores"):
+            all_scores = self.query_scores(logits).cpu().numpy()
+            boxes = boxes.cpu()
         out = []
-        for i, image in enumerate(images):
-            h, w = image.shape[:2]
-            keep = all_scores[i] > box_threshold
+        for i, (h, w) in enumerate(image_hw):
+            thr = box_threshold(all_scores[i]) if callable(box_threshold) else box_threshold
+            keep = all_scores[i] > thr
             xyxy = (_xyxy_pixels(boxes[i][torch.as_tensor(keep)], w, h).numpy() if keep.any()
                     else np.zeros((0, 4), np.float32))
             out.append((xyxy, all_scores[i][keep]))

@@ -6,7 +6,10 @@ Sam2VideoPredictor: the same calls and the same outputs. The image predictor
 embeds an image once and decodes every prompt set against the cached
 pyramid; all boxes of an image decode as one batched prompt set. The JAX
 predictor bit-packs binary masks on the device to cut the host transfer;
-here bool masks come back directly (the same masks). For video, objects are
+here bool masks come back directly (the same masks). Tracing sees an image
+as `sam2.image.embed` (set_image) and `sam2.image.predict` (the decode, the
+resize and the fetch, which waits in `wait.sam2.image_masks`), and counts
+`sam2.images`. For video, objects are
 grouped by (prompt frame, prompt kind); each group's state is stepped once
 per frame with all its objects batched. Propagation follows the JAX batch
 plan (`batch_plan`): a prompt frame alone, then runs of up to `chunk`
@@ -112,9 +115,11 @@ class Sam2ImagePredictor:
     @torch.inference_mode()
     def set_image(self, image) -> None:
         """image [H, W, 3] uint8 or float in [0, 1] (numpy or a tensor)."""
-        image = torch.as_tensor(image if torch.is_tensor(image) else np.array(image), device=self.device)
-        self._orig_hw = (int(image.shape[0]), int(image.shape[1]))
-        self._pyramid, _ = self.model.embed_image(prepare_image(image, self.image_size))
+        timing.count("sam2.images")
+        with timing.span("sam2.image.embed"):
+            image = torch.as_tensor(image if torch.is_tensor(image) else np.array(image), device=self.device)
+            self._orig_hw = (int(image.shape[0]), int(image.shape[1]))
+            self._pyramid, _ = self.model.embed_image(prepare_image(image, self.image_size))
 
     def _scale_prompts(self, point_coords, point_labels, box):
         """Prompts in original pixels -> (points [1, P, N, 2], labels
@@ -145,11 +150,13 @@ class Sam2ImagePredictor:
         [P, M], low-res logits [P, M, g, g]) as numpy arrays: bool masks
         (logits > 0), or float logits with return_logits; the low-res logits
         are None when fetch_low_res_logits is False."""
-        logits, iou = self._decode(point_coords, point_labels, box, multimask_output)
-        full = resize_bilinear(logits, self._orig_hw)
-        full = full if return_logits else full > 0
-        low = logits.float().cpu().numpy() if fetch_low_res_logits else None
-        return full.cpu().numpy(), iou.float().cpu().numpy(), low
+        with timing.span("sam2.image.predict"):
+            logits, iou = self._decode(point_coords, point_labels, box, multimask_output)
+            full = resize_bilinear(logits, self._orig_hw)
+            full = full if return_logits else full > 0
+            with timing.wait("sam2.image_masks"):
+                low = logits.float().cpu().numpy() if fetch_low_res_logits else None
+                return full.cpu().numpy(), iou.float().cpu().numpy(), low
 
     def predict_device(self, point_coords=None, point_labels=None, box=None, multimask_output: bool = True):
         """`predict` with device outputs: (bool masks [P, M, H, W] at the

@@ -6,6 +6,10 @@ scoring operand) and `pc_min/pc_max/pc_mean` [V, 3], the per-view pointcloud
 statistics the z-lift consumes. Packs live in an LRU dict of device tensors
 with an optional .npz disk tier whose keys and fp16 `feats` match the JAX
 package's, so each package reads the other's packs.
+
+Tracing (utils/timing.py) sees a pack built from its mesh as the span
+`template_bank.build` (the render, the features and the depth statistics)
+and counts `template_bank.packs_built` and `template_bank.views`.
 """
 from __future__ import annotations
 
@@ -98,10 +102,13 @@ class TemplateBank:
         return normalize_feats(torch.cat(outs))
 
     def build_pack(self, name: str, mesh) -> TemplatePack:
-        rgb, depth = self.renderer.render(mesh)
-        props, _, _ = self.renderer.generate_proposals(rgb, depth)
-        feats = self._extract_feats(props)
-        pc_min, pc_max, pc_mean = depth_stats(depth, self.k)
+        with timing.span("template_bank.build"):
+            rgb, depth = self.renderer.render(mesh)
+            props, _, _ = self.renderer.generate_proposals(rgb, depth)
+            feats = self._extract_feats(props)
+            pc_min, pc_max, pc_mean = depth_stats(depth, self.k)
+            timing.count("template_bank.packs_built")
+            timing.count("template_bank.views", int(depth.shape[0]))
         return TemplatePack(name, feats, pc_min, pc_max, pc_mean, self.renderer.poses)
 
     def pack_from_views(self, name: str, images: torch.Tensor, depths: torch.Tensor,

@@ -8,7 +8,8 @@ the trunk's global attention runs on kernel K2 at d 72) -> masks under
 --min-mask-px dropped -> per proposal a 420² crop, DINOv2-L patch features
 at --layer (kernel K2 at d 64) and FFA pooling (or the cls token) -> the
 top-k of the retrieval bank -> optionally a per-view fine rerank over the
-top candidates -> proposal JSON.
+top candidates -> proposal JSON. `propose_image` is one image's work, which
+the benchmark's BOP cells call too.
 
 Detectors: grounding (GroundingDINO boxes + SAM2 masks), gt-boxes (the
 ground-truth boxes + SAM2 masks), gt-masks (the ground-truth visible masks).
@@ -46,9 +47,10 @@ from freepose_tpu_torch.scripts.common import (
 
 
 def detect(args, entry):
-    """-> (masks [N, H, W] bool, boxes [N, 4] xyxy, det_scores [N]), numpy."""
+    """-> (boxes [N, 4] xyxy, det_scores [N], masks [N, H, W] bool or None
+    where SAM2 is to segment the boxes), numpy."""
     if args.detector == "gt-masks":
-        return entry["masks"], entry["boxes"], np.ones(len(entry["boxes"]))
+        return entry["boxes"], np.ones(len(entry["boxes"])), entry["masks"]
     if args.detector == "grounding":
         boxes, det_scores = load_grounding_detector(args.grounding_weights, args.device).detect(
             entry["image"], text=args.text_prompt, box_threshold=args.box_threshold,
@@ -57,12 +59,57 @@ def detect(args, entry):
         boxes, det_scores = entry["boxes"], np.ones(len(entry["boxes"]))
     else:
         raise ValueError(args.detector)
-    if len(boxes) == 0:
-        return np.zeros((0,) + entry["image"].shape[:2], bool), boxes, det_scores
-    predictor = load_sam2_image_predictor(args.sam2_weights, args.device)
-    predictor.set_image(entry["image"])
+    return boxes, det_scores, None
+
+
+def sam2_masks(predictor, image, boxes) -> np.ndarray:
+    """SAM2's masks [N, H, W] bool of an image's boxes [N, 4] xyxy, every
+    box of the image decoded as one prompt set (single-mask output)."""
+    predictor.set_image(image)
     masks, _, _ = predictor.predict(box=np.asarray(boxes), multimask_output=False, fetch_low_res_logits=False)
-    return masks[:, 0], np.asarray(boxes), np.asarray(det_scores)
+    return masks[:, 0]
+
+
+def propose_image(entry, detect_fn, segment_fn, extractor, bank_dev: torch.Tensor, names: list[str], *,
+                  layer: int = 22, feature_type: str = "ffa", min_mask_px: int = 400, rerank=None,
+                  telemetry: dict | None = None) -> list[dict]:
+    """One BOP image's proposal entries: detection, SAM2 masks, the
+    `min_mask_px` filter, DINOv2 retrieval (top-100 of the bank) and, per
+    kept mask, its mesh and score.
+
+    `entry` is a BOPDataset item (image, scene_id, frame_id; boxes and masks
+    for the ground-truth detectors). `detect_fn(entry)` -> (boxes [N, 4]
+    xyxy, scores [N], masks [N, H, W] bool or None); `segment_fn(image,
+    boxes)` -> masks, called where the detector gave none and found a box.
+    `rerank(indices [k], feature [D])` -> (mesh, score) replaces the top-1
+    of the bank where given. `telemetry`, where given, receives the image's
+    intermediate results (references, no copy): boxes, det_scores, masks (all
+    of them), keep (indices of the kept masks), and where any was kept the
+    retrieval's scores, indices and features [N_kept, ...]."""
+    image = entry["image"]
+    boxes, det_scores, masks = detect_fn(entry)
+    if masks is None:
+        masks = segment_fn(image, boxes) if len(boxes) else np.zeros((0,) + image.shape[:2], bool)
+    keep = [i for i, m in enumerate(masks) if m.sum() >= min_mask_px]
+    if telemetry is not None:
+        telemetry.update(boxes=boxes, det_scores=det_scores, masks=masks, keep=keep)
+    if not keep:
+        return []
+    masks, boxes = masks[keep], np.asarray(boxes)[keep]
+    scores, indices, feats = retrieve_topk(
+        np.array(image), masks, torch.as_tensor(boxes, dtype=torch.float32), bank_dev, extractor,
+        layer=layer, feature_type=feature_type, k=min(100, len(names)), target_size=420, bbox_extend=0.1)
+    if telemetry is not None:
+        telemetry.update(scores=scores, indices=indices, feats=feats)
+    scores, indices = scores.cpu().numpy(), indices.cpu().numpy()
+    out = []
+    for i in range(len(masks)):
+        if rerank is not None:
+            mesh, score = rerank(indices[i], feats[i])
+        else:
+            mesh, score = names[indices[i][0]], float(scores[i][0])
+        out.append(proposal_entry(boxes[i], masks[i], mesh, score, entry["scene_id"], entry["frame_id"]))
+    return out
 
 
 def fine_candidates(args, names: list[str], fine_bank, rows: np.ndarray) -> np.ndarray:
@@ -114,28 +161,20 @@ def main(argv: list[str] | None = None) -> None:
 
         fine_bank = FineFeatureBank(args.fine_bank)
 
+    def segment(image, boxes):
+        return sam2_masks(load_sam2_image_predictor(args.sam2_weights, args.device), image, boxes)
+
+    def fine_rerank(rows, feat):
+        fine = torch.as_tensor(fine_candidates(args, names, fine_bank, rows), device=feat.device)
+        fine_scores = fine_rerank_scores(fine, feat, args.topk).cpu().numpy()
+        best = int(np.argmax(fine_scores))
+        return names[rows[best]], float(fine_scores[best])
+
     out = []
     for idx in get_shard(args).slice(len(dataset)):
-        entry = dataset[idx]
-        masks, boxes, _ = detect(args, entry)
-        keep = [i for i, m in enumerate(masks) if m.sum() >= args.min_mask_px]
-        if not keep:
-            continue
-        masks, boxes = masks[keep], np.asarray(boxes)[keep]
-        scores, indices, feats = retrieve_topk(
-            np.array(entry["image"]), masks, torch.as_tensor(boxes, dtype=torch.float32), bank_dev, extractor,
-            layer=args.layer, feature_type=args.feature_type, k=min(100, len(names)), target_size=420,
-            bbox_extend=0.1)
-        scores, indices = scores.cpu().numpy(), indices.cpu().numpy()
-        for i in range(len(masks)):
-            if rerank:
-                fine = torch.as_tensor(fine_candidates(args, names, fine_bank, indices[i]), device=feats.device)
-                fine_scores = fine_rerank_scores(fine, feats[i], args.topk).cpu().numpy()
-                best = int(np.argmax(fine_scores))
-                mesh, score = names[indices[i][best]], float(fine_scores[best])
-            else:
-                mesh, score = names[indices[i][0]], float(scores[i][0])
-            out.append(proposal_entry(boxes[i], masks[i], mesh, score, entry["scene_id"], entry["frame_id"]))
+        out += propose_image(dataset[idx], lambda entry: detect(args, entry), segment, extractor, bank_dev, names,
+                             layer=args.layer, feature_type=args.feature_type, min_mask_px=args.min_mask_px,
+                             rerank=fine_rerank if rerank else None)
 
     name = proposals_filename(args.box_threshold, args.text_threshold, args.feature_type, args.layer, args.topk,
                               Path(args.dataset).name)

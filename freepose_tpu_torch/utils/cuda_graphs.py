@@ -15,9 +15,16 @@ card; replayed as a graph it is one launch from the host.
 - A `Graph`'s replay adds to the program's counters (utils/timing.py) what
   its capture counted, so `launch.<kernel>` counts the kernels each replay
   runs: a capture records its kernels and runs none.
+- `capture_segmented` captures a step that opens program spans as a
+  sequence of graphs cut where a span opens (and where a span named to it
+  closes); its replay (`Segmented`) reopens each span around the graphs it
+  held, so a replayed step is traced as its eager run is. The step opens a
+  span before its first kernel, and between a span's close and the next
+  span's open it launches nothing, unless that close is a cut.
 """
 from __future__ import annotations
 
+import gc
 from typing import Callable, Hashable, Optional
 
 import torch
@@ -58,6 +65,91 @@ def capture(device, warm_up: Callable[[], object], *parts: Callable[[], object])
                 part()
             graphs.append(Graph(graph, counts))
     return graphs
+
+
+class Segmented:
+    """A step captured by `capture_segmented`: its graphs and span events in
+    the step's order, and the counts its capture made."""
+
+    def __init__(self, items: list, counts: dict[str, int]):
+        self.items, self.counts = items, counts
+
+    def replay(self) -> None:
+        opened = []
+        for kind, item in self.items:
+            if kind == "graph":
+                item.replay()
+            elif kind == "enter":
+                opened.append(timing.span(item))
+                opened[-1].__enter__()
+            else:
+                opened.pop().__exit__(None, None, None)
+        for name, n in self.counts.items():
+            timing.count(name, n)
+
+
+class _Segmenter:
+    """Cuts a capture where the step opens a span, and where a span of
+    `cut_exits` closes; other closes wait for the graph they end in."""
+
+    def __init__(self, pool, cut_exits: set[str]):
+        self.pool, self.cut_exits = pool, cut_exits
+        self.items: list = []
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.pending: list = []
+
+    def _end(self) -> None:
+        if self.graph is not None:
+            self.graph.capture_end()
+            self.items.append(("graph", self.graph))
+        self.items += self.pending
+        self.graph, self.pending = None, []
+
+    def _begin(self) -> None:
+        self.graph = torch.cuda.CUDAGraph()
+        self.graph.capture_begin(pool=self.pool)
+
+    def enter(self, name: str) -> None:
+        self._end()
+        self.items.append(("enter", name))
+        self._begin()
+
+    def exit(self, name: str) -> None:
+        if name in self.cut_exits:
+            self._end()
+            self.items.append(("exit", name))
+            self._begin()
+        else:
+            self.pending.append(("exit", name))
+
+    def finish(self) -> list:
+        self._end()
+        return self.items
+
+
+def capture_segmented(device, warm_up: Callable[[], object], step: Callable[[], object],
+                      cut_exits: tuple[str, ...] = ()) -> Segmented:
+    """`warm_up()` once on a side stream of `device`, then `step()` captured
+    on it, cut at its spans (the module's docstring), the graphs in one
+    memory pool. The step leaves its outputs where its caller reads them."""
+    with torch.cuda.device(device):
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            warm_up()
+        torch.cuda.current_stream(device).wait_stream(side)
+        torch.cuda.synchronize(device)
+        gc.collect()
+        cuts = _Segmenter(torch.cuda.graph_pool_handle(), set(cut_exits))
+        with timing.tally() as counts, torch.cuda.stream(side):
+            timing._segmenter = cuts
+            try:
+                step()
+            finally:
+                timing._segmenter = None
+                items = cuts.finish()
+        torch.cuda.current_stream(device).wait_stream(side)
+    return Segmented(items, counts)
 
 
 class GraphCache:

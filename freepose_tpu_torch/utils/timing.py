@@ -46,6 +46,7 @@ _forced = 0  # depth of open tracing() blocks
 _stale = False  # a span ran with tracing off since the session began
 _open: list[str] = []  # names of the spans open now, outermost first
 _tally: dict[str, int] | None = None  # the counts of the open tally() block
+_segmenter = None  # a capture cutting its step at the step's spans (utils/cuda_graphs.py:capture_segmented)
 
 
 class _Off:
@@ -93,10 +94,30 @@ def reset() -> None:
     _stale = False
 
 
+class _Cut:
+    """A span met while a segmented capture runs: it tells the capture,
+    which cuts its graph there and replays the span around the parts."""
+
+    __slots__ = ("name",)
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        _segmenter.enter(self.name)
+        return self
+
+    def __exit__(self, *exc):
+        _segmenter.exit(self.name)
+        return False
+
+
 def span(name: str):
     """A context manager around the work of `name` (see the module's
     docstring); while tracing is off, the shared no-op."""
     global _stale
+    if _segmenter is not None:
+        return _Cut(name)
     if not (_forced or _profiler._is_profiler_enabled):
         _stale = True
         return _OFF

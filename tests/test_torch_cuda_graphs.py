@@ -3,9 +3,11 @@ cuda_graphs.py, utils/timing.py:tally), on the CPU with stand-ins for the
 graphs: a key runs eagerly on its first call, is made on its second and
 kept after; the newest GRAPH_KEYS keys are kept; a copy starts empty; a
 replay counts what its capture counted, and a capture's counts stay out of
-the program's counters. The captures themselves are tested on a card
+the program's counters; a segmented capture cuts at spans and its replay
+reopens them. The captures themselves are tested on a card
 (test_torch_cuda_kernels.py, test_torch_cotracker2_reference.py, and here
-SAM2's tracking step, marked `cuda`: skipped without a GPU)."""
+SAM2's tracking step and GroundingDINO's forward, marked `cuda`: skipped
+without a GPU)."""
 import copy
 
 import numpy as np
@@ -176,3 +178,95 @@ def test_sam2_graphed_tracking_equals_eager(cuda, monkeypatch):
         for f in STATE_TENSORS:
             assert torch.equal(getattr(run[2], f), getattr(eager[2], f)), f
         assert (run[2].ring_pos, run[2].ptr_ring_pos) == (eager[2].ring_pos, eager[2].ptr_ring_pos)
+
+
+class _StandInGraph:
+    """A stand-in for torch.cuda.CUDAGraph that logs its capture and replays."""
+
+    log: list = []
+
+    def __init__(self):
+        self.i = sum(1 for e in self.log if e[0] == "begin")
+
+    def capture_begin(self, pool=None):
+        self.log.append(("begin", self.i))
+
+    def capture_end(self):
+        self.log.append(("end", self.i))
+
+    def replay(self):
+        self.log.append(("replay", self.i))
+
+
+def test_segmented_capture_cuts_at_spans_and_replays_them(monkeypatch):
+    """A segmented capture (utils/cuda_graphs.py:_Segmenter, Segmented) on the
+    CPU with stand-in graphs: every span's open cuts the capture, a close
+    named to it cuts too, other closes follow the graph they end in; the
+    replay reopens the spans around the graphs in the eager order, with the
+    eager nesting, and adds the capture's counts."""
+    from freepose_tpu_torch.utils import cuda_graphs
+
+    _StandInGraph.log = []
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _StandInGraph)
+    cuts = cuda_graphs._Segmenter(None, {"gdino.deform"})
+
+    def step():
+        timing.count("gdino.images")
+        with timing.span("gdino.text"):
+            pass
+        with timing.span("gdino.encoder"):
+            with timing.span("gdino.deform"):
+                pass
+        with timing.span("gdino.decoder"):
+            pass
+
+    with timing.tally() as counts:
+        timing._segmenter = cuts
+        try:
+            step()
+        finally:
+            timing._segmenter = None
+    items = cuts.finish()
+    kinds = [(k, x if k != "graph" else x.i) for k, x in items]
+    assert kinds == [("enter", "gdino.text"), ("graph", 0), ("exit", "gdino.text"), ("enter", "gdino.encoder"),
+                     ("graph", 1), ("enter", "gdino.deform"), ("graph", 2), ("exit", "gdino.deform"), ("graph", 3),
+                     ("exit", "gdino.encoder"), ("enter", "gdino.decoder"), ("graph", 4), ("exit", "gdino.decoder")]
+    assert timing.records == [] and counts == {"gdino.images": 1}
+    with timing.tracing():
+        cuda_graphs.Segmented(items, counts).replay()
+        spans = [(name, parent) for name, parent, _, _ in timing.records]
+        assert dict(timing.counts) == {"gdino.images": 1}
+    assert sorted(spans) == sorted([("gdino.text", None), ("gdino.deform", "gdino.encoder"),
+                                    ("gdino.encoder", None), ("gdino.decoder", None)])
+    assert [e for e in _StandInGraph.log if e[0] == "replay"] == [("replay", i) for i in range(5)]
+
+
+@pytest.mark.cuda
+def test_graphed_grounding_dino_equals_eager(cuda):
+    """GroundingDINO at GDINO_TEST in bf16 on the card: a key's first call
+    runs eagerly, its second captures and replays, later calls replay; every
+    replay's logits and boxes equal the eager forward's bit for bit, and a
+    replay under tracing opens the eager forward's spans and counts."""
+    import dataclasses
+
+    from freepose_tpu_torch.models.grounding_dino import GDINO_TEST, GroundingDinoDetector, prepare_detection_image
+
+    bf = torch.bfloat16
+    cfg = dataclasses.replace(GDINO_TEST, dtype=bf, swin=dataclasses.replace(GDINO_TEST.swin, dtype=bf),
+                              text=dataclasses.replace(GDINO_TEST.text, dtype=bf))
+    det = GroundingDinoDetector(cfg, image_size=160, device=cuda)
+    images = [(np.random.default_rng(i).random((120, 160, 3)) * 255).astype(np.uint8) for i in range(3)]
+    with torch.inference_mode():
+        eager = [det.model(prepare_detection_image(torch.as_tensor(im, device=cuda), 160)[None],
+                           *det._text_inputs(det._prompt_ids(None, "objects."), 1)) for im in images]
+    outs = [det.forward_images([im]) for im in images + images[:1]]
+    torch.cuda.synchronize()
+    assert timing.counts.get("gdino.graph_captures") == 1 and timing.counts.get("gdino.graph_replays") == 3
+    for (logits, boxes), (ref_logits, ref_boxes) in zip(outs, eager + eager[:1]):
+        assert torch.equal(logits, ref_logits) and torch.equal(boxes, ref_boxes)
+    timing.reset()
+    det.forward_images([images[1]])
+    names = [r[0] for r in timing.records]
+    assert names.count("gdino.deform") == cfg.encoder_layers + cfg.decoder_layers
+    assert {"gdino.text", "gdino.backbone", "gdino.encoder", "gdino.select", "gdino.decoder"} <= set(names)
+    assert timing.counts["gdino.images"] == 1 and timing.counts["gdino.graph_replays"] == 1

@@ -117,3 +117,25 @@ def test_tree_of_the_jax_init_loads():
     ours.set_image(image)
     _assert_same(ours.predict(box=BOXES[:2], multimask_output=False),
                  jax_pred.predict(box=BOXES[:2], multimask_output=False))
+
+
+def test_tracing_sees_the_image_path():
+    """Inside timing.tracing(): one image counted, its embedding and its
+    prediction as spans, the fetch as a wait nested in the prediction; the
+    masks are those of an untraced call."""
+    from freepose_tpu_torch.utils import timing
+
+    pred = Sam2ImagePredictor(SAM2_TEST, random_sam2_image_params(SAM2_TEST, seed=3), image_size=64, device="cpu")
+    image = (np.random.default_rng(3).random((48, 80, 3)) * 255).astype(np.uint8)
+    pred.set_image(image)
+    plain = pred.predict(box=BOXES, multimask_output=False)
+    with timing.tracing():
+        pred.set_image(image)
+        traced = pred.predict(box=BOXES, multimask_output=False)
+        records, counts = list(timing.records), dict(timing.counts)
+    names = [(name, parent) for name, parent, _, _ in records]
+    assert counts.get("sam2.images") == 1
+    assert ("sam2.image.embed", None) in names and ("sam2.image.predict", None) in names
+    assert ("wait.sam2.image_masks", "sam2.image.predict") in names
+    for a, b in zip(traced, plain):
+        np.testing.assert_array_equal(a, b)
