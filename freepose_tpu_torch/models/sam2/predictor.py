@@ -9,7 +9,27 @@ predictor bit-packs binary masks on the device to cut the host transfer;
 here bool masks come back directly (the same masks). Tracing sees an image
 as `sam2.image.embed` (set_image) and `sam2.image.predict` (the decode, the
 resize and the fetch, which waits in `wait.sam2.image_masks`), and counts
-`sam2.images`. For video, objects are
+`sam2.images`.
+
+On a card, under inference mode, the image predictor replays two CUDA
+graphs (utils/cuda_graphs.py; a key's first call runs eagerly, its second
+captures, later calls replay), the same kernels in the eager order:
+`_TrunkGraph`, the image trunk (Hiera, the neck, the skip projections and
+the no-memory embedding) over a static [1, 3, S, S] input, so every image
+size shares one graph and the pyramid the predictor holds is its static
+output, valid until the next `set_image`; and `_DecodeGraph`, the prompt
+encoder and the mask decoder over a prompt set padded to the next multiple
+of PROMPT_BUCKET rows by repeating its last prompt (the decoder treats
+prompts independently, so the first P rows are those of the P prompts), so
+1 to 16 prompts share one graph. The upload, resize and normalisation before
+the trunk stay eager, as do the two seams a caller may replace on the
+instance: `_scale_prompts` (the prompts in model coordinates, before any
+copy into the graph) and `_decode` (which `predict` calls). The counters
+`sam2.image.graph_captures` and `sam2.image.graph_replays` count them; the
+automatic mask generator shares the trunk graph and decodes eagerly. The CPU
+runs everything eagerly, the prompts unpadded.
+
+For video, objects are
 grouped by (prompt frame, prompt kind); each group's state is stepped once
 per frame with all its objects batched. Propagation follows the JAX batch
 plan (`batch_plan`): a prompt frame alone, then runs of up to `chunk`
@@ -43,6 +63,9 @@ from freepose_tpu_torch.models.sam2.model import Sam2Config, Sam2ImageModel, sam
 from freepose_tpu_torch.models.sam2.video import Sam2VideoConfig, Sam2VideoModel, init_object_state
 from freepose_tpu_torch.ops.sampling import resize_bilinear
 from freepose_tpu_torch.utils import timing
+from freepose_tpu_torch.utils.cuda_graphs import GraphCache, capture
+
+PROMPT_BUCKET = 16  # a graphed decode pads its prompt set to a multiple of this many rows
 
 
 def prepare_image(image: torch.Tensor, size: int) -> torch.Tensor:
@@ -84,6 +107,115 @@ def scale_coords(coords: torch.Tensor, orig_hw: tuple[int, int], size: int) -> t
     return coords * torch.tensor([size / w, size / h], dtype=coords.dtype, device=coords.device)
 
 
+def _to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """`t` on `device`; a host tensor reaches a card through pinned memory
+    without blocking the host (an upload from pageable memory waits for the
+    work queued before it, such as the trunk)."""
+    if device.type != "cuda" or t.device.type != "cpu":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def prompt_bucket(n: int) -> int:
+    """The rows a graphed decode of `n` prompts runs: the next multiple of
+    PROMPT_BUCKET at or above n."""
+    return -(-n // PROMPT_BUCKET) * PROMPT_BUCKET
+
+
+def pad_prompts(prompts, rows: int):
+    """(points [1, P, N, 2], labels [1, P, N], boxes [1, P, 4]), each a
+    tensor or None, padded on the prompt axis to `rows` by repeating the last
+    prompt."""
+    def pad(x):
+        if x is None or x.shape[1] == rows:
+            return x
+        return torch.cat([x, x[:, -1:].expand(-1, rows - x.shape[1], *x.shape[2:])], dim=1)
+
+    return tuple(pad(x) for x in prompts)
+
+
+def trunk_graph_key(config: Sam2Config, device: torch.device, pixels: torch.Tensor):
+    """The key of the CUDA graph that replays the image trunk on `pixels`
+    (normalised, [1, 3, S, S]), or None (eager): the CPU, or outside
+    inference mode. It holds what a replay depends on and a call can see: the
+    input's shape and dtype, and the global blocks' attention function, so a
+    swapped function never replays the former one."""
+    if device.type != "cuda" or not torch.is_inference_mode_enabled():
+        return None
+    from freepose_tpu_torch.ops import attention
+
+    return tuple(pixels.shape), pixels.dtype, attention.flash_attention_auto if config.hiera.use_flash else None
+
+
+def decode_graph_key(device: torch.device, prompts, multimask: bool):
+    """The key of the CUDA graph that decodes `prompts` (`_scale_prompts`'
+    triple), or None (eager): the CPU, outside inference mode, or no prompt.
+    It holds the padded row count, each prompt kind's presence, its shape
+    past the prompt axis (the points a prompt) and dtype, and the multimask
+    choice."""
+    given = [p for p in prompts if p is not None]
+    if device.type != "cuda" or not given or given[0].shape[1] == 0 or not torch.is_inference_mode_enabled():
+        return None
+    return (prompt_bucket(given[0].shape[1]), multimask,
+            *(None if p is None else (tuple(p.shape[2:]), p.dtype) for p in prompts))
+
+
+def _decode_masks(model: Sam2ImageModel, pyramid, prompts, multimask: bool):
+    """-> (low-res logits [P, M, g, g], iou [P, M]) of the prompt triple."""
+    points, labels, boxes = prompts
+    masks, iou, _, _ = model.decode_masks(pyramid, points=points, labels=labels, boxes=boxes,
+                                          multimask_output=multimask)
+    return masks[0], iou[0]
+
+
+class _TrunkGraph:
+    """`embed_image` over a static input as one CUDA graph. A call copies
+    its pixels in, replays, counts `sam2.image.graph_replays` and returns the
+    static pyramid, which the next replay overwrites."""
+
+    def __init__(self, model: Sam2ImageModel, pixels: torch.Tensor):
+        self.pixels = pixels.clone()
+
+        def embed():
+            self.pyramid, _ = model.embed_image(self.pixels)
+
+        self.graph, = capture(pixels.device, embed, embed)
+        timing.count("sam2.image.graph_captures")
+
+    def __call__(self, pixels: torch.Tensor) -> list[torch.Tensor]:
+        self.pixels.copy_(pixels)
+        self.graph.replay()
+        timing.count("sam2.image.graph_replays")
+        return self.pyramid
+
+
+class _DecodeGraph:
+    """The prompt encoder and the mask decoder over a static pyramid and a
+    static padded prompt set as one CUDA graph. A call copies the pyramid
+    and the padded prompts in, replays, counts `sam2.image.graph_replays`
+    and returns copies of the first P rows."""
+
+    def __init__(self, model: Sam2ImageModel, pyramid, prompts, multimask: bool):
+        self.pyramid = [t.clone() for t in pyramid]
+        self.prompts = [None if p is None else p.clone() for p in prompts]
+
+        def decode():
+            self.out = _decode_masks(model, self.pyramid, self.prompts, multimask)
+
+        self.graph, = capture(pyramid[0].device, decode, decode)
+        timing.count("sam2.image.graph_captures")
+
+    def __call__(self, pyramid, prompts, n: int):
+        for static, t in zip(self.pyramid, pyramid):
+            static.copy_(t)
+        for static, p in zip(self.prompts, prompts):
+            if static is not None:
+                static.copy_(p)
+        self.graph.replay()
+        timing.count("sam2.image.graph_replays")
+        return tuple(o[:n].clone() for o in self.out)
+
+
 class Sam2ImagePredictor:
     """Prompted masks on one image. params: the JAX package's Sam2ImageModel
     parameter tree (the "image" subtree of a video model's), converted by
@@ -111,38 +243,60 @@ class Sam2ImagePredictor:
         self.model = model.to(self.device).eval()
         self._pyramid = None
         self._orig_hw = None
+        # The graphs replay the model's parameter tensors of their capture:
+        # weights are copied into them in place (load_state_dict) before use.
+        self._trunk_graphs, self._decode_graphs = GraphCache(), GraphCache()
 
     @torch.inference_mode()
     def set_image(self, image) -> None:
-        """image [H, W, 3] uint8 or float in [0, 1] (numpy or a tensor)."""
+        """image [H, W, 3] uint8 or float in [0, 1] (numpy or a tensor). On a
+        card the trunk replays its key's graph (`_TrunkGraph`), and the
+        pyramid is the graph's static output until the next call."""
         timing.count("sam2.images")
         with timing.span("sam2.image.embed"):
-            image = torch.as_tensor(image if torch.is_tensor(image) else np.array(image), device=self.device)
+            image = _to_device(image if torch.is_tensor(image) else torch.from_numpy(np.ascontiguousarray(image)),
+                               self.device)
             self._orig_hw = (int(image.shape[0]), int(image.shape[1]))
-            self._pyramid, _ = self.model.embed_image(prepare_image(image, self.image_size))
+            pixels = prepare_image(image, self.image_size)
+            key = trunk_graph_key(self.model.config, self.device, pixels)
+            graph = None if key is None else self._trunk_graphs.get(key, lambda: _TrunkGraph(self.model, pixels))
+            self._pyramid = self.model.embed_image(pixels)[0] if graph is None else graph(pixels)
 
     def _scale_prompts(self, point_coords, point_labels, box):
         """Prompts in original pixels -> (points [1, P, N, 2], labels
-        [1, P, N], boxes [1, P, 4]) in model coordinates, or None each."""
+        [1, P, N], boxes [1, P, 4]) in model coordinates, or None each.
+        Host prompts are scaled on the host and reach a card without
+        blocking it (`_to_device`); device boxes are scaled there."""
         pts = labels = boxes = None
         dev, hw, size = self.device, self._orig_hw, self.image_size
         if point_coords is not None:
-            pts = scale_coords(torch.as_tensor(np.asarray(point_coords), dtype=torch.float32, device=dev), hw, size)
-            pts = pts.reshape(1, -1, pts.shape[-2] if pts.ndim > 2 else pts.shape[0], 2)
-            labels = torch.as_tensor(np.asarray(point_labels), device=dev).long().reshape(1, pts.shape[1], -1)
+            pts = scale_coords(torch.as_tensor(np.asarray(point_coords), dtype=torch.float32), hw, size)
+            pts = _to_device(pts.reshape(1, -1, pts.shape[-2] if pts.ndim > 2 else pts.shape[0], 2), dev)
+            labels = _to_device(torch.as_tensor(np.asarray(point_labels)).long().reshape(1, pts.shape[1], -1), dev)
         if box is not None:
-            b = torch.as_tensor(box if torch.is_tensor(box) else np.asarray(box), dtype=torch.float32, device=dev)
-            boxes = scale_coords(b.reshape(1, -1, 2, 2), hw, size).reshape(1, -1, 4)
+            b = box.float() if torch.is_tensor(box) else torch.as_tensor(np.asarray(box), dtype=torch.float32)
+            boxes = _to_device(scale_coords(b.reshape(1, -1, 2, 2), hw, size).reshape(1, -1, 4), dev)
         return pts, labels, boxes
 
     @torch.inference_mode()
     def _decode(self, point_coords, point_labels, box, multimask_output: bool):
+        """-> (low-res logits [P, M, g, g], iou [P, M]) on the device. On a
+        card the prompt set pads to its bucket and replays its key's graph
+        (`_DecodeGraph`); the key's first call runs the padded set eagerly."""
         if self._pyramid is None:
             raise RuntimeError("call set_image first")
-        pts, labels, boxes = self._scale_prompts(point_coords, point_labels, box)
-        masks, iou, _, _ = self.model.decode_masks(self._pyramid, points=pts, labels=labels, boxes=boxes,
-                                                   multimask_output=multimask_output)
-        return masks[0], iou[0]
+        prompts = self._scale_prompts(point_coords, point_labels, box)
+        key = decode_graph_key(self.device, prompts, multimask_output)
+        if key is None:
+            return _decode_masks(self.model, self._pyramid, prompts, multimask_output)
+        n = next(p.shape[1] for p in prompts if p is not None)
+        padded = pad_prompts(prompts, key[0])
+        graph = self._decode_graphs.get(key, lambda: _DecodeGraph(self.model, self._pyramid, padded,
+                                                                  multimask_output))
+        if graph is None:
+            masks, iou = _decode_masks(self.model, self._pyramid, padded, multimask_output)
+            return masks[:n], iou[:n]
+        return graph(self._pyramid, padded, n)
 
     def predict(self, point_coords=None, point_labels=None, box=None, multimask_output: bool = True,
                 return_logits: bool = False, fetch_low_res_logits: bool = True):

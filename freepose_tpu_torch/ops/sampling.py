@@ -9,6 +9,8 @@ align_corners=False) and `resize_bicubic_torch` its bicubic mode.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -146,12 +148,22 @@ def _bicubic_axis_matrix(in_size: int, out_size: int) -> np.ndarray:
     return mat
 
 
+@functools.lru_cache(maxsize=64)
+def _bicubic_axis_weights(in_size: int, out_size: int, device: torch.device) -> torch.Tensor:
+    """`_bicubic_axis_matrix` on `device`, uploaded once per shape and
+    device: a CUDA graph cannot capture an upload from pageable memory, and
+    the Hiera trunk replays as one (models/sam2/predictor.py:_TrunkGraph).
+    Made outside inference mode, so a later call that records autograd can
+    use it; callers only read it."""
+    with torch.inference_mode(False), timing.wait("sampling.resize_bicubic"):  # the upload synchronises
+        return torch.as_tensor(_bicubic_axis_matrix(in_size, out_size), device=device)
+
+
 def resize_bicubic_torch(img: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
     """Bicubic resize of [..., H, W] to fp32, as torch F.interpolate
     (mode="bicubic", align_corners=False, antialias=False); the Hiera
     windowed position embedding's resample."""
     h, w = img.shape[-2], img.shape[-1]
-    with timing.wait("sampling.resize_bicubic"):  # uploads from pageable memory synchronise
-        wy = torch.as_tensor(_bicubic_axis_matrix(h, out_hw[0]), device=img.device)
-        wx = torch.as_tensor(_bicubic_axis_matrix(w, out_hw[1]), device=img.device)
+    wy = _bicubic_axis_weights(h, out_hw[0], img.device)
+    wx = _bicubic_axis_weights(w, out_hw[1], img.device)
     return torch.matmul(torch.matmul(wy, img.to(torch.float32)), wx.T)

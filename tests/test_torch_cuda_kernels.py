@@ -985,17 +985,19 @@ def test_sam2_image_masks_with_k2_match_plain(cuda):
     """Sam2ImagePredictor at the production config (Hiera-L at 1024², bf16,
     the global blocks on K2 at d 72), 8 boxes as one prompt set, seeded
     random weights: the masks with every attention call on the kernels and
-    on the plain versions, mean IoU >= 0.9 (bf16 sums in another order)."""
+    on the plain versions, mean IoU >= 0.9 (bf16 sums in another order).
+    Each run has a predictor of its own (the same weights), so neither
+    replays a CUDA graph captured under the other's attention."""
     from chip_smoke import plain_attention_auto
     from freepose_tpu_torch.models.sam2.predictor import Sam2ImagePredictor
     from freepose_tpu_torch.ops import attention
     from freepose_tpu_torch.scripts.common import production_sam2_config
 
     cfg, size = production_sam2_config(cuda)
-    pred = Sam2ImagePredictor(cfg, image_size=size, device=cuda)
     image, boxes = _boxed_image()
     runs, kernel_auto = [], attention.flash_attention_auto
     for plain in (False, True):
+        pred = Sam2ImagePredictor(cfg, image_size=size, device=cuda)
         before = _launches("k2")
         if plain:
             attention.flash_attention_auto = plain_attention_auto
@@ -1007,6 +1009,7 @@ def test_sam2_image_masks_with_k2_match_plain(cuda):
         assert (_launches("k2") > before) != plain
         assert masks.shape == (8, 1, 480, 640) and np.isfinite(iou).all()
         runs.append(masks[:, 0])
+        del pred
     inter = (runs[0] & runs[1]).sum(axis=(1, 2))
     union = (runs[0] | runs[1]).sum(axis=(1, 2))
     assert np.mean(np.where(union > 0, inter / np.maximum(union, 1), 1.0)) >= 0.9

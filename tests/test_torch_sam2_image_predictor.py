@@ -5,8 +5,9 @@ tree of seeded parameters (models/convert.py:random_sam2_image_params) in
 both packages, fp32. Box and point prompts give the same bool masks at the
 original resolution and IoU scores within 1e-4 (low-res logits within 1e-4
 too); boxes decoded as one batched prompt set equal the same boxes decoded
-one by one; return_logits gives the JAX logits within 1e-4, and
-predict_device the same masks on the device.
+one by one; a prompt set padded to its graph bucket by repeating its last
+prompt gives the unpadded set's rows; return_logits gives the JAX logits
+within 1e-4, and predict_device the same masks on the device.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -18,7 +19,8 @@ from freepose_tpu.models.sam2.predictor import Sam2ImagePredictor as JaxPredicto
 from freepose_tpu.models.sam2.predictor import scale_coords as jax_scale_coords
 from freepose_tpu_torch.models.convert import random_sam2_image_params
 from freepose_tpu_torch.models.sam2.model import SAM2_TEST
-from freepose_tpu_torch.models.sam2.predictor import Sam2ImagePredictor, scale_coords
+from freepose_tpu_torch.models.sam2.predictor import (Sam2ImagePredictor, _decode_masks, pad_prompts, prompt_bucket,
+                                                     scale_coords)
 
 ATOL = 1e-4
 BOXES = np.array([[10, 10, 60, 40], [5, 20, 30, 45], [40, 2, 78, 30], [0, 0, 80, 48]], np.float32)
@@ -74,6 +76,35 @@ def test_batched_boxes_equal_sequential(predictors):
         np.testing.assert_array_equal(m[0], masks[i])
         np.testing.assert_allclose(s[0], iou[i], atol=1e-5)
         np.testing.assert_allclose(lo[0], low[i], atol=1e-5)
+
+
+@pytest.mark.parametrize("prompt", [
+    dict(box=BOXES),
+    dict(box=BOXES[2:3]),
+    dict(point_coords=np.array([[[32.0, 20.0], [70.0, 40.0]], [[5.0, 5.0], [60.0, 10.0]]]),
+         point_labels=np.array([[1, 0], [1, 1]])),
+], ids=["four_boxes", "one_box", "two_point_sets"])
+def test_padded_prompts_decode_as_unpadded(predictors, prompt):
+    """The graphed decode's padding (models/sam2/predictor.py:pad_prompts):
+    the prompt set repeated at its last prompt up to the bucket of 16 rows
+    decodes its first P rows as the unpadded set does."""
+    _, ours = predictors
+    prompts = ours._scale_prompts(prompt.get("point_coords"), prompt.get("point_labels"), prompt.get("box"))
+    n = next(p.shape[1] for p in prompts if p is not None)
+    padded = pad_prompts(prompts, prompt_bucket(n))
+    assert all(p is None or p.shape[1] == 16 for p in padded)
+    with torch.inference_mode():
+        masks, iou = _decode_masks(ours.model, ours._pyramid, prompts, False)
+        pad_masks, pad_iou = _decode_masks(ours.model, ours._pyramid, padded, False)
+    assert pad_masks.shape[0] == 16
+    np.testing.assert_allclose(pad_masks[:n].numpy(), masks.numpy(), atol=1e-5)
+    np.testing.assert_array_equal(pad_masks[:n].numpy() > 0, masks.numpy() > 0)
+    np.testing.assert_allclose(pad_iou[:n].numpy(), iou.numpy(), atol=1e-5)
+
+
+@pytest.mark.parametrize("n,bucket", [(1, 16), (4, 16), (12, 16), (16, 16), (17, 32), (40, 48)])
+def test_prompt_bucket(n, bucket):
+    assert prompt_bucket(n) == bucket
 
 
 def test_return_logits_and_predict_device(predictors):
